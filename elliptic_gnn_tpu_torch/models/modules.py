@@ -1,0 +1,212 @@
+"""SAGE-ResBN model family as nn.Modules (port of
+elliptic_gnn_tpu/models/modules.py, SAGE-ResBN part).
+
+    model = build_model("sage_resbn", in_dim, cfg, generator=gen)
+    logits = model(x, g, t_idx, generator=dropout_gen)
+
+Train/eval mode is the module's own flag (model.train()/model.eval()):
+BatchNorm updates its running statistics in training mode, in place.
+Parameters keep the JAX model's semantics — SAGEConv as lin_l(mean agg) +
+lin_r(x), BatchNorm with torch-convention running stats and the JAX
+formula for the batch variance, residual identity or linear projection, and
+the exact sinusoid (or learned) time embedding. `amp` means bf16 operands
+into the aggregation with f32 accumulation; the dense products stay f32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..kernels import spmm
+
+MODEL_GRAPH_KIND = {
+    "gcn": "gcn",
+    "sage": "sage",
+    "gat": "gat",
+    "sage_resbn": "sage",
+    "sage_bn": "sage",
+    "sage_res": "sage",
+}
+PORTED_ARCHS = ("sage_resbn", "sage_bn", "sage_res")
+
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
+
+
+def _glorot_(w: torch.Tensor, fan_in: int, fan_out: int,
+             generator: Optional[torch.Generator]) -> None:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-limit, limit, generator=generator)
+
+
+def _linear(d_in: int, d_out: int, bias: bool,
+            generator: Optional[torch.Generator]) -> nn.Linear:
+    """nn.Linear with the JAX model's init: glorot-uniform weight, zero bias."""
+    lin = nn.Linear(d_in, d_out, bias=bias)
+    _glorot_(lin.weight, d_in, d_out, generator)
+    if bias:
+        nn.init.zeros_(lin.bias)
+    return lin
+
+
+def _dropout(h: torch.Tensor, rate: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    if not training or rate <= 0.0:
+        return h
+    keep = 1.0 - rate
+    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+
+class BatchNorm(nn.Module):
+    """Counterpart of bn_apply: BatchNorm over the node dimension, running
+    stats momentum 0.1 toward the batch statistic, unbiased running var;
+    `row_mask` [N] excludes rows (padding) from the batch statistics."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+        self.register_buffer("count", torch.zeros(()))
+
+    def forward(self, h: torch.Tensor,
+                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training:
+            if row_mask is not None:
+                m = row_mask.to(h.dtype)[:, None]
+                n = row_mask.to(h.dtype).sum()
+                s = (h * m).sum(dim=0)
+                sq = (h * h * m).sum(dim=0)
+            else:
+                n = torch.tensor(float(h.shape[0]), dtype=h.dtype, device=h.device)
+                s = h.sum(dim=0)
+                sq = (h * h).sum(dim=0)
+            mean = s / n
+            var = torch.clamp(sq / n - mean * mean, min=0.0)
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                self.mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+                self.var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * unbiased)
+                self.count.add_(1.0)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + BN_EPS)
+        return (h - mean) * inv * self.scale + self.bias
+
+
+class SageLayer(nn.Module):
+    """Counterpart of sage_layer_apply: mean aggregation -> lin_l (with
+    bias) + root lin_r (no bias)."""
+
+    def __init__(self, d_in: int, d_out: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.lin_l = _linear(d_in, d_out, True, generator)
+        self.lin_r = _linear(d_in, d_out, False, generator)
+
+    def forward(self, x: torch.Tensor, g, compute_dtype=None) -> torch.Tensor:
+        agg = spmm(g, x, compute_dtype=compute_dtype)
+        return self.lin_l(agg) + self.lin_r(x)
+
+
+def sinusoid_time_embed(t_idx: torch.Tensor, dim: int,
+                        max_timestep: int) -> torch.Tensor:
+    """Exact reference sinusoid: t clamped to [0, max_timestep-1],
+    normalized to [0,1], freqs k*2pi for k=1..dim//2, [sin, cos] concat,
+    zero-padded to odd dims."""
+    t = torch.clamp(t_idx.to(torch.float32) - 1.0, 0.0, float(max_timestep - 1))
+    t = t / max(float(max_timestep - 1), 1.0)
+    half = dim // 2
+    freqs = torch.arange(1, half + 1, dtype=torch.float32,
+                         device=t.device) * (2.0 * math.pi)
+    angles = t[:, None] * freqs[None, :]
+    feat = torch.cat([torch.sin(angles), torch.cos(angles)], dim=1)
+    if feat.shape[1] < dim:
+        feat = torch.cat(
+            [feat, feat.new_zeros((feat.shape[0], dim - feat.shape[1]))], dim=1)
+    return feat
+
+
+class SageResBN(nn.Module):
+    """SAGE-ResBN: per hidden layer SAGEConv -> BN -> ReLU -> dropout ->
+    + residual (identity or linear projection); final SAGEConv -> logits.
+    `use_bn`/`residual` select the sage_bn / sage_res variants."""
+
+    def __init__(self, in_dim: int, cfg: dict,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = int(cfg.get("hidden_dim", 128))
+        layers = int(cfg.get("layers", 3))
+        if layers < 2:
+            raise ValueError(f"layers must be >= 2, got {layers}")
+        self.dropout = float(cfg.get("dropout", 0.2))
+        self.use_bn = bool(cfg.get("use_bn", True))
+        self.residual = bool(cfg.get("residual", True))
+        self.compute_dtype = torch.bfloat16 if bool(cfg.get("amp", False)) else None
+        dim = int(cfg.get("time_embed_dim", 0))
+        kind = str(cfg.get("time_embed_type", "learned"))
+        self.max_timestep = int(cfg.get("max_timestep", 49))
+        if dim <= 0 or kind == "none":
+            dim, kind = 0, "none"
+        self.time_embed_dim, self.time_embed_type = dim, kind
+        self.uses_time_embed = dim > 0
+        eff_in = in_dim + dim
+
+        dims = [eff_in] + [hidden] * (layers - 1) + [2]
+        res_in = [eff_in] + [hidden] * (layers - 2)
+        self.layers = nn.ModuleList(
+            SageLayer(dims[i], dims[i + 1], generator) for i in range(layers))
+        self.bns = nn.ModuleList(
+            BatchNorm(hidden) for _ in range(layers - 1)) if self.use_bn else None
+        self.res_projs = nn.ModuleList(
+            nn.Identity() if d_in == hidden else _linear(d_in, hidden, False, generator)
+            for d_in in res_in) if self.residual else None
+        if kind == "learned":
+            self.time_emb = nn.Parameter(torch.randn(
+                (self.max_timestep, dim), generator=generator))
+        else:
+            self.time_emb = None
+
+    def _inject_time(self, x: torch.Tensor, t_idx) -> torch.Tensor:
+        if self.time_embed_dim <= 0 or t_idx is None:
+            return x
+        if self.time_embed_type == "learned":
+            tidx = torch.clamp(t_idx.long() - 1, 0, self.max_timestep - 1)
+            te = self.time_emb[tidx]
+        else:
+            te = sinusoid_time_embed(t_idx, self.time_embed_dim, self.max_timestep)
+        return torch.cat([x, te.to(x.dtype)], dim=1)
+
+    def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self._inject_time(x, t_idx)
+        for li in range(len(self.layers) - 1):
+            h_in = h
+            h = self.layers[li](h, g, self.compute_dtype)
+            if self.use_bn:
+                h = self.bns[li](h, row_mask)
+            h = torch.relu(h)
+            h = _dropout(h, self.dropout, self.training, generator)
+            if self.residual:
+                h = h + self.res_projs[li](h_in)
+        return self.layers[-1](h, g, self.compute_dtype)
+
+
+def build_model(arch: str, in_dim: int, cfg: dict,
+                generator: Optional[torch.Generator] = None) -> SageResBN:
+    """Model factory with the JAX package's config keys and defaults.
+    Only the SAGE-ResBN family is ported so far."""
+    if arch in PORTED_ARCHS:
+        return SageResBN(in_dim, cfg, generator)
+    if arch in MODEL_GRAPH_KIND:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to elliptic_gnn_tpu_torch yet "
+            f"(ported: {', '.join(PORTED_ARCHS)})")
+    raise ValueError(f"Unknown arch {arch!r}")
