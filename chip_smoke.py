@@ -6,21 +6,36 @@ NVIDIA GPU. Run from the repository root:
 
 Phases (any failure exits non-zero before the result line):
   1. device: the card's name and power limit;
-  2. build: compiles the BSDA kernel from kernels/csrc with nvcc;
-  3. kernel vs plain: on the Elliptic-scale synthetic graph (203,769 nodes,
-     234,355 edges before symmetrization, 166 features, 49 timesteps,
+  2. build: compiles the three kernel sources of kernels/csrc with nvcc, in
+     parallel, and prints what ptxas says of each kernel;
+  3. BSDA kernel vs plain: on the Elliptic-scale synthetic graph (203,769
+     nodes, 234,355 edges before symmetrization, 166 features, 49 timesteps,
      seed 0), the kernel's dense output against its plain PyTorch version
      for the forward (dst scale) and transpose (src scale) tables, the
      bit-packed (pack 4) and int8 (pack 1) tables, at F=168 f32, F=168 bf16
      and F=64 bf16; CUDA-event medians of kernel, plain version and the
      torch.sparse yardstick;
-  4. slice: builds the same graph with the port's build_graph, runs
-     train_gnn.main on configs/rec_k8.yaml's values at full width for a few
-     epochs, and checks that every epoch went through the kernel (launch
-     counts), that losses and scores are finite, and the artifacts;
-  5. profile: the same run for 3 epochs under torch.profiler, device time
-     by kernel name;
-  6. prints the table of TPU kernels, the kernel line, the card line, and
+  4. GAT kernels vs plain: on the same graph, directed and self-looped,
+     depth 4: the forward at (h, ch) = (4, 8) with the slot cover and
+     (1, 2) without, normalize on and off, compared on val = acc / s and
+     m + log s; the backward in both gauges against the closed form; two
+     runs of the same backward against each other (atomics); one training
+     step of the gat.yaml model through the kernels against its plain
+     version, gradients and times; and on a 6,000-node graph with a spill,
+     the backward through the packed attend against autograd through the
+     plain formulation;
+  5. small-graph references: SAGE-ResBN and GAT logits on the card (kernels)
+     against the same weights on the CPU (plain versions);
+  6. slices: builds the same graph with the port's build_graph, then runs
+     train_gnn.main on configs/rec_k8.yaml's and on configs/gat.yaml's
+     values at full width for a few epochs each, with the launch counts set
+     to 0 just before and read just after: every epoch must have gone
+     through the kernels, losses and scores must be finite, the artifacts
+     and best.ckpt present; then predict.predict on the GAT run dir must
+     reproduce its scores_test.npy;
+  7. profile: both runs for 3 epochs under torch.profiler, device time by
+     kernel name;
+  8. prints the table of TPU kernels, the kernel line, the card line, and
      the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -47,14 +62,21 @@ PEAK_OPS = {"float32": 67e12,        # CUDA-core f32
             "bfloat16": 989e12}      # dense bf16 tensor cores
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=1 / 64, atol=1e-3)}
+# GAT runs in f32: forward on the gauge-free val and m + log s (expf on the
+# card against torch.exp, sums in another order); backward with atomics
+GAT_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+GAT_BWD_TOL = dict(rtol=5e-4, atol=5e-5)
+CSRC = "elliptic_gnn_tpu_torch/kernels/csrc/"
 TPU_KERNELS = [
-    ("elliptic_gnn_tpu/kernels/pallas_bsda.py:218", "_ring_call", "ported"),
-    ("elliptic_gnn_tpu/kernels/pallas_bsda.py:124", "_banded_call", "ported"),
-    ("elliptic_gnn_tpu/kernels/pallas_gat.py:103", "_flash_gat_call", "todo"),
-    ("elliptic_gnn_tpu/kernels/pallas_gat.py:247", "_flash_gat_call_gated", "todo"),
-    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:326", "_sweep_fused_call", "todo"),
-    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:63", "_sweep_dst_call", "todo"),
-    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:181", "_sweep_src_call", "todo"),
+    ("elliptic_gnn_tpu/kernels/pallas_bsda.py:218", "_ring_call", CSRC + "bsda_spmm.cu"),
+    ("elliptic_gnn_tpu/kernels/pallas_bsda.py:124", "_banded_call", CSRC + "bsda_spmm.cu"),
+    ("elliptic_gnn_tpu/kernels/pallas_gat.py:103", "_flash_gat_call", CSRC + "gat_fwd.cu"),
+    ("elliptic_gnn_tpu/kernels/pallas_gat.py:247", "_flash_gat_call_gated",
+     CSRC + "gat_fwd.cu"),
+    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:326", "_sweep_fused_call",
+     CSRC + "gat_bwd.cu"),
+    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:63", "_sweep_dst_call", None),
+    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:181", "_sweep_src_call", None),
 ]
 
 
@@ -88,19 +110,28 @@ def cuda_ms(fn, flush_buf) -> float:
     return times[len(times) // 2]
 
 
-def elliptic_tables(device):
-    """The Elliptic-scale synthetic graph's main-path tables on `device`."""
+def elliptic_tables(device, kind):
+    """The Elliptic-scale synthetic graph's main-path tables on `device`:
+    symmetrized, depth 3, with transpose for 'sage' (rec_k8); directed,
+    self-looped, depth 4, no transpose for 'gat' (gat.yaml)."""
     from elliptic_gnn_tpu_torch.graph import synthetic
     from elliptic_gnn_tpu_torch.graph.transform import symmetrize_edges
     from elliptic_gnn_tpu_torch.kernels.bsda import bfs_order, build_bsda_for_kind
 
-    data = symmetrize_edges(synthetic.generate(
+    data = synthetic.generate(
         num_nodes=N_NODES, num_features=166, num_timesteps=49,
-        avg_degree=N_EDGES / N_NODES, seed=0))
+        avg_degree=N_EDGES / N_NODES, seed=0)
+    if kind == "sage":
+        data = symmetrize_edges(data)
     data = data.renumber(bfs_order(data.edge_index, data.num_nodes, data.timestep))
-    g = build_bsda_for_kind(data.edge_index, data.num_nodes, "sage", depth=3,
-                            a_dtype="int8", transpose=True)
+    g = build_bsda_for_kind(data.edge_index, data.num_nodes, kind,
+                            depth=4 if kind == "gat" else 3, a_dtype="int8",
+                            transpose=kind != "gat")
     return g.to(device)
+
+
+def within(got, want, tol) -> bool:
+    return bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * want.abs()).all())
 
 
 def sparse_yardstick(g, x):
@@ -131,7 +162,7 @@ def kernel_phase(device, flush_buf):
     from elliptic_gnn_tpu_torch.kernels import bsda, bsda_spmm_cuda
 
     t0 = time.time()
-    g = elliptic_tables(device)
+    g = elliptic_tables(device, "sage")
     log(f"tables built in {time.time() - t0:.1f} s: chunks={g.num_chunks} "
         f"depth={g.depth} pack={g.a_pack} max_chunk_dist={g.max_chunk_dist}")
     gen = torch.Generator(device=device).manual_seed(0)
@@ -198,6 +229,221 @@ def kernel_phase(device, flush_buf):
     return entries
 
 
+def gauge_free(out, h, ch, normalized):
+    """(val = acc / s, m + log s) of packed [ acc | m | s ] rows: what does
+    not depend on the softmax shift an implementation chose."""
+    hc = h * ch
+    acc = out[:, :hc].reshape(-1, h, ch)
+    m, s = out[:, hc: hc + h], out[:, hc + h: hc + 2 * h]
+    val = acc if normalized else acc / s.clamp_min(1e-16)[..., None]
+    return val, m + s.clamp_min(1e-30).log()
+
+
+def gat_kernel_phase(device, flush_buf):
+    """The two GAT kernels against their plain versions at the main path's
+    shapes; returns the kernel-line entries by name."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import gat_cuda
+    from elliptic_gnn_tpu_torch.kernels.bsda_spmm_cuda import kernel_table
+
+    t0 = time.time()
+    g = elliptic_tables(device, "gat")
+    nnz = int(g.a.sum())
+    n_pad = g.num_chunks * g.chunk
+    plane_bytes = g.chunk * g.chunk
+    _, planes, pack = kernel_table(g)  # the bytes the kernels read
+    planes_all = g.num_chunks * planes
+    planes_occ = int(((g.slot_occ + pack - 1) // pack).sum())
+    log(f"GAT tables built in {time.time() - t0:.1f} s: chunks={g.num_chunks} "
+        f"depth={g.depth} pack={pack} dense edges (with multiplicity)={nnz} "
+        f"spill rows={0 if g.residual is None else g.residual.num_nodes} "
+        f"planes read: {planes_occ} with the slot cover, {planes_all} without")
+    gen = torch.Generator(device=device).manual_seed(0)
+    failures, entries = [], {}
+
+    def bound(n_planes, columns, flops, gated=True):
+        """`columns`: f32 columns per node row over every input and output
+        the kernel must touch; the slot cover only where it is passed."""
+        bytes_moved = (n_planes * plane_bytes + g.src_chunk.numel() * 4
+                       + (g.slot_occ.numel() * 4 if gated else 0)
+                       + n_pad * columns * 4)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_OPS["float32"] * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bytes=bytes_moved,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+    for h, ch in ((4, 8), (1, 2)):
+        width = gat_cuda.payload_width(h, ch)
+        gated = h >= 2  # the wrapper's dispatch, as the TPU package's
+        pay = torch.randn((n_pad, width), generator=gen, device=device)
+        gbar = torch.randn((n_pad, width), generator=gen, device=device)
+        fwd_name = f"gat_fwd[h={h}{' gated' if gated else ''}]"
+        for normalize in (True, False):
+            got = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalize)
+            torch.cuda.synchronize()
+            want = gat_cuda.gat_fwd_plain(g, pay, h, ch, 0.2, normalize)
+            errs = []
+            ok = bool(torch.isfinite(got).all())
+            for a, b in zip(gauge_free(got, h, ch, normalize),
+                            gauge_free(want, h, ch, normalize)):
+                errs.append(float((a - b).abs().max()))
+                ok = ok and within(a, b, GAT_FWD_TOL)
+            ms = cuda_ms(lambda: gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalize),
+                         flush_buf)
+            plain_ms = cuda_ms(
+                lambda: gat_cuda.gat_fwd_plain(g, pay, h, ch, 0.2, normalize), flush_buf)
+            case = f"{fwd_name} normalize={normalize}"
+            log(f"kernel vs plain [{case}]: max_abs val={errs[0]:.3e} "
+                f"m+log s={errs[1]:.3e} (tol rtol={GAT_FWD_TOL['rtol']:.3g} "
+                f"atol={GAT_FWD_TOL['atol']:.3g}) {'ok' if ok else 'MISMATCH'} | "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            if not ok:
+                failures.append(case)
+            if normalize:  # the main path normalizes in the kernel
+                entries[fwd_name] = dict(
+                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                    **bound(planes_occ if gated else planes_all, 2 * width,
+                            2.0 * nnz * h * ch, gated))
+
+            out_k = got
+            ct = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalize)
+            torch.cuda.synchronize()
+            want = gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, normalize)
+            err = float((ct - want).abs().max())
+            ok = bool(torch.isfinite(ct).all()) and within(ct, want, GAT_BWD_TOL)
+            again = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalize)
+            hc = h * ch
+            rerun = float((ct - again)[:, : hc + h].abs().max())
+            rerun_dst = float((ct - again)[:, hc + h:].abs().max())
+            ms = cuda_ms(lambda: gat_cuda.gat_bwd_cuda(
+                g, gbar, pay, out_k, h, ch, 0.2, normalize), flush_buf)
+            plain_ms = cuda_ms(lambda: gat_cuda.gat_bwd_plain(
+                g, gbar, pay, out_k, h, ch, 0.2, normalize), flush_buf)
+            case = f"gat_bwd[h={h}] normalized={normalize}"
+            log(f"kernel vs closed form [{case}]: max_abs={err:.3e} (tol rtol="
+                f"{GAT_BWD_TOL['rtol']:.3g} atol={GAT_BWD_TOL['atol']:.3g}) "
+                f"{'ok' if ok else 'MISMATCH'} | two runs differ by {rerun:.3e} in "
+                f"d xp, d a_src (atomics) and {rerun_dst:.3e} in d a_dst | "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            if not ok or rerun_dst != 0.0:
+                failures.append(case)
+            if normalize:
+                entries[f"gat_bwd[h={h}]"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, rerun_diff=rerun,
+                    # gbar without its h m-columns, which the kernel never
+                    # reads; payload, out_k and the output in full
+                    **bound(planes_occ, 4 * width - h, 6.0 * nnz * h * ch))
+        del pay, gbar, got, want, ct, again, out_k
+    if failures:
+        fail(f"GAT kernel disagrees with its plain version: {failures}")
+    for name, e in entries.items():
+        log(f"{name}: bytes={e['bytes']} bound={e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}) kernel={e['ms']:.4f} ms plain={e['plain_ms']:.4f} ms "
+            "library=none (no single PyTorch call computes this function)")
+    return entries, g
+
+
+def gat_step_times(device, g, flush_buf) -> None:
+    """One training step of the gat.yaml model (forward, loss, backward) at
+    the Elliptic-scale tables `g`: through the kernels, as the model runs on
+    the card, and through its plain version (forward_plain, autograd), which
+    the port runs on CPU tensors only. Timed and logged, used nowhere."""
+    import torch
+    import yaml
+
+    from elliptic_gnn_tpu_torch.kernels import gat_cuda
+    from elliptic_gnn_tpu_torch.models import build_model
+
+    with open(os.path.join(HERE, "configs", "gat.yaml")) as fh:
+        cfg = dict(yaml.safe_load(fh), dropout=0.0)
+    gen = torch.Generator(device=device).manual_seed(2)
+    x = torch.randn((g.num_nodes, 167), generator=gen, device=device)
+    y = torch.randint(0, 2, (g.num_nodes,), generator=gen, device=device)
+    model = build_model("gat", 167, cfg,
+                        generator=torch.Generator().manual_seed(0)).to(device).train()
+
+    def step(run):
+        model.zero_grad(set_to_none=True)
+        torch.nn.functional.cross_entropy(run(x, g), y).backward()
+        return [p.grad for p in model.parameters()]
+
+    before = dict(gat_cuda.launches)
+    grads_k = step(model)
+    if {k: gat_cuda.launches[k] - before[k] for k in before} != {
+            "gat_fwd": 1, "gat_fwd_gated": 1, "gat_bwd": 2}:
+        fail("the GAT model's training step on the card did not launch the kernels")
+    grads_p = step(model.forward_plain)
+    err = max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p))
+    ok = all(within(a, b, GAT_BWD_TOL) for a, b in zip(grads_k, grads_p))
+    ms = cuda_ms(lambda: step(model), flush_buf)
+    plain_ms = cuda_ms(lambda: step(model.forward_plain), flush_buf)
+    log(f"gat.yaml training step at {g.num_nodes} nodes (forward, loss, backward): "
+        f"kernels {ms:.3f} ms, plain version on the card {plain_ms:.3f} ms; parameter "
+        f"gradients differ by max_abs={err:.3e} (tol rtol={GAT_BWD_TOL['rtol']:.3g} "
+        f"atol={GAT_BWD_TOL['atol']:.3g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("GAT parameter gradients through the kernels disagree with autograd "
+             "through the plain version at full size")
+
+
+def small_gat_graph(n=6000, seed=4, far=100):
+    """Directed synthetic graph with far edges (a residual spill) and
+    duplicate edges (multiplicity > 1), BFS-renumbered: (data, GAT tables)."""
+    import numpy as np
+
+    from elliptic_gnn_tpu_torch.graph import synthetic
+    from elliptic_gnn_tpu_torch.kernels.bsda import bfs_order, build_bsda_for_kind
+
+    data = synthetic.generate(num_nodes=n, seed=seed)
+    data = data.renumber(bfs_order(data.edge_index, data.num_nodes, data.timestep))
+    rng = np.random.default_rng(seed)
+    ei = data.edge_index
+    ei = np.concatenate([ei, rng.integers(0, n, (2, far)),
+                         ei[:, rng.integers(0, ei.shape[1], far)]], axis=1)
+    g = build_bsda_for_kind(ei, n, "gat", depth=4, transpose=False)
+    if g.residual is None:
+        fail("the small GAT graph has no spill to test the merge with")
+    return data, g
+
+
+def gat_autograd_check(device):
+    """Backward kernel, spill merge included, against autograd through the
+    plain formulation (bsda_gat_aggregate) on a 6,000-node graph."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import bsda_gat, packed_gat
+
+    _, g = small_gat_graph()
+    g = g.to(device)
+    h, ch = 4, 8
+    hc, n, n_pad = h * ch, g.num_nodes, g.num_chunks * g.chunk
+    gen = torch.Generator(device=device).manual_seed(1)
+    pay = torch.randn((n_pad, hc + 2 * h), generator=gen, device=device)
+    pay[n:] = 0.0
+    c = torch.randn((n, hc), generator=gen, device=device)
+
+    p_k = pay.clone().requires_grad_(True)
+    val_k = packed_gat._attend_packed(g, p_k, h, ch, 0.2)[:n, :hc]
+    (val_k * c).sum().backward()
+
+    p_a = pay.clone().requires_grad_(True)
+    y = bsda_gat.bsda_gat_aggregate(
+        g, p_a[:n, :hc].reshape(n, h, ch), p_a[:n, hc: hc + h], p_a[:n, hc + h:])
+    (y.reshape(n, hc) * c).sum().backward()
+    torch.cuda.synchronize()
+
+    ok_v = within(val_k.detach(), y.detach().reshape(n, hc), GAT_FWD_TOL)
+    ok_g = within(p_k.grad[:n], p_a.grad[:n], GAT_BWD_TOL)
+    log(f"packed attend vs autograd (6,000 nodes, {g.residual.num_nodes} spill rows): "
+        f"value max_abs={float((val_k.detach() - y.detach().reshape(n, hc)).abs().max()):.3e}, "
+        f"payload gradient max_abs={float((p_k.grad[:n] - p_a.grad[:n]).abs().max()):.3e} "
+        f"(tol rtol={GAT_BWD_TOL['rtol']:.3g} atol={GAT_BWD_TOL['atol']:.3g})")
+    if not (ok_v and ok_g):
+        fail("the GAT kernels with the spill merge disagree with autograd "
+             "through the plain formulation")
+
+
 def small_reference_check(device):
     """SAGE-ResBN logits with amp on the card (kernel) against the same
     weights on the CPU (plain version), on a small graph."""
@@ -228,42 +474,66 @@ def small_reference_check(device):
     if not bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all()):
         fail("model logits on the card disagree with the CPU reference")
 
+    data, g = small_gat_graph()
+    cfg = {"hidden_dim": 32, "layers": 2, "heads": 4, "dropout": 0.0}
+    model = build_model("gat", data.num_features, cfg,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(data.x)
+    with torch.no_grad():
+        want = model(x, g)
+        got = model.to(device)(x.to(device), g.to(device)).cpu()
+    log(f"small-graph reference: GAT logits cuda (kernels) vs cpu (plain) "
+        f"max_abs={float((got - want).abs().max()):.3e} "
+        f"(tol {GAT_FWD_TOL['atol']:.3g} + {GAT_FWD_TOL['rtol']:.3g}*|ref|)")
+    if not within(got, want, GAT_FWD_TOL):
+        fail("GAT logits on the card disagree with the CPU reference")
 
-def slice_phase(tmp):
-    import numpy as np
-    import yaml
 
+def build_processed(tmp) -> str:
     from elliptic_gnn_tpu_torch.graph import build_graph
-    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
-    from elliptic_gnn_tpu_torch.train import train_gnn
 
     processed = os.path.join(tmp, "processed")
     build_graph.main({"seed": 0, "synthetic": True, "synthetic_nodes": N_NODES,
                       "t_max": 49, "t_train_end": 34, "t_val_end": 43,
                       "processed_dir": processed})
-    with open(os.path.join(HERE, "configs", "rec_k8.yaml")) as fh:
+    return processed
+
+
+def slice_phase(tmp, processed, config_name):
+    """train_gnn.main on one config's values at full width for EPOCHS
+    epochs, launch counts set to 0 just before and read just after.
+    Returns (launches, cfg, outdir, metrics)."""
+    import numpy as np
+    import yaml
+
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, gat_cuda
+    from elliptic_gnn_tpu_torch.train import train_gnn
+
+    with open(os.path.join(HERE, "configs", config_name)) as fh:
         cfg = yaml.safe_load(fh)
     cfg.update(processed_dir=processed, output_root=os.path.join(tmp, "out"),
                max_epochs=EPOCHS)
     bsda_spmm_cuda.reset_launches()
+    gat_cuda.reset_launches()
     t0 = time.time()
     metrics = train_gnn.main(cfg)
     wall = time.time() - t0
-    launches = dict(bsda_spmm_cuda.launches)
+    launches = {**bsda_spmm_cuda.launches, **gat_cuda.launches}
 
     outdir = os.path.join(cfg["output_root"], "gnn", cfg["run_name"])
     epochs = int(metrics["epochs_run"])
-    log(f"slice: rec_k8 ({cfg['arch']}, hidden {cfg['hidden_dim']}, "
-        f"{cfg['layers']} layers, amp {cfg['amp']}) ran {epochs} epochs, "
-        f"main() wall {wall:.1f} s, train {metrics['train_seconds']:.3f} s")
+    log(f"slice: {config_name} ({cfg['arch']}, hidden {cfg['hidden_dim']}, "
+        f"{cfg['layers']} layers, heads {cfg.get('heads', '-')}, amp {cfg['amp']}) "
+        f"ran {epochs} epochs, main() wall {wall:.1f} s, "
+        f"train {metrics['train_seconds']:.3f} s")
     log("epoch wall times (s): " + ", ".join(
         f"{s:.4f}" for s in metrics["epoch_seconds"]))
     log(f"kernel launches in the run: {launches}")
-    if sum(launches.values()) < 8 * epochs or min(launches.values()) == 0:
-        fail(f"the trainer did not run every epoch through the kernel: "
-             f"{launches} for {epochs} epochs (want >= 8 per epoch, both variants)")
-    for name in ("metrics.json", "scores_val.npy", "scores_test.npy",
-                 "y_test.npy", "training_log.csv", "config_used.yaml"):
+    if epochs != EPOCHS:
+        fail(f"{config_name} ran {epochs} epochs, not {EPOCHS}")
+    for name in ("metrics.json", "scores_val.npy", "scores_test.npy", "y_test.npy",
+                 "node_idx_test.npy", "training_log.csv", "config_used.yaml",
+                 "best.ckpt"):
         if not os.path.exists(os.path.join(outdir, name)):
             fail(f"missing artifact {name}")
     with open(os.path.join(outdir, "training_log.csv")) as fh:
@@ -277,13 +547,59 @@ def slice_phase(tmp):
         fail("test scores are not finite probabilities of the expected shape")
     log(f"losses {losses}; test PR-AUC {metrics['pr_auc_illicit']:.4f}, "
         f"ROC-AUC {metrics['roc_auc']:.4f} (random weights, {epochs} epochs)")
-    return launches, cfg
+    return launches, cfg, outdir
 
 
-def profile_phase(cfg) -> None:
+def check_rec_k8_launches(launches) -> None:
+    gat = {k: v for k, v in launches.items() if k.startswith("gat")}
+    if launches["ring"] + launches["banded"] < 8 * EPOCHS or \
+            min(launches["ring"], launches["banded"]) == 0 or any(gat.values()):
+        fail(f"rec_k8 did not run every epoch through the BSDA kernel alone: "
+             f"{launches} for {EPOCHS} epochs (want >= 8 per epoch, both variants)")
+
+
+def check_gat_launches(launches) -> None:
+    """Per epoch: the training step launches the forward twice (hidden
+    layer with the slot cover, final layer without) and the backward twice,
+    the val eval the forward twice; the final scoring pass adds one
+    forward of each variant."""
+    want = {"gat_fwd_gated": 2 * EPOCHS + 1, "gat_fwd": 2 * EPOCHS + 1,
+            "gat_bwd": 2 * EPOCHS, "ring": 0, "banded": 0}
+    if launches != want:
+        fail(f"gat.yaml did not run every epoch through the GAT kernels: "
+             f"{launches}, want {want}")
+
+
+def predict_check(outdir) -> None:
+    """predict.predict on the finished GAT run dir reproduces the trainer's
+    own test scores."""
+    import numpy as np
+
+    from elliptic_gnn_tpu_torch.kernels import gat_cuda
+    from elliptic_gnn_tpu_torch.train import predict
+
+    gat_cuda.reset_launches()
+    t0 = time.time()
+    node_idx, probs, flags, thr, data = predict.predict(outdir)
+    wall = time.time() - t0
+    idx = np.load(os.path.join(outdir, "node_idx_test.npy"))
+    want = np.load(os.path.join(outdir, "scores_test.npy"))
+    if not np.array_equal(node_idx, np.arange(data.num_nodes)):
+        fail("predict did not report every node once, in on-disk order")
+    err = float(np.abs(probs[idx] - want).max())
+    log(f"predict: scored {probs.size} nodes in {wall:.1f} s (threshold {thr:.4f}, "
+        f"{int(flags.sum())} flagged), launches {gat_cuda.launches}; test scores vs "
+        f"scores_test.npy max_abs={err:.3e} (tol 1e-6)")
+    if err > 1e-6 or gat_cuda.launches["gat_fwd"] != 1 or \
+            gat_cuda.launches["gat_fwd_gated"] != 1:
+        fail("predict does not reproduce the trainer's test scores through the kernels")
+
+
+def profile_phase(cfg, kernel_names) -> None:
     """Where the device time goes: the same run for PROFILE_EPOCHS epochs
     under torch.profiler, device time summed by kernel name (setup, the
-    epochs and the final scoring pass)."""
+    epochs and the final scoring pass); `kernel_names` are this path's
+    hand-written kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -307,12 +623,14 @@ def profile_phase(cfg) -> None:
     rows.sort(key=lambda r: -r[1])
     total_us = sum(r[1] for r in rows)
     copy_us = sum(r[1] for r in rows if r[0].startswith("Memcpy"))
-    bsda_us = sum(r[1] for r in rows if "bsda_spmm_kernel" in r[0])
-    log(f"profile ({PROFILE_EPOCHS} epochs + setup + scoring, main() wall "
-        f"{wall:.1f} s, train {metrics['train_seconds']:.3f} s): device time "
-        f"{total_us / 1e3:.3f} ms, of it copies {copy_us / 1e3:.3f} ms, "
-        f"bsda_spmm_kernel {bsda_us / 1e3:.3f} ms "
-        f"({bsda_us / max(total_us - copy_us, 1):.1%} of kernel time)")
+    log(f"profile of {cfg['arch']} ({PROFILE_EPOCHS} epochs + setup + scoring, "
+        f"main() wall {wall:.1f} s, train {metrics['train_seconds']:.3f} s): device "
+        f"time {total_us / 1e3:.3f} ms, of it copies {copy_us / 1e3:.3f} ms")
+    for name in kernel_names:
+        us = sum(r[1] for r in rows if name in r[0])
+        count = sum(r[2] for r in rows if name in r[0])
+        log(f"  {name}: {us / 1e3:.3f} ms over {count} launches "
+            f"({us / max(total_us - copy_us, 1):.1%} of kernel time)")
     for key, us, count in rows[:12]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
@@ -326,7 +644,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     sys.path.insert(0, HERE)
     try:
-        from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
+        from elliptic_gnn_tpu_torch.kernels import cuda_build
     except ImportError as exc:
         fail(f"elliptic_gnn_tpu_torch not found beside chip_smoke.py: {exc}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -343,31 +661,56 @@ def main() -> None:
         f"cuda {torch.version.cuda}")
 
     t0 = time.time()
-    lib = bsda_spmm_cuda.build(verbose=True)
-    log(f"built {os.path.relpath(lib, HERE)} in {time.time() - t0:.1f} s")
+    libs = cuda_build.build(list(cuda_build.SOURCES), verbose=True)
+    log(f"built {', '.join(os.path.relpath(p, HERE) for p in libs.values())} "
+        f"in {time.time() - t0:.1f} s")
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     entries = kernel_phase(device, flush_buf)
-    del flush_buf
+    gat_entries, gat_tables = gat_kernel_phase(device, flush_buf)
+    gat_step_times(device, gat_tables, flush_buf)
+    del flush_buf, gat_tables
+    gat_autograd_check(device)
     small_reference_check(device)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, cfg = slice_phase(tmp)
-        profile_phase(cfg)
+        processed = build_processed(tmp)
+        launches, cfg, _ = slice_phase(tmp, processed, "rec_k8.yaml")
+        check_rec_k8_launches(launches)
+        gat_launches, gat_cfg, gat_outdir = slice_phase(tmp, processed, "gat.yaml")
+        check_gat_launches(gat_launches)
+        predict_check(gat_outdir)
+        profile_phase(cfg, ["bsda_spmm_kernel"])
+        profile_phase(gat_cfg, ["gat_fwd_kernel", "gat_bwd_kernel"])
 
-    source = "elliptic_gnn_tpu_torch/kernels/csrc/bsda_spmm.cu"
     kernels = []
-    for variant, replaces in (("ring", TPU_KERNELS[0][0]), ("banded", TPU_KERNELS[1][0])):
+    for variant, row in (("ring", TPU_KERNELS[0]), ("banded", TPU_KERNELS[1])):
         e = entries[variant]
         kernels.append({
             "name": f"bsda_spmm[{variant}: F={e['f']} bf16]", "route": "cuda",
-            "source": source, "replaces": replaces, "launches": launches[variant],
+            "source": row[2], "replaces": row[0], "launches": launches[variant],
             "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": e["library_ms"],
         })
-    table = [{"replaces": loc, "tpu_kernel": name, "status": status,
-              "port": source if status == "ported" else None}
-             for loc, name, status in TPU_KERNELS]
+    # the backward runs once per layer under one count: its entry holds the
+    # hidden layer's shape (h=4) and, under *_h1 keys, the final layer's
+    for name, row, count in (
+            ("gat_fwd[h=4 gated]", TPU_KERNELS[3], gat_launches["gat_fwd_gated"]),
+            ("gat_fwd[h=1]", TPU_KERNELS[2], gat_launches["gat_fwd"]),
+            ("gat_bwd[h=4]", TPU_KERNELS[4], gat_launches["gat_bwd"])):
+        e = gat_entries[name]
+        kernels.append({
+            "name": name.replace("gat_bwd[h=4]", "gat_bwd"), "route": "cuda",
+            "source": row[2], "replaces": row[0], "launches": count,
+            "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": None,
+        })
+    h1 = gat_entries["gat_bwd[h=1]"]
+    kernels[-1].update({f"{k}_h1": h1[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    table = [{"replaces": loc, "tpu_kernel": name,
+              "status": "ported" if port else "todo", "port": port}
+             for loc, name, port in TPU_KERNELS]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernel_table": table}))
     print(json.dumps({"kernels": kernels}))

@@ -347,8 +347,10 @@ def build_bsda_for_kind(edge_index: np.ndarray, num_nodes: int, kind: str,
                         depth: int = 2, a_dtype: str = "float32",
                         transpose: bool = True) -> BsdaGraph:
     """Model-kind wrapper: 'sage' mean aggregation, 'gcn' self-loops with
-    symmetric normalization. a_dtype "int8" selects the factored-scale
-    encoding (integer multiplicities in `a` + per-node scale vectors)."""
+    symmetric normalization, 'gat' self-loops with unit weights (always
+    int8 multiplicities; attention is computed by the caller). a_dtype
+    "int8" selects the factored-scale encoding (integer multiplicities in
+    `a` + per-node scale vectors)."""
     from ..graph.transform import add_self_loops
 
     factored = a_dtype == "int8"
@@ -394,8 +396,18 @@ def build_bsda_for_kind(edge_index: np.ndarray, num_nodes: int, kind: str,
             g = with_transpose(g, ei, num_nodes, w, mean=False)
         return g
     if kind == "gat":
-        raise NotImplementedError(
-            "BSDA tables for GAT are not ported to elliptic_gnn_tpu_torch yet")
+        # self-loops + unit weights: `a` holds edge multiplicities for the
+        # attention kernels (kernels/gat_cuda.py) and their plain versions
+        # (kernels/bsda_gat.py); always int8 (exact)
+        if transpose:
+            raise NotImplementedError(
+                "transpose tables for GAT (gat_block_transpose) are not "
+                "ported to elliptic_gnn_tpu_torch yet: they serve only the "
+                "two-sweep backward, ROADMAP Queue B #6 (_sweep_dst_call + "
+                "_sweep_src_call); pass transpose=False")
+        ei = add_self_loops(edge_index, num_nodes)
+        return build_bsda(ei, num_nodes, mean=False, depth=depth,
+                          a_dtype="int8")
     raise ValueError(f"BSDA supports sage/gcn/gat, not {kind!r}")
 
 

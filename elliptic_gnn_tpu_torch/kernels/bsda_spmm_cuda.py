@@ -7,8 +7,8 @@ transpose tables (kernels/bsda.py::spmm_with).
 
 The source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface under <repo>/build/torch_ext at first use, and loaded
-with ctypes. There is no fallback: a missing compiler, a failed build, a
-CPU tensor or a failed launch raises.
+with ctypes (kernels/cuda_build.py). There is no fallback: a missing
+compiler, a failed build, a CPU tensor or a failed launch raises.
 
 `launches` counts kernel launches per TPU variant the launch stands for
 (see _variant), so a run can show that it went through the kernel.
@@ -16,22 +16,12 @@ CPU tensor or a failed launch raises.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 from typing import Optional
 
 import torch
 
+from . import cuda_build
 from .bsda import BsdaGraph, spmm_with
-
-_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "bsda_spmm.cu")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(_PKG_DIR)), "build", "torch_ext")
-_LIB_NAME = "libbsda_spmm.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 # the TPU kernel's dispatch (pallas_bsda.py:390-400): one 128-lane feature
 # tile on a graph of more than RING G-blocks runs _ring_call, else
@@ -47,45 +37,10 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    home_nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                             "bin", "nvcc")
-    if path is None and os.path.exists(home_nvcc):
-        path = home_nvcc
-    if path is None:
-        raise RuntimeError("nvcc not found: the BSDA CUDA kernel is built "
-                           "from source at first use and needs the CUDA toolkit")
-    return path
-
-
-def build(verbose: bool = False) -> str:
-    """Compile the kernel (if the library is older than its source) and
-    return the library's path."""
-    lib_path = os.path.join(BUILD_DIR, _LIB_NAME)
-    if (os.path.exists(lib_path)
-            and os.path.getmtime(lib_path) >= os.path.getmtime(SOURCE)):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd.append("-Xptxas=-v")
-    cmd += ["-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = cuda_build.load("bsda_spmm")
         p = ctypes.c_void_p
         i = ctypes.c_int
         lib.bsda_spmm_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
@@ -102,14 +57,14 @@ def _variant(g: BsdaGraph, f: int) -> str:
     return "ring" if ft_padded == _FEAT_TILE and nb > _RING else "banded"
 
 
-def _table(g: BsdaGraph):
+def kernel_table(g: BsdaGraph):
     """(A bytes, planes, pack) as the kernel reads them: the bit-packed
     planes when present, else the int8 multiplicity table (pack 1)."""
     if g.a_packed is not None and g.a_pack > 1:
         return g.a_packed, g.a_packed.shape[1], g.a_pack
     if g.a.dtype not in (torch.int8, torch.uint8):
         raise ValueError(
-            f"the CUDA BSDA kernel takes integer multiplicity tables "
+            f"the CUDA kernels take integer multiplicity tables "
             f"(a_dtype int8), not {g.a.dtype}")
     return g.a, g.depth, 1
 
@@ -126,7 +81,7 @@ def bsda_dense_cuda(g: BsdaGraph, xc: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be [N, F], got {tuple(xc.shape)}")
     if g.chunk != 128:
         raise ValueError(f"the kernel is built for 128-row chunks, not {g.chunk}")
-    a, planes, pack = _table(g)
+    a, planes, pack = kernel_table(g)
     n0, f = xc.shape
     if n0 > g.num_chunks * g.chunk:
         raise ValueError(f"x has {n0} rows; the tables hold {g.num_chunks * g.chunk}")

@@ -4,7 +4,8 @@ Destination rows are grouped into power-of-two degree buckets, each row's
 neighbour list padded to the bucket width (padding weight 0). Aggregation is
 a dense gather plus a weighted row sum per bucket, and one gather by the
 inverse permutation puts rows back in node order. In the port it carries
-the BSDA residual spill (kernels/bsda.py) and serves as a plain reference.
+the BSDA residual spill (kernels/bsda.py, kernels/bsda_gat.py) and serves
+as a plain reference.
 
 The host-side build is numpy, identical to the JAX package's; the result
 holds torch tensors (index tensors as int64, torch's index type).
@@ -176,6 +177,34 @@ def ell_spmm(g: EllGraph, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     dtype (optional bf16 operands with f32 accumulation)."""
     xg = x.to(compute_dtype) if compute_dtype is not None else x
     return ell_weighted_sum(g, xg).to(x.dtype)
+
+
+def ell_gat_aggregate(g: EllGraph, x_proj: torch.Tensor,
+                      alpha_src: torch.Tensor, alpha_dst: torch.Tensor,
+                      negative_slope: float = 0.2) -> torch.Tensor:
+    """GAT attention over an ELL graph: x_proj [N, H, C], alpha_src and
+    alpha_dst [N, H] -> [N_rows, H, C], the per-destination
+    softmax-weighted neighbour sum. Each destination's incoming edges fill
+    one padded row, so the segment softmax is a masked softmax over the row
+    width. Weights mark validity only (> 0)."""
+    n, h, c = x_proj.shape
+    outs = []
+    for nbr, w, rows in zip(g.nbrs, g.weights, g.rows):
+        valid = (w > 0)[..., None]  # [R, W, 1]
+        scores = alpha_src[nbr] + alpha_dst[rows][:, None, :]  # [R, W, H]
+        scores = torch.nn.functional.leaky_relu(scores, negative_slope)
+        scores = torch.where(valid, scores, scores.new_full((), -torch.inf))
+        smax = scores.amax(dim=1, keepdim=True)
+        smax = torch.where(torch.isfinite(smax), smax, torch.zeros_like(smax))
+        ex = torch.exp(scores - smax) * valid
+        att = ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-16)
+        outs.append(torch.einsum("rwh,rwhc->rhc", att, x_proj[nbr]))
+    if g.n_zero_deg:
+        outs.append(x_proj.new_zeros((g.n_zero_deg, h, c)))
+    permuted = torch.cat(outs, dim=0)
+    if g.inv_perm is None:
+        return permuted
+    return permuted[g.inv_perm]
 
 
 def gcn_norm_weights(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:

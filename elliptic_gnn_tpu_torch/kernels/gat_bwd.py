@@ -1,0 +1,104 @@
+"""Closed-form backward of BSDA GAT attention (port of
+elliptic_gnn_tpu/kernels/gat_bwd.py).
+
+Per head, with i the destination, j the source, mu the edge multiplicity,
+t_ij = a_src_j + a_dst_i, and the forward's softmax state (m_i, s_i):
+
+    e_ij   = mu_ij * exp(lrelu(t_ij) - m_i)
+    acc_i  = sum_j e_ij x_j          s_i = sum_j e_ij
+
+Given the cotangents A_i = dL/d acc_i and S_i = dL/d s_i at fixed m:
+
+    dx_j     = sum_i e_ij A_i
+    dt_ij    = e_ij * lrelu'(t_ij) * (x_j . A_i + S_i)
+    da_dst_i = sum_j dt_ij           da_src_j = sum_i dt_ij
+
+The shift m is treated as a constant: everything downstream of (acc, s) is
+invariant to it, so its own cotangent contributes nothing.
+
+`dense_bwd_head` is the dense-block part of these sums, the plain version
+of the backward CUDA kernel (kernels/gat_cuda.py). `attend_bwd` is the
+whole vector-Jacobian product of bsda_gat.attend's output y = acc / s,
+dense blocks and spill, for which A_i = g_i / s_i and
+S_i = -(y_i . g_i) / s_i. The exponent is clamped at 0: for real edges
+lrelu(t) <= m_i by construction, and masked or padded entries (mu = 0)
+would otherwise give inf * 0 = NaN.
+"""
+from __future__ import annotations
+
+import torch
+
+from .bsda import BsdaGraph
+
+
+def dense_bwd_head(g: BsdaGraph, xp_h, asrc_h, adst_h, m_h, abar_h, sbar_h,
+                   slope: float):
+    """One head's dense-block gradients. xp_h, abar_h [N_pad, Ch]; asrc_h,
+    adst_h, m_h, sbar_h [N_pad]. Returns (dxp [N_pad, Ch], dasrc [N_pad],
+    dadst [N_pad])."""
+    b, c = g.num_chunks, g.chunk
+    ch = xp_h.shape[1]
+    mult = g.a.to(torch.float32)            # [B, D, Ci, Cj]
+    src = g.src_chunk.long()
+    m3 = m_h.reshape(b, c)
+    abar3 = abar_h.reshape(b, c, ch)
+    sbar3 = sbar_h.reshape(b, c)
+
+    t = asrc_h.reshape(b, c)[src][:, :, None, :] \
+        + adst_h.reshape(b, c)[:, None, :, None]             # [B, D, Ci, Cj]
+    lr = torch.where(t >= 0, t, t * slope)
+    e = torch.exp((lr - m3[:, None, :, None]).clamp_max(0.0)) * mult
+    xp_g = xp_h.reshape(b, c, ch)[src]                        # [B, D, Cj, Ch]
+    q = torch.einsum("bif,bdjf->bdij", abar3, xp_g)           # x_j . A_i
+    dt = e * torch.where(t >= 0, 1.0, slope) * (q + sbar3[:, None, :, None])
+
+    dadst = dt.sum(dim=(1, 3)).reshape(-1)
+    # source-side sums scatter at chunk granularity; (b, d) -> src_chunk ids
+    # may repeat, index_add_ sums them
+    flat = src.reshape(-1)
+    dasrc = xp_h.new_zeros((b, c)).index_add_(
+        0, flat, dt.sum(dim=2).reshape(-1, c)).reshape(-1)
+    dxp_bd = torch.einsum("bdij,bif->bdjf", e, abar3)         # [B, D, Cj, Ch]
+    dxp = xp_h.new_zeros((b, c, ch)).index_add_(
+        0, flat, dxp_bd.reshape(-1, c, ch)).reshape(-1, ch)
+    return dxp, dasrc, dadst
+
+
+def _spill_bwd(g: BsdaGraph, xp, asrc, adst, m, abar, sbar, slope,
+               dxp, dasrc, dadst):
+    """Residual-spill gradients, all heads, accumulated in place."""
+    res = g.residual
+    rows = g.residual_rows
+    for nbr, w, rws in zip(res.nbrs, res.weights, res.rows):
+        dst = rows[rws]                                # [R]
+        t = asrc[nbr] + adst[dst][:, None, :]          # [R, W, H]
+        lr = torch.where(t >= 0, t, t * slope)
+        e = torch.exp((lr - m[dst][:, None, :]).clamp_max(0.0)) * w[:, :, None]
+        q = torch.einsum("rhf,rwhf->rwh", abar[dst], xp[nbr])
+        dt = e * torch.where(t >= 0, 1.0, slope) * (q + sbar[dst][:, None, :])
+        dadst.index_add_(0, dst, dt.sum(dim=1))
+        flat = nbr.reshape(-1)
+        dasrc.index_add_(0, flat, dt.reshape(flat.shape[0], -1))
+        dxp.index_add_(0, flat, (e[..., None] * abar[dst][:, None, :, :]).reshape(
+            (flat.shape[0],) + tuple(xp.shape[1:])))
+    return dxp, dasrc, dadst
+
+
+def attend_bwd(g: BsdaGraph, slope: float, res, gbar):
+    """Vector-Jacobian product of bsda_gat.attend's y: res = (xp, asrc,
+    adst, m, s, y) on the padded arrays, gbar [N_pad, H, Ch] the cotangent
+    of y. Returns (dxp, dasrc, dadst)."""
+    xp, asrc, adst, m, s, y = res
+    h = xp.shape[1]
+    inv_s = 1.0 / s.clamp_min(1e-16)
+    abar = gbar * inv_s[..., None]
+    sbar = -(y * gbar).sum(dim=-1) * inv_s
+    outs = [dense_bwd_head(g, xp[:, k, :], asrc[:, k], adst[:, k], m[:, k],
+                           abar[:, k, :], sbar[:, k], slope) for k in range(h)]
+    dxp = torch.stack([o[0] for o in outs], dim=1)        # [N_pad, H, Ch]
+    dasrc = torch.stack([o[1] for o in outs], dim=1)      # [N_pad, H]
+    dadst = torch.stack([o[2] for o in outs], dim=1)
+    if g.residual is not None:
+        dxp, dasrc, dadst = _spill_bwd(g, xp, asrc, adst, m, abar, sbar, slope,
+                                       dxp, dasrc, dadst)
+    return dxp, dasrc, dadst

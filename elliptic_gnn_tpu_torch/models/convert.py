@@ -1,12 +1,14 @@
-"""Load parameters of the JAX SAGE-ResBN model into the port's module.
+"""Load parameters of a JAX model into the port's module.
 
-The JAX pytree, already converted to numpy arrays:
+The JAX pytrees, already converted to numpy arrays. SAGE-ResBN:
 
     params = {"layers": [{"w_l", "b_l", "w_r"}], "bns": [{"scale", "bias"}],
               "res_projs": [None | {"w"}], "time_emb" (learned embedding)}
     state  = {"bns": [{"mean", "var", "count"}]}
 
 JAX stores dense weights as [d_in, d_out]; nn.Linear holds [d_out, d_in].
+GAT: params = {"layers": [{"w" [F, H, Ch], "a_src", "a_dst" [H, Ch], "b"}]},
+no state; the port keeps the same shapes.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .modules import SageResBN
+from .modules import GAT, SageResBN
 
 
 def _copy(dst: torch.Tensor, src, transpose: bool = False) -> None:
@@ -26,11 +28,18 @@ def _copy(dst: torch.Tensor, src, transpose: bool = False) -> None:
     dst.copy_(torch.from_numpy(np.array(v, copy=True)))
 
 
-def params_from_jax(params_np: dict, state_np: dict, model: SageResBN) -> SageResBN:
+def params_from_jax(params_np: dict, state_np: dict, model: nn.Module) -> nn.Module:
     """Copy the JAX parameters and BN state into `model` in place; returns it."""
     with torch.no_grad():
         if len(params_np["layers"]) != len(model.layers):
             raise ValueError("layer count differs between JAX params and model")
+        if isinstance(model, GAT):
+            for layer, p in zip(model.layers, params_np["layers"]):
+                for name in ("w", "a_src", "a_dst", "b"):
+                    _copy(getattr(layer, name), p[name])
+            return model
+        if not isinstance(model, SageResBN):
+            raise TypeError(f"no JAX counterpart known for {type(model).__name__}")
         for layer, p in zip(model.layers, params_np["layers"]):
             _copy(layer.lin_l.weight, p["w_l"], transpose=True)
             _copy(layer.lin_l.bias, p["b_l"])

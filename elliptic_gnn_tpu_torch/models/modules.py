@@ -1,5 +1,5 @@
-"""SAGE-ResBN model family as nn.Modules (port of
-elliptic_gnn_tpu/models/modules.py, SAGE-ResBN part).
+"""The SAGE-ResBN family and GAT as nn.Modules (port of
+elliptic_gnn_tpu/models/modules.py, those two parts).
 
     model = build_model("sage_resbn", in_dim, cfg, generator=gen)
     logits = model(x, g, t_idx, generator=dropout_gen)
@@ -11,6 +11,8 @@ lin_r(x), BatchNorm with torch-convention running stats and the JAX
 formula for the batch variance, residual identity or linear projection, and
 the exact sinusoid (or learned) time embedding. `amp` means bf16 operands
 into the aggregation with f32 accumulation; the dense products stay f32.
+GAT keeps the JAX layer parameters (w [F, H, Ch], a_src, a_dst [H, Ch],
+b) and runs in f32 whatever `amp` says, as the JAX pipeline does.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import torch
 from torch import nn
 
 from ..kernels import spmm
+from ..kernels.bsda_gat import bsda_gat_aggregate
+from ..kernels.packed_gat import packed_gat_forward, packed_gat_train_forward
+from ..utils.common import dropout as _dropout
 
 MODEL_GRAPH_KIND = {
     "gcn": "gcn",
@@ -30,7 +35,8 @@ MODEL_GRAPH_KIND = {
     "sage_bn": "sage",
     "sage_res": "sage",
 }
-PORTED_ARCHS = ("sage_resbn", "sage_bn", "sage_res")
+SAGE_RESBN_ARCHS = ("sage_resbn", "sage_bn", "sage_res")
+PORTED_ARCHS = SAGE_RESBN_ARCHS + ("gat",)
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -51,15 +57,6 @@ def _linear(d_in: int, d_out: int, bias: bool,
     if bias:
         nn.init.zeros_(lin.bias)
     return lin
-
-
-def _dropout(h: torch.Tensor, rate: float, training: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    if not training or rate <= 0.0:
-        return h
-    keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
-    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 class BatchNorm(nn.Module):
@@ -199,14 +196,100 @@ class SageResBN(nn.Module):
         return self.layers[-1](h, g, self.compute_dtype)
 
 
+class GatLayer(nn.Module):
+    """Counterpart of gat_layer_init/gat_layer_apply: projection to
+    `heads` heads of `d_head` features, attention over the self-looped
+    edges, heads concatenated (`concat`) or averaged, plus bias."""
+
+    def __init__(self, d_in: int, heads: int, d_head: int, concat: bool,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.concat = concat
+        self.w = nn.Parameter(torch.empty(d_in, heads, d_head))
+        self.a_src = nn.Parameter(torch.empty(heads, d_head))
+        self.a_dst = nn.Parameter(torch.empty(heads, d_head))
+        self.b = nn.Parameter(torch.zeros(heads * d_head if concat else d_head))
+        _glorot_(self.w, d_in, heads * d_head, generator)
+        _glorot_(self.a_src, d_head, 1, generator)
+        _glorot_(self.a_dst, d_head, 1, generator)
+
+    def forward(self, x: torch.Tensor, g) -> torch.Tensor:
+        xp = torch.einsum("nf,fhc->nhc", x, self.w)
+        a_src = torch.einsum("nhc,hc->nh", xp, self.a_src)
+        a_dst = torch.einsum("nhc,hc->nh", xp, self.a_dst)
+        out = bsda_gat_aggregate(g, xp, a_src, a_dst)
+        out = out.reshape(out.shape[0], -1) if self.concat else out.mean(dim=1)
+        return out + self.b
+
+
+class GAT(nn.Module):
+    """GAT stack: hidden layers with `heads` heads of hidden // heads
+    features, ELU and dropout between layers, a single-head final layer
+    producing the logits.
+
+    On CUDA tensors the whole stack runs packed through the flash kernels
+    (kernels/packed_gat.py): eval through packed_gat_forward, training
+    through packed_gat_train_forward. On CPU tensors it runs layer by layer
+    through the plain formulation (forward_plain), differentiated by
+    autograd. There is no switch between the two: `gat_fused_vjp: false`,
+    the JAX package's autodiff comparator, is refused."""
+
+    uses_time_embed = False
+
+    def __init__(self, in_dim: int, cfg: dict,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = int(cfg.get("hidden_dim", 128))
+        layers = int(cfg.get("layers", 3))
+        heads = int(cfg.get("heads", 4))
+        if layers < 2:
+            raise ValueError(f"layers must be >= 2, got {layers}")
+        d_head = hidden // heads
+        self.dropout = float(cfg.get("dropout", 0.2))
+        if cfg.get("gat_fused_vjp", "auto") not in ("auto", True):
+            raise ValueError(
+                f"gat_fused_vjp: {cfg['gat_fused_vjp']!r} is not supported: on a "
+                "CUDA device GAT always runs the flash kernels, on the CPU always "
+                "the plain formulation (allowed values: true, auto)")
+        dims = [in_dim] + [heads * d_head] * (layers - 1)
+        self.layers = nn.ModuleList(
+            [GatLayer(d, heads, d_head, True, generator) for d in dims[:-1]]
+            + [GatLayer(dims[-1], 1, 2, False, generator)])
+
+    def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not x.is_cuda:
+            return self.forward_plain(x, g, generator)
+        params = [dict(w=l.w, a_src=l.a_src, a_dst=l.a_dst, b=l.b)
+                  for l in self.layers]
+        if self.training:
+            return packed_gat_train_forward(params, x, g, self.dropout, generator)
+        return packed_gat_forward(params, x, g)
+
+    def forward_plain(self, x: torch.Tensor, g,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The plain version of the stack, layer by layer through
+        bsda_gat_aggregate: what CPU tensors take, and what the kernels'
+        path is held against."""
+        h = x
+        for layer in self.layers[:-1]:
+            h = torch.nn.functional.elu(layer(h, g))
+            h = _dropout(h, self.dropout, self.training, generator)
+        return self.layers[-1](h, g)
+
+
 def build_model(arch: str, in_dim: int, cfg: dict,
-                generator: Optional[torch.Generator] = None) -> SageResBN:
+                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Model factory with the JAX package's config keys and defaults.
-    Only the SAGE-ResBN family is ported so far."""
-    if arch in PORTED_ARCHS:
+    The SAGE-ResBN family and GAT are ported so far."""
+    if arch in SAGE_RESBN_ARCHS:
         return SageResBN(in_dim, cfg, generator)
+    if arch == "gat":
+        return GAT(in_dim, cfg, generator)
     if arch in MODEL_GRAPH_KIND:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to elliptic_gnn_tpu_torch yet "
-            f"(ported: {', '.join(PORTED_ARCHS)})")
+            f"(ported: {', '.join(PORTED_ARCHS)}; gcn and sage are ROADMAP "
+            "Queue A #6)")
     raise ValueError(f"Unknown arch {arch!r}")

@@ -34,3 +34,10 @@ def fit_temperature(logits_val: np.ndarray, labels_val: np.ndarray) -> float:
         lt = lt - delta
     return float(np.exp(lt.numpy()))
 
+
+def calibrated_probs(logits: np.ndarray, temperature: float = 1.0) -> np.ndarray:
+    """P(illicit) = softmax(logits / T)[:, 1] of [N, 2] logits."""
+    z = logits / float(temperature)
+    z = z - z.max(axis=1, keepdims=True)
+    e = np.exp(z)
+    return (e / e.sum(axis=1, keepdims=True))[:, 1]

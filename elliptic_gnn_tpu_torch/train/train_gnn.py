@@ -4,11 +4,13 @@
 
 Same YAML keys and the same `outputs/gnn/<run>` artifacts (metrics.json,
 scores_*.npy, y_*.npy, node_idx_*.npy, timestep_*.npy, config_used.yaml,
-training_log.csv) as the JAX trainer. Each epoch: forward over the full
-graph through the BSDA aggregation (the CUDA kernel on the GPU), masked
-loss on train nodes, backward (the kernel on the transpose tables), grad
-clip, Adam with L2, then an eval forward whose val probabilities and the
-loss come back to the host in one copy. The host processes epoch e while
+training_log.csv, best.ckpt) as the JAX trainer. Each epoch: forward over
+the full graph through the BSDA tables (the CUDA kernels on the GPU: the
+SpMM for the SAGE-ResBN family, the flash attention for GAT), masked loss
+on train nodes, backward (the SpMM on the transpose tables, the GAT
+backward kernel on the forward tables), grad clip, Adam with L2, then an
+eval forward whose val probabilities and the loss come back to the host in
+one copy. The host processes epoch e while
 epoch e+1 runs on the device, so early stopping lags one epoch, as in the
 JAX serial loop.
 
@@ -16,9 +18,8 @@ Runs on CUDA (`device: auto` or `cuda`) and raises when there is no GPU,
 unless the config says `device: cpu`.
 
 Not ported yet (raise): mini-batch training, multi-device meshes, resume
-and best checkpoints (train/checkpoint.py), hub ablation, profiling,
-archs other than the SAGE-ResBN family. `epochs_per_sync > 1` runs the
-serial loop.
+and periodic checkpoints, hub ablation, profiling, the gcn and sage archs.
+`epochs_per_sync > 1` runs the serial loop.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from ..utils.common import (
     ensure_dir, log_device_info, resolve_device, save_json, set_seed,
 )
 from ..utils.logger import RunLogger
-from . import calibrate
+from . import calibrate, checkpoint
 
 
 def _reject_unported(cfg: dict) -> None:
@@ -61,7 +62,9 @@ def _reject_unported(cfg: dict) -> None:
     if bad:
         raise NotImplementedError(
             f"config option(s) {bad} are not ported to elliptic_gnn_tpu_torch "
-            "yet; use the JAX trainer (elliptic_gnn_tpu.train.train_gnn)")
+            "yet (ROADMAP Queue A #5 resume/checkpoint_every/ablate_hubs_frac/"
+            "profile_dir, #9 mini_batch, #10 mesh_devices and aggregation); "
+            "use the JAX trainer (elliptic_gnn_tpu.train.train_gnn)")
 
 
 def make_optimizer(model: torch.nn.Module, cfg: dict) -> torch.optim.Adam:
@@ -102,14 +105,12 @@ def prepare_data(cfg: dict):
     return data
 
 
-def build_train_state(cfg: dict, data, seed: int, device: torch.device,
-                      init_params=None):
-    """(data, model, gops, optimizer, loss_fn) on `device`.
-
-    BFS-renumbers the graph (artifacts translate back via data.orig_index)
-    and builds the factored int8 BSDA tables with transpose, as the JAX
-    trainer does for its Pallas path. `init_params` = (params, state) of a
-    JAX model as numpy pytrees replaces the port's own init."""
+def build_graph_ops(cfg: dict, data, device: torch.device):
+    """(data, gops): the graph BFS-renumbered (artifacts translate back via
+    data.orig_index) and its int8 BSDA tables on `device`, as the JAX
+    trainer builds them for its kernel paths: depth 3 with transpose tables
+    for sage/gcn (gradients run the SpMM on A^T), depth 4 without for gat
+    (its backward walks the forward tables)."""
     arch = cfg["arch"]
     if arch not in MODEL_GRAPH_KIND:
         raise ValueError(
@@ -118,12 +119,22 @@ def build_train_state(cfg: dict, data, seed: int, device: torch.device,
     kind = MODEL_GRAPH_KIND[arch]
     rank = bfs_order(data.edge_index, data.num_nodes, data.timestep)
     data = data.renumber(rank)
-    gen = torch.Generator().manual_seed(int(seed))
-    model = build_model(arch, data.num_features, cfg, generator=gen)
     gops = build_bsda_for_kind(
         data.edge_index, data.num_nodes, kind,
-        depth=int(cfg.get("bsda_depth", 3)), a_dtype="int8", transpose=True,
+        depth=int(cfg.get("bsda_depth", 4 if kind == "gat" else 3)),
+        a_dtype="int8", transpose=kind != "gat",
     ).to(device)
+    return data, gops
+
+
+def build_train_state(cfg: dict, data, seed: int, device: torch.device,
+                      init_params=None):
+    """(data, model, gops, optimizer, loss_fn) on `device`. `init_params` =
+    (params, state) of a JAX model as numpy pytrees replaces the port's
+    own init."""
+    data, gops = build_graph_ops(cfg, data, device)
+    gen = torch.Generator().manual_seed(int(seed))
+    model = build_model(cfg["arch"], data.num_features, cfg, generator=gen)
     if init_params is not None:
         params_from_jax(init_params[0], init_params[1], model)
     model = model.to(device)
@@ -156,6 +167,7 @@ def main(cfg: dict, init_params=None) -> dict:
         cfg, data, model, gops, opt, loss_fn, logger, device)
     train_seconds = time.time() - t_start
     model.load_state_dict(best_state)
+    checkpoint.save_best(outdir, model)
 
     return _finalize(cfg, outdir, data, model, gops, best_val, logger,
                      train_seconds, epochs_run, epoch_seconds, device)
@@ -262,10 +274,7 @@ def _finalize(cfg, outdir, data, model, gops, best_val, logger,
         temp = calibrate.fit_temperature(logits_full[data.val_mask], y_val_bin)
         print(f"[CALIB] temperature T={temp:.4f}")
 
-    z = logits_full / temp
-    z = z - z.max(axis=1, keepdims=True)
-    e = np.exp(z)
-    probs = (e / e.sum(axis=1, keepdims=True))[:, 1]
+    probs = calibrate.calibrated_probs(logits_full, temp)
     metrics = finish_run(cfg, outdir, data, probs, best_val, extra={
         "train_seconds": float(train_seconds),
         "epochs_run": int(epochs_run),

@@ -49,6 +49,17 @@ def save_json(path: str, obj: Any) -> None:
         json.dump(_to_jsonable(obj), f, indent=2)
 
 
+def dropout(h: torch.Tensor, rate: float, training: bool,
+            generator=None) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from `generator` (on h's
+    device); the identity outside training or at rate 0."""
+    if not training or rate <= 0.0:
+        return h
+    keep = 1.0 - rate
+    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+
 def resolve_device(name) -> torch.device:
     """`auto` and `cuda` mean the GPU and raise when there is none; the CPU
     is used only when asked for by name."""

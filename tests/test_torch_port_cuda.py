@@ -1,13 +1,16 @@
-"""The port's CUDA BSDA kernel against its plain PyTorch version, on the
-card. Every test here needs an NVIDIA GPU and skips without one; this file
-imports nothing of JAX so that it runs on a machine without it:
+"""The port's CUDA kernels (BSDA SpMM, flash-GAT forward and backward)
+against their plain PyTorch versions, on the card. Every test here needs
+an NVIDIA GPU and skips without one; this file imports nothing of JAX so
+that it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Tolerances: f32 rtol 1e-5, atol 1e-5 (the same f32 products summed in
 another order); bf16 results rtol 1/64, atol 1e-3 (two bf16 ulps: the f32
 sums may round to neighbouring bf16 values); full SpMM and model outputs
-under amp rtol 2e-2, atol 2e-2.
+under amp rtol 2e-2, atol 2e-2. GAT (f32): forward rtol 1e-4, atol 1e-5 on
+val and m + log s (expf on the card against torch.exp, sums in another
+order); backward and parameter gradients rtol 5e-4, atol 5e-5 (atomics).
 """
 import dataclasses
 
@@ -17,7 +20,7 @@ import torch
 
 from elliptic_gnn_tpu_torch.graph import synthetic
 from elliptic_gnn_tpu_torch.graph.transform import symmetrize_edges
-from elliptic_gnn_tpu_torch.kernels import bsda
+from elliptic_gnn_tpu_torch.kernels import bsda, gat_cuda
 from elliptic_gnn_tpu_torch.models import build_model
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -131,3 +134,118 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         bsda_dense_cuda(g_float, torch.zeros((3000, 8), device=cuda))
     with pytest.raises(ValueError, match="tables on"):
         bsda_dense_cuda(g, torch.zeros((3000, 8), device=cuda))
+
+
+# ---------------- flash-GAT kernels ----------------
+
+GAT_FWD = dict(rtol=1e-4, atol=1e-5)
+GAT_BWD = dict(rtol=5e-4, atol=5e-5)
+
+
+def _gat_graph(n=20000, seed=0, depth=4, far=200, pack4=True):
+    """Directed, self-looped GAT tables of an Elliptic-like synthetic
+    graph, with far edges (a spill) and duplicates (multiplicity > 1)."""
+    data = synthetic.generate(num_nodes=n, num_features=4, num_timesteps=8, seed=seed)
+    rank = bsda.bfs_order(data.edge_index, n, data.timestep)
+    data = data.renumber(rank)
+    rng = np.random.default_rng(seed)
+    ei = data.edge_index
+    ei = np.concatenate([ei, rng.integers(0, n, (2, far)),
+                         ei[:, rng.integers(0, ei.shape[1], 300)]], axis=1)
+    g = bsda.build_bsda_for_kind(ei, n, "gat", depth=depth, transpose=False)
+    assert g.residual is not None and g.a_pack > 1
+    return g if pack4 else dataclasses.replace(g, a_packed=None, a_pack=1)
+
+
+def _gauge_free(out, h, ch, normalized):
+    hc = h * ch
+    acc = out[:, :hc].reshape(-1, h, ch)
+    m, s = out[:, hc: hc + h], out[:, hc + h: hc + 2 * h]
+    val = acc if normalized else acc / s.clamp_min(1e-16)[..., None]
+    return val, m + torch.log(s.clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,ch", [(4, 8), (1, 2), (2, 16), (3, 5), (8, 40)])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("pack4", [True, False])
+def test_gat_forward_kernel_matches_plain(cuda, h, ch, normalize, pack4):
+    g = _gat_graph(pack4=pack4).to(cuda)
+    pay = _randn((g.num_chunks * 128, gat_cuda.payload_width(h, ch)), 1, cuda)
+    want = gat_cuda.gat_fwd_plain(g, pay, h, ch, 0.2, normalize)
+    for gated in (True, False):
+        got = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalize, gated=gated)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        for a, b in zip(_gauge_free(got, h, ch, normalize),
+                        _gauge_free(want, h, ch, normalize)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **GAT_FWD)
+    # rows past the last node have no edge: s = 0, m = -1e30, acc = 0
+    tail = got[g.num_nodes:]
+    hc = h * ch
+    assert (tail[:, :hc] == 0).all() and (tail[:, hc + h:] == 0).all()
+    assert (tail[:, hc: hc + h] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,ch", [(4, 8), (1, 2), (2, 16), (3, 5), (8, 40)])
+@pytest.mark.parametrize("normalized", [False, True])
+def test_gat_backward_kernel_matches_plain(cuda, h, ch, normalized):
+    g = _gat_graph().to(cuda)
+    shape = (g.num_chunks * 128, gat_cuda.payload_width(h, ch))
+    pay = _randn(shape, 2, cuda)
+    gbar = _randn(shape, 3, cuda)
+    out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
+    got = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    torch.cuda.synchronize()
+    want = gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GAT_BWD)
+
+
+@pytest.mark.cuda
+def test_gat_model_on_cuda_matches_cpu(cuda):
+    """GAT logits and parameter gradients on the card (flash kernels, spill
+    merge) against the same weights on the CPU (per-layer plain
+    formulation, autograd), and against that plain formulation called
+    directly on the card (forward_plain)."""
+    g = _gat_graph(6000, seed=4)
+    cfg = {"hidden_dim": 32, "layers": 2, "heads": 4, "dropout": 0.0}
+    x = _randn((g.num_nodes, 30), 5, "cpu")
+    y = torch.from_numpy(np.random.default_rng(6).integers(0, 2, g.num_nodes))
+    results = []
+    for device, plain in (("cpu", False), (cuda, False), (cuda, True)):
+        model = build_model("gat", 30, cfg,
+                            generator=torch.Generator().manual_seed(0)).to(device)
+        run = model.forward_plain if plain else model
+        gat_cuda.reset_launches()
+        model.train()
+        logits = run(x.to(device), g.to(device))
+        torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
+        kernel_path = device != "cpu" and not plain
+        assert gat_cuda.launches == (
+            {"gat_fwd": 1, "gat_fwd_gated": 1, "gat_bwd": 2} if kernel_path
+            else {"gat_fwd": 0, "gat_fwd_gated": 0, "gat_bwd": 0})
+        model.eval()
+        with torch.no_grad():
+            ev = run(x.to(device), g.to(device))
+        results.append((logits.detach().cpu().numpy(), ev.cpu().numpy(),
+                        [p.grad.cpu().numpy() for p in model.parameters()]))
+    for got in results[1:]:
+        np.testing.assert_allclose(got[0], results[0][0], **GAT_FWD)
+        np.testing.assert_allclose(got[1], results[0][1], **GAT_FWD)
+        for a, b in zip(got[2], results[0][2]):
+            np.testing.assert_allclose(a, b, **GAT_BWD)
+
+
+@pytest.mark.cuda
+def test_gat_kernels_reject_what_they_do_not_take(cuda):
+    g = _gat_graph(3000)
+    pay = torch.zeros((g.num_chunks * 128, 40))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gat_cuda.gat_fwd_cuda(g, pay, 4, 8)
+    with pytest.raises(ValueError, match="tables on"):
+        gat_cuda.gat_fwd_cuda(g, pay.to(cuda), 4, 8)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        gat_cuda.gat_fwd_cuda(g.to(cuda), pay.to(cuda)[:, :36], 4, 8)
+    with pytest.raises(ValueError, match="<= 512"):
+        gat_cuda.gat_fwd_cuda(g.to(cuda), pay.to(cuda), 64, 8)

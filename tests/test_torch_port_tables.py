@@ -117,6 +117,28 @@ def test_build_bsda_for_kind_matches(kind, a_dtype):
     assert_tables_equal(gj, gp)
 
 
+@pytest.mark.parametrize("depth", [2, 3])
+def test_build_bsda_gat_matches(depth):
+    """GAT tables: self-loops, unit weights, always int8 multiplicities
+    (duplicate edges give values > 1), slot_occ, no transpose."""
+    ei, _ = port_graph(700, 3, 1.5, seed=9, n_far=60)
+    ei = np.concatenate([ei, ei[:, :50]], axis=1)
+    n = 700
+    gj = jax_bsda.build_bsda_for_kind(ei, n, "gat", depth=depth, transpose=False)
+    gp = port_bsda.build_bsda_for_kind(ei, n, "gat", depth=depth, transpose=False)
+    assert gp.a.dtype == torch.int8 and int(gp.a.max()) > 1
+    assert gp.residual is not None and gp.transpose is None
+    assert gp.slot_occ is not None and gp.dst_scale is None
+    assert_tables_equal(gj, gp)
+
+
+def test_gat_transpose_tables_raise():
+    """gat_block_transpose waits with the two-sweep backward kernels."""
+    ei, _ = port_graph(300, 2, 1.5, seed=9)
+    with pytest.raises(NotImplementedError, match="Queue B #6"):
+        port_bsda.build_bsda_for_kind(ei, 300, "gat", depth=3, transpose=True)
+
+
 def test_pack_a_planes_roundtrip():
     rng = np.random.default_rng(2)
     a = rng.integers(0, 4, (3, 5, 8, 8))

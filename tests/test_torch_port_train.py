@@ -135,6 +135,10 @@ def test_port_imports_without_jax():
         "    sys.modules[m] = None\n"
         "import elliptic_gnn_tpu_torch.train.train_gnn\n"
         "import elliptic_gnn_tpu_torch.kernels.bsda_spmm_cuda\n"
+        "import elliptic_gnn_tpu_torch.kernels.gat_cuda\n"
+        "import elliptic_gnn_tpu_torch.kernels.packed_gat\n"
+        "import elliptic_gnn_tpu_torch.train.predict\n"
+        "import elliptic_gnn_tpu_torch.analysis.common\n"
         "import elliptic_gnn_tpu_torch.graph.build_graph\n"
         "import elliptic_gnn_tpu_torch.models.convert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'elliptic_gnn_tpu')\n"
