@@ -6,7 +6,7 @@ NVIDIA GPU. Run from the repository root:
 
 Phases (any failure exits non-zero before the result line):
   1. device: the card's name and power limit;
-  2. build: compiles the three kernel sources of kernels/csrc with nvcc, in
+  2. build: compiles the five kernel sources of kernels/csrc with nvcc, in
      parallel, and prints what ptxas says of each kernel;
   3. BSDA kernel vs plain: on the Elliptic-scale synthetic graph (203,769
      nodes, 234,355 edges before symmetrization, 166 features, 49 timesteps,
@@ -14,26 +14,36 @@ Phases (any failure exits non-zero before the result line):
      for the forward (dst scale) and transpose (src scale) tables, the
      bit-packed (pack 4) and int8 (pack 1) tables, at F=168 f32, F=168 bf16
      and F=64 bf16; CUDA-event medians of kernel, plain version and the
-     torch.sparse yardstick;
+     torch.sparse yardstick; then on the same graph directed, the GCN
+     tables (self-looped, dst and src scales together) at F=128 and F=2 and
+     the SAGE tables at F=167 and F=128, bf16, kernel against plain version;
   4. GAT kernels vs plain: on the same graph, directed and self-looped,
      depth 4: the forward at (h, ch) = (4, 8) with the slot cover and
      (1, 2) without, normalize on and off, compared on val = acc / s and
      m + log s; the backward in both gauges against the closed form; two
-     runs of the same backward against each other (atomics); one training
-     step of the gat.yaml model through the kernels against its plain
-     version, gradients and times; and on a 6,000-node graph with a spill,
+     runs of the same backward against each other (atomics); the two-sweep
+     backward (destination sweep over the forward tables, source sweep over
+     the transpose tables): each sweep against its plain version, their sum
+     against the one-sweep kernel, two launches of each bit for bit equal;
+     one training step of the gat.yaml model through the kernels, with the
+     one-sweep and with the two-sweep backward, against its plain version,
+     gradients and times; and on a 6,000-node graph with a spill,
      the backward through the packed attend against autograd through the
      plain formulation;
-  5. small-graph references: SAGE-ResBN and GAT logits on the card (kernels)
-     against the same weights on the CPU (plain versions);
+  5. small-graph references: SAGE-ResBN, GCN, SAGE and GAT logits on the
+     card (kernels) against the same weights on the CPU (plain versions);
   6. slices: builds the same graph with the port's build_graph, then runs
-     train_gnn.main on configs/rec_k8.yaml's and on configs/gat.yaml's
-     values at full width for a few epochs each, with the launch counts set
-     to 0 just before and read just after: every epoch must have gone
-     through the kernels, losses and scores must be finite, the artifacts
-     and best.ckpt present; then predict.predict on the GAT run dir must
-     reproduce its scores_test.npy;
-  7. profile: both runs for 3 epochs under torch.profiler, device time by
+     train_gnn.main on the values of configs/rec_k8.yaml, gat.yaml, gcn.yaml
+     and sage.yaml at full width for a few epochs each, with the launch
+     counts set to 0 just before and read just after: every epoch must have
+     gone through the kernels, losses and scores must be finite, the
+     artifacts and best.ckpt present; predict.predict on the GAT run dir
+     must reproduce its scores_test.npy; gat.yaml again, twice, with the
+     two-sweep backward chosen (EGNN_GAT_ONE_SWEEP=0): only the two sweeps
+     may run the backward, the two runs' scores_test.npy must be equal bit
+     for bit, and loss and val PR-AUC per epoch must agree with the
+     one-sweep run (loss rtol 1e-4, PR-AUC atol 2e-3);
+  7. profile: the runs for 3 epochs under torch.profiler, device time by
      kernel name;
   8. prints the table of TPU kernels, the kernel line, the card line, and
      the result line {"ok": true, "device": {...}}.
@@ -42,6 +52,7 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -75,9 +86,14 @@ TPU_KERNELS = [
      CSRC + "gat_fwd.cu"),
     ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:326", "_sweep_fused_call",
      CSRC + "gat_bwd.cu"),
-    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:63", "_sweep_dst_call", None),
-    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:181", "_sweep_src_call", None),
+    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:63", "_sweep_dst_call",
+     CSRC + "gat_bwd_dst.cu"),
+    ("elliptic_gnn_tpu/kernels/pallas_gat_bwd.py:181", "_sweep_src_call",
+     CSRC + "gat_bwd_src.cu"),
 ]
+# the two-sweep run against the one-sweep run of the same config, per epoch
+TWO_SWEEP_LOSS_RTOL = 1e-4
+TWO_SWEEP_PR_ATOL = 2e-3
 
 
 def fail(msg: str) -> None:
@@ -110,10 +126,22 @@ def cuda_ms(fn, flush_buf) -> float:
     return times[len(times) // 2]
 
 
-def elliptic_tables(device, kind):
+@contextlib.contextmanager
+def two_sweep_backward():
+    """Chooses the bit-reproducible two-sweep GAT backward, as a user does."""
+    os.environ["EGNN_GAT_ONE_SWEEP"] = "0"
+    try:
+        yield
+    finally:
+        del os.environ["EGNN_GAT_ONE_SWEEP"]
+
+
+def elliptic_tables(device, kind, symmetrize=None):
     """The Elliptic-scale synthetic graph's main-path tables on `device`:
-    symmetrized, depth 3, with transpose for 'sage' (rec_k8); directed,
-    self-looped, depth 4, no transpose for 'gat' (gat.yaml)."""
+    depth 3 with transpose for 'sage' and 'gcn', symmetrized for rec_k8 and
+    directed (`symmetrize` False) for gcn.yaml and sage.yaml; directed,
+    self-looped, depth 4 for 'gat' (gat.yaml), with the transpose tables
+    the two-sweep backward walks."""
     from elliptic_gnn_tpu_torch.graph import synthetic
     from elliptic_gnn_tpu_torch.graph.transform import symmetrize_edges
     from elliptic_gnn_tpu_torch.kernels.bsda import bfs_order, build_bsda_for_kind
@@ -121,12 +149,12 @@ def elliptic_tables(device, kind):
     data = synthetic.generate(
         num_nodes=N_NODES, num_features=166, num_timesteps=49,
         avg_degree=N_EDGES / N_NODES, seed=0)
-    if kind == "sage":
+    if kind == "sage" if symmetrize is None else symmetrize:
         data = symmetrize_edges(data)
     data = data.renumber(bfs_order(data.edge_index, data.num_nodes, data.timestep))
     g = build_bsda_for_kind(data.edge_index, data.num_nodes, kind,
                             depth=4 if kind == "gat" else 3, a_dtype="int8",
-                            transpose=kind != "gat")
+                            transpose=True)
     return g.to(device)
 
 
@@ -204,28 +232,86 @@ def kernel_phase(device, flush_buf):
     entries = {}
     for variant, f in (("banded", 168), ("ring", 64)):
         r = results[("forward", 4, f, "bfloat16")]
-        t, x = r["table"], r["x"]
-        csr, nnz = sparse_yardstick(t, x)
-        try:
-            library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x), flush_buf)
-        except RuntimeError as exc:  # no bf16 sparse product on this build
-            log(f"torch.sparse.mm yardstick unavailable for bf16: {exc}")
-            library_ms = None
-        del csr
-        itemsize = x.element_size()
-        bytes_moved = (t.a_packed.numel() + t.src_chunk.numel() * 4
-                       + t.dst_scale.numel() * 4 + 2 * x.numel() * itemsize)
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2.0 * nnz * f / PEAK_OPS["bfloat16"] * 1e3
-        entries[variant] = dict(
-            max_abs_err=r["max_abs"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=library_ms, bytes=bytes_moved, nnz=nnz, f=f)
-        log(f"{variant} (F={f} bf16, forward tables): bytes={bytes_moved} "
-            f"nnz={nnz} bound={entries[variant]['bound_ms']:.4f} ms "
-            f"({entries[variant]['bound_by']}) kernel={r['ms']:.4f} ms "
-            f"library={library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
+        entries[variant] = spmm_entry(f"{variant} (F={f} bf16, forward tables)",
+                                      r["table"], r["x"], r, flush_buf)
+    return entries
+
+
+def spmm_entry(label, t, x, r, flush_buf):
+    """Kernel-line numbers of one bf16 launch shape of the BSDA kernel on
+    the bit-packed tables `t`: r's measured error and times, the bound from
+    this call's bytes (planes, src_chunk, the scale vectors present, x read
+    and the output written once) and nonzeros, and the torch.sparse.mm
+    yardstick on the same weights."""
+    import torch
+
+    f = x.shape[1]
+    csr, nnz = sparse_yardstick(t, x)
+    try:
+        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x), flush_buf)
+    except RuntimeError as exc:  # no bf16 sparse product on this build
+        log(f"torch.sparse.mm yardstick unavailable for bf16: {exc}")
+        library_ms = None
+    del csr
+    scales = [v for v in (t.dst_scale, t.src_scale) if v is not None]
+    bytes_moved = (t.a_packed.numel() + t.src_chunk.numel() * 4
+                   + sum(v.numel() * 4 for v in scales)
+                   + 2 * x.numel() * x.element_size())
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * nnz * f / PEAK_OPS["bfloat16"] * 1e3
+    entry = dict(
+        max_abs_err=r["max_abs"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms, bytes=bytes_moved, nnz=nnz, f=f)
+    log(f"{label}: bytes={bytes_moved} nnz={nnz} bound={entry['bound_ms']:.4f} ms "
+        f"({entry['bound_by']}) kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
+        f"library={library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
+    return entry
+
+
+def arch_kernel_phase(device, flush_buf):
+    """The BSDA kernel at the launch shapes of gcn.yaml (self-looped
+    directed tables with dst and src scales together; F = 128 and the F = 2
+    logits) and sage.yaml (directed tables; F = 167 and 128), bf16 under
+    amp, forward and transpose tables against the plain version. Returns
+    the kernel-line entries by (kind, F), timed on the forward tables."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import bsda, bsda_spmm_cuda
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    tol = TOL["bfloat16"]
+    entries, failures = {}, []
+    for kind, widths in (("gcn", (128, 2)), ("sage", (167, 128))):
+        g = elliptic_tables(device, kind, symmetrize=False)
+        scales = "+".join(n for n in ("dst_scale", "src_scale")
+                          if getattr(g, n) is not None)
+        log(f"{kind} tables (directed): chunks={g.num_chunks} depth={g.depth} "
+            f"pack={g.a_pack} scales={scales}")
+        for f in widths:
+            x = torch.randn((g.num_nodes, f), generator=gen,
+                            device=device).to(torch.bfloat16)
+            errs = []
+            for table in (g, g.transpose):
+                got = bsda_spmm_cuda.bsda_dense_cuda(table, x)
+                torch.cuda.synchronize()
+                want = bsda.bsda_dense_plain(table, x)
+                diff = (got.float() - want.float()).abs()
+                errs.append(float(diff.max()))
+                if not bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all()):
+                    failures.append(f"{kind} F={f}")
+            r = dict(max_abs=max(errs),
+                     ms=cuda_ms(lambda: bsda_spmm_cuda.bsda_dense_cuda(g, x), flush_buf),
+                     plain_ms=cuda_ms(lambda: bsda.bsda_dense_plain(g, x), flush_buf))
+            log(f"kernel vs plain [{kind} F={f} bf16, {scales}]: max_abs forward "
+                f"{errs[0]:.3e}, transpose {errs[1]:.3e} (tol rtol={tol['rtol']:.3g} "
+                f"atol={tol['atol']:.3g})")
+            entries[(kind, f)] = spmm_entry(
+                f"{kind}.yaml shape F={f} bf16, forward tables", g, x, r, flush_buf)
+        del g
+    if failures:
+        fail(f"BSDA kernel disagrees with its plain version: {failures}")
     return entries
 
 
@@ -344,11 +430,122 @@ def gat_kernel_phase(device, flush_buf):
     return entries, g
 
 
+def gat_two_sweep_phase(device, flush_buf, g):
+    """The two-sweep backward at the main path's shapes: the destination
+    sweep over the forward tables `g` and the source sweep over g.transpose,
+    each against its plain version on the same G2, their sum against the
+    one-sweep kernel, two launches of each bit for bit; returns the
+    kernel-line entries by name."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import gat_cuda
+    from elliptic_gnn_tpu_torch.kernels.bsda_spmm_cuda import kernel_table
+    from elliptic_gnn_tpu_torch.kernels.gat_bwd import grad_payload
+
+    t = g.transpose
+    nnz = int(g.a.sum())
+    n_pad = g.num_chunks * g.chunk
+    plane_bytes = g.chunk * g.chunk
+    planes_read = {}
+    for name, tab in (("dst", g), ("src", t)):
+        a, _, pack = kernel_table(tab)
+        planes_read[name] = int(((tab.slot_occ + pack - 1) // pack).sum())
+        log(f"two-sweep tables [{name}]: depth={tab.depth} pack={pack} table bytes "
+            f"{a.numel()} mean slot cover {float(tab.slot_occ.float().mean()):.3f} "
+            f"max {int(tab.slot_occ.max())} planes read {planes_read[name]} "
+            f"({planes_read[name] * plane_bytes} bytes) max_chunk_dist={tab.max_chunk_dist}")
+    if int(t.a.sum()) != nnz:
+        fail("the transpose tables do not hold the forward tables' edges")
+
+    def bound(n_planes, columns, flops):
+        bytes_moved = (n_planes * plane_bytes + g.src_chunk.numel() * 4
+                       + g.slot_occ.numel() * 4 + n_pad * columns * 4)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_OPS["float32"] * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bytes=bytes_moved,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    failures, entries = [], {}
+    for h, ch in ((4, 8), (1, 2)):
+        hc, width = h * ch, gat_cuda.payload_width(h, ch)
+        pay = torch.randn((n_pad, width), generator=gen, device=device)
+        gbar = torch.randn((n_pad, width), generator=gen, device=device)
+        for normalized in (True, False):
+            out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
+            g2 = grad_payload(gbar, pay, out_k, h, ch, normalized)
+
+            def dst():
+                return gat_cuda.gat_bwd_dst_cuda(g, g2, pay, h, ch, 0.2)
+
+            def src():
+                return gat_cuda.gat_bwd_src_cuda(t, pay, g2, h, ch, 0.2)
+
+            d_dst, d_src = dst(), src()
+            torch.cuda.synchronize()
+            want_dst = gat_cuda.gat_bwd_dst_plain(g, g2, pay, h, ch, 0.2)
+            want_src = gat_cuda.gat_bwd_src_plain(t, pay, g2, h, ch, 0.2)
+            one = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            err_dst = float((d_dst - want_dst).abs().max())
+            err_src = float((d_src - want_src).abs().max())
+            err_one = float((d_dst + d_src - one).abs().max())
+            own_columns = not bool(d_dst[:, : hc + h].any() or d_src[:, hc + h:].any())
+            same = torch.equal(d_dst, dst()) and torch.equal(d_src, src())
+            ok = (bool(torch.isfinite(d_dst).all() and torch.isfinite(d_src).all())
+                  and within(d_dst, want_dst, GAT_BWD_TOL)
+                  and within(d_src, want_src, GAT_BWD_TOL)
+                  and within(d_dst + d_src, one, GAT_BWD_TOL) and own_columns)
+            case = f"gat two-sweep[h={h}] normalized={normalized}"
+            log(f"kernel vs plain [{case}]: max_abs dst={err_dst:.3e} src={err_src:.3e}, "
+                f"dst + src vs one-sweep kernel {err_one:.3e} (tol rtol="
+                f"{GAT_BWD_TOL['rtol']:.3g} atol={GAT_BWD_TOL['atol']:.3g}) "
+                f"{'ok' if ok else 'MISMATCH'}; two launches of each "
+                f"{'bit-equal' if same else 'DIFFER'}")
+            if not ok or not same:
+                failures.append(case)
+            if not normalized:
+                continue  # the main path's forward normalizes in the kernel
+            times = dict(
+                dst=cuda_ms(dst, flush_buf), src=cuda_ms(src, flush_buf),
+                dst_plain=cuda_ms(lambda: gat_cuda.gat_bwd_dst_plain(
+                    g, g2, pay, h, ch, 0.2), flush_buf),
+                src_plain=cuda_ms(lambda: gat_cuda.gat_bwd_src_plain(
+                    t, pay, g2, h, ch, 0.2), flush_buf),
+                g2=cuda_ms(lambda: grad_payload(gbar, pay, out_k, h, ch, True),
+                           flush_buf),
+                one=cuda_ms(lambda: gat_cuda.gat_bwd_cuda(
+                    g, gbar, pay, out_k, h, ch, 0.2, True), flush_buf),
+                two=cuda_ms(lambda: gat_cuda.gat_bwd_two_sweep(
+                    g, gbar, pay, out_k, h, ch, 0.2, True), flush_buf))
+            log(f"backward of one layer [h={h}]: one-sweep kernel {times['one']:.4f} ms; "
+                f"two-sweep {times['two']:.4f} ms = grad payload (plain torch) "
+                f"{times['g2']:.4f} + dst {times['dst']:.4f} + src {times['src']:.4f} ms")
+            # columns a sweep must touch: all of G2, the payload's xp and
+            # a_src, and its own output columns
+            entries[f"gat_bwd_dst[h={h}]"] = dict(
+                max_abs_err=err_dst, ms=times["dst"], plain_ms=times["dst_plain"],
+                **bound(planes_read["dst"], (hc + 3 * h) + (hc + h) + h,
+                        4.0 * nnz * hc))
+            entries[f"gat_bwd_src[h={h}]"] = dict(
+                max_abs_err=err_src, ms=times["src"], plain_ms=times["src_plain"],
+                **bound(planes_read["src"], (hc + 3 * h) + 2 * (hc + h),
+                        6.0 * nnz * hc))
+        del pay, gbar, out_k, g2, d_dst, d_src, want_dst, want_src, one
+    if failures:
+        fail(f"two-sweep GAT backward fails its checks: {failures}")
+    for name, e in entries.items():
+        log(f"{name}: bytes={e['bytes']} bound={e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}) kernel={e['ms']:.4f} ms plain={e['plain_ms']:.4f} ms "
+            "library=none (no single PyTorch call computes this function)")
+    return entries
+
+
 def gat_step_times(device, g, flush_buf) -> None:
     """One training step of the gat.yaml model (forward, loss, backward) at
     the Elliptic-scale tables `g`: through the kernels, as the model runs on
-    the card, and through its plain version (forward_plain, autograd), which
-    the port runs on CPU tensors only. Timed and logged, used nowhere."""
+    the card, with the one-sweep and with the two-sweep backward, and
+    through its plain version (forward_plain, autograd), which the port runs
+    on CPU tensors only. Timed and logged, used nowhere."""
     import torch
     import yaml
 
@@ -368,23 +565,43 @@ def gat_step_times(device, g, flush_buf) -> None:
         torch.nn.functional.cross_entropy(run(x, g), y).backward()
         return [p.grad for p in model.parameters()]
 
-    before = dict(gat_cuda.launches)
-    grads_k = step(model)
-    if {k: gat_cuda.launches[k] - before[k] for k in before} != {
-            "gat_fwd": 1, "gat_fwd_gated": 1, "gat_bwd": 2}:
-        fail("the GAT model's training step on the card did not launch the kernels")
+    def counted_step(want):
+        gat_cuda.reset_launches()
+        grads = step(model)
+        if gat_cuda.launches != {"gat_fwd": 1, "gat_fwd_gated": 1, **want}:
+            fail(f"the GAT model's training step on the card launched "
+                 f"{gat_cuda.launches}, not the kernels expected: {want}")
+        return grads
+
+    grads_k = counted_step({"gat_bwd": 2, "gat_bwd_dst": 0, "gat_bwd_src": 0})
+    with two_sweep_backward():
+        two = {"gat_bwd": 0, "gat_bwd_dst": 2, "gat_bwd_src": 2}
+        grads_2 = counted_step(two)
+        same = all(torch.equal(a, b) for a, b in zip(grads_2, counted_step(two)))
     grads_p = step(model.forward_plain)
     err = max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p))
-    ok = all(within(a, b, GAT_BWD_TOL) for a, b in zip(grads_k, grads_p))
-    ms = cuda_ms(lambda: step(model), flush_buf)
+    err_2 = max(float((a - b).abs().max()) for a, b in zip(grads_2, grads_p))
+    ok = all(within(a, b, GAT_BWD_TOL) and within(c, b, GAT_BWD_TOL)
+             for a, b, c in zip(grads_k, grads_p, grads_2))
+    # in turns within one call: one-sweep, two-sweep, two-sweep, one-sweep
+    ms = [cuda_ms(lambda: step(model), flush_buf)]
+    with two_sweep_backward():
+        ms_2 = [cuda_ms(lambda: step(model), flush_buf) for _ in range(2)]
+    ms.append(cuda_ms(lambda: step(model), flush_buf))
     plain_ms = cuda_ms(lambda: step(model.forward_plain), flush_buf)
     log(f"gat.yaml training step at {g.num_nodes} nodes (forward, loss, backward): "
-        f"kernels {ms:.3f} ms, plain version on the card {plain_ms:.3f} ms; parameter "
-        f"gradients differ by max_abs={err:.3e} (tol rtol={GAT_BWD_TOL['rtol']:.3g} "
-        f"atol={GAT_BWD_TOL['atol']:.3g}) {'ok' if ok else 'MISMATCH'}")
+        f"kernels with the one-sweep backward {ms[0]:.3f} and {ms[1]:.3f} ms, with the "
+        f"two-sweep backward {ms_2[0]:.3f} and {ms_2[1]:.3f} ms, plain version on the "
+        f"card {plain_ms:.3f} ms; parameter gradients differ from the plain version's "
+        f"by max_abs={err:.3e} (one-sweep) and {err_2:.3e} (two-sweep) (tol rtol="
+        f"{GAT_BWD_TOL['rtol']:.3g} atol={GAT_BWD_TOL['atol']:.3g}) "
+        f"{'ok' if ok else 'MISMATCH'}; two two-sweep steps give "
+        f"{'bit-equal' if same else 'DIFFERENT'} gradients")
     if not ok:
         fail("GAT parameter gradients through the kernels disagree with autograd "
              "through the plain version at full size")
+    if not same:
+        fail("two training steps with the two-sweep backward differ in their bits")
 
 
 def small_gat_graph(n=6000, seed=4, far=100):
@@ -474,6 +691,25 @@ def small_reference_check(device):
     if not bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all()):
         fail("model logits on the card disagree with the CPU reference")
 
+    # gcn.yaml's and sage.yaml's models on the directed graph; GCN's tables
+    # carry both scales and its last layer aggregates the F = 2 logits
+    data = synthetic.generate(num_nodes=6000, seed=4)
+    data = data.renumber(bfs_order(data.edge_index, data.num_nodes, data.timestep))
+    x = torch.from_numpy(data.x)
+    for arch, layers in (("gcn", 3), ("sage", 2)):
+        g = build_bsda_for_kind(data.edge_index, data.num_nodes, arch, depth=3,
+                                a_dtype="int8", transpose=True)
+        cfg = {"hidden_dim": 128, "layers": layers, "dropout": 0.0, "amp": True}
+        model = build_model(arch, data.num_features, cfg,
+                            generator=torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            want = model(x, g)
+            got = model.to(device)(x.to(device), g.to(device)).cpu()
+        log(f"small-graph reference: {arch} logits cuda (kernel) vs cpu (plain) "
+            f"max_abs={float((got - want).abs().max()):.3e} (tol 2e-2 + 2e-2*|ref|)")
+        if not bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all()):
+            fail(f"{arch} logits on the card disagree with the CPU reference")
+
     data, g = small_gat_graph()
     cfg = {"hidden_dim": 32, "layers": 2, "heads": 4, "dropout": 0.0}
     model = build_model("gat", data.num_features, cfg,
@@ -499,10 +735,11 @@ def build_processed(tmp) -> str:
     return processed
 
 
-def slice_phase(tmp, processed, config_name):
+def slice_phase(tmp, processed, config_name, run_name=None):
     """train_gnn.main on one config's values at full width for EPOCHS
     epochs, launch counts set to 0 just before and read just after.
-    Returns (launches, cfg, outdir, metrics)."""
+    `run_name` replaces the config's, for a second run of one config.
+    Returns a dict: launches, cfg, outdir, losses, val_pr_auc, scores."""
     import numpy as np
     import yaml
 
@@ -513,6 +750,8 @@ def slice_phase(tmp, processed, config_name):
         cfg = yaml.safe_load(fh)
     cfg.update(processed_dir=processed, output_root=os.path.join(tmp, "out"),
                max_epochs=EPOCHS)
+    if run_name is not None:
+        cfg["run_name"] = run_name
     bsda_spmm_cuda.reset_launches()
     gat_cuda.reset_launches()
     t0 = time.time()
@@ -522,7 +761,7 @@ def slice_phase(tmp, processed, config_name):
 
     outdir = os.path.join(cfg["output_root"], "gnn", cfg["run_name"])
     epochs = int(metrics["epochs_run"])
-    log(f"slice: {config_name} ({cfg['arch']}, hidden {cfg['hidden_dim']}, "
+    log(f"slice: {config_name} as {cfg['run_name']} ({cfg['arch']}, hidden {cfg['hidden_dim']}, "
         f"{cfg['layers']} layers, heads {cfg.get('heads', '-')}, amp {cfg['amp']}) "
         f"ran {epochs} epochs, main() wall {wall:.1f} s, "
         f"train {metrics['train_seconds']:.3f} s")
@@ -537,7 +776,9 @@ def slice_phase(tmp, processed, config_name):
         if not os.path.exists(os.path.join(outdir, name)):
             fail(f"missing artifact {name}")
     with open(os.path.join(outdir, "training_log.csv")) as fh:
-        losses = [float(line.split(",")[1]) for line in fh.read().splitlines()[1:]]
+        rows = [line.split(",") for line in fh.read().splitlines()[1:]]
+    losses = [float(r[1]) for r in rows]
+    val_pr_auc = [float(r[2]) for r in rows]
     scores = np.load(os.path.join(outdir, "scores_test.npy"))
     y_test = np.load(os.path.join(outdir, "y_test.npy"))
     if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
@@ -545,9 +786,11 @@ def slice_phase(tmp, processed, config_name):
     if scores.shape != y_test.shape or not np.isfinite(scores).all() or \
             scores.min() < 0 or scores.max() > 1:
         fail("test scores are not finite probabilities of the expected shape")
-    log(f"losses {losses}; test PR-AUC {metrics['pr_auc_illicit']:.4f}, "
-        f"ROC-AUC {metrics['roc_auc']:.4f} (random weights, {epochs} epochs)")
-    return launches, cfg, outdir
+    log(f"losses {losses}; val PR-AUC {val_pr_auc}; test PR-AUC "
+        f"{metrics['pr_auc_illicit']:.4f}, ROC-AUC {metrics['roc_auc']:.4f} "
+        f"(random weights, {epochs} epochs)")
+    return dict(launches=launches, cfg=cfg, outdir=outdir, losses=losses,
+                val_pr_auc=val_pr_auc, scores=scores)
 
 
 def check_rec_k8_launches(launches) -> None:
@@ -558,16 +801,54 @@ def check_rec_k8_launches(launches) -> None:
              f"{launches} for {EPOCHS} epochs (want >= 8 per epoch, both variants)")
 
 
-def check_gat_launches(launches) -> None:
+def check_gat_launches(launches, two_sweep=False) -> None:
     """Per epoch: the training step launches the forward twice (hidden
-    layer with the slot cover, final layer without) and the backward twice,
-    the val eval the forward twice; the final scoring pass adds one
-    forward of each variant."""
+    layer with the slot cover, final layer without) and the backward twice
+    (one a layer: the one-sweep kernel, or with `two_sweep` each of the two
+    sweeps and the one-sweep kernel never), the val eval the forward
+    twice; the final scoring pass adds one forward of each variant."""
     want = {"gat_fwd_gated": 2 * EPOCHS + 1, "gat_fwd": 2 * EPOCHS + 1,
-            "gat_bwd": 2 * EPOCHS, "ring": 0, "banded": 0}
+            "gat_bwd": 0 if two_sweep else 2 * EPOCHS,
+            "gat_bwd_dst": 2 * EPOCHS if two_sweep else 0,
+            "gat_bwd_src": 2 * EPOCHS if two_sweep else 0, "ring": 0, "banded": 0}
     if launches != want:
         fail(f"gat.yaml did not run every epoch through the GAT kernels: "
              f"{launches}, want {want}")
+
+
+def check_conv_launches(name, launches, per_epoch, scoring) -> None:
+    """gcn.yaml: three aggregations a forward, all of one 128-lane tile (F =
+    128, 128 and the 2 logits): per epoch 3 forward + 3 on the transpose
+    tables + 3 val eval as `ring`, none as `banded`. sage.yaml: layer 1
+    aggregates the 167 input features (`banded`, no gradient: forward + val
+    eval), layer 2 F = 128 (`ring`: forward, transpose, val eval). The
+    scoring pass adds one forward."""
+    want = {k: per_epoch[k] * EPOCHS + scoring[k] for k in ("ring", "banded")}
+    got = {k: launches[k] for k in want}
+    if got != want or any(v for k, v in launches.items() if k.startswith("gat")):
+        fail(f"{name} did not run every epoch through the BSDA kernel alone: "
+             f"{launches}, want {want}")
+
+
+def check_two_sweep_runs(one, two_a, two_b) -> None:
+    """Two gat.yaml runs with the two-sweep backward give the same bits, and
+    agree per epoch with the one-sweep run within the stated tolerances."""
+    import numpy as np
+
+    if not np.array_equal(two_a["scores"], two_b["scores"]) or \
+            two_a["losses"] != two_b["losses"]:
+        fail("two gat.yaml runs with the two-sweep backward differ: max abs score "
+             f"difference {float(np.abs(two_a['scores'] - two_b['scores']).max()):.3e}, "
+             f"losses {two_a['losses']} and {two_b['losses']}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(two_a["losses"], one["losses"]))
+    pr_abs = max(abs(a - b) for a, b in zip(two_a["val_pr_auc"], one["val_pr_auc"]))
+    score_abs = float(np.abs(two_a["scores"] - one["scores"]).max())
+    log(f"gat.yaml two-sweep: {EPOCHS} epochs twice, scores_test.npy and losses "
+        f"bit-equal; against the one-sweep run: loss max rel {loss_rel:.3e} (tol "
+        f"{TWO_SWEEP_LOSS_RTOL:.0e}), val PR-AUC max abs {pr_abs:.3e} (tol "
+        f"{TWO_SWEEP_PR_ATOL:.0e}), test scores max abs {score_abs:.3e}")
+    if loss_rel > TWO_SWEEP_LOSS_RTOL or pr_abs > TWO_SWEEP_PR_ATOL:
+        fail("the two-sweep gat.yaml run disagrees with the one-sweep run")
 
 
 def predict_check(outdir) -> None:
@@ -635,6 +916,96 @@ def profile_phase(cfg, kernel_names) -> None:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
+def drive(device) -> list:
+    """Every phase after the build, on `device`; returns the kernel line's
+    entries."""
+    import torch
+
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    entries = kernel_phase(device, flush_buf)
+    arch_entries = arch_kernel_phase(device, flush_buf)
+    gat_entries, gat_tables = gat_kernel_phase(device, flush_buf)
+    gat_entries.update(gat_two_sweep_phase(device, flush_buf, gat_tables))
+    gat_step_times(device, gat_tables, flush_buf)
+    del flush_buf, gat_tables
+    gat_autograd_check(device)
+    small_reference_check(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        processed = build_processed(tmp)
+        rec = slice_phase(tmp, processed, "rec_k8.yaml")
+        check_rec_k8_launches(rec["launches"])
+        gat = slice_phase(tmp, processed, "gat.yaml")
+        check_gat_launches(gat["launches"])
+        predict_check(gat["outdir"])
+        with two_sweep_backward():
+            gat2 = slice_phase(tmp, processed, "gat.yaml", "gat_two_sweep_a")
+            gat2_again = slice_phase(tmp, processed, "gat.yaml", "gat_two_sweep_b")
+        check_gat_launches(gat2["launches"], two_sweep=True)
+        check_gat_launches(gat2_again["launches"], two_sweep=True)
+        check_two_sweep_runs(gat, gat2, gat2_again)
+        gcn = slice_phase(tmp, processed, "gcn.yaml")
+        check_conv_launches("gcn.yaml", gcn["launches"],
+                            per_epoch={"ring": 9, "banded": 0},
+                            scoring={"ring": 3, "banded": 0})
+        sage = slice_phase(tmp, processed, "sage.yaml")
+        check_conv_launches("sage.yaml", sage["launches"],
+                            per_epoch={"ring": 3, "banded": 2},
+                            scoring={"ring": 1, "banded": 1})
+        profile_phase(rec["cfg"], ["bsda_spmm_kernel"])
+        profile_phase(gat["cfg"], ["gat_fwd_kernel", "gat_bwd_kernel"])
+        with two_sweep_backward():
+            profile_phase(gat2["cfg"], ["gat_fwd_kernel", "gat_bwd_dst_kernel",
+                                        "gat_bwd_src_kernel", "gat_bwd_kernel"])
+        profile_phase(gcn["cfg"], ["bsda_spmm_kernel"])
+        profile_phase(sage["cfg"], ["bsda_spmm_kernel"])
+
+    def kernel_row(name, row, count, e, library=True):
+        return {"name": name, "route": "cuda", "source": row[2], "replaces": row[0],
+                "launches": count, "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                "bound_by": e["bound_by"],
+                "library_ms": e["library_ms"] if library else None}
+
+    def second_shape(suffix, e):
+        """A kernel counted once but launched at two shapes a step: the
+        second shape's numbers under *_<suffix> keys of the same entry."""
+        return {f"{k}_{suffix}": e[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+
+    ring_row, banded_row = TPU_KERNELS[0], TPU_KERNELS[1]
+    kernels = [
+        kernel_row(f"bsda_spmm[ring: rec_k8 F={entries['ring']['f']} bf16]", ring_row,
+                   rec["launches"]["ring"], entries["ring"]),
+        kernel_row(f"bsda_spmm[banded: rec_k8 F={entries['banded']['f']} bf16]",
+                   banded_row, rec["launches"]["banded"], entries["banded"]),
+        # gcn.yaml counts its F = 128 and F = 2 aggregations together
+        kernel_row("bsda_spmm[ring: gcn F=128 bf16, dst and src scales]", ring_row,
+                   gcn["launches"]["ring"], arch_entries[("gcn", 128)]),
+        kernel_row("bsda_spmm[banded: sage F=167 bf16]", banded_row,
+                   sage["launches"]["banded"], arch_entries[("sage", 167)]),
+        kernel_row("bsda_spmm[ring: sage F=128 bf16]", ring_row,
+                   sage["launches"]["ring"], arch_entries[("sage", 128)]),
+    ]
+    f2 = arch_entries[("gcn", 2)]
+    kernels[2].update(second_shape("f2", f2), library_ms_f2=f2["library_ms"])
+    # the backwards run once per layer under one count: an entry holds the
+    # hidden layer's shape (h=4) and, under *_h1 keys, the final layer's
+    for name, row, count in (
+            ("gat_fwd[h=4 gated]", TPU_KERNELS[3], gat["launches"]["gat_fwd_gated"]),
+            ("gat_fwd[h=1]", TPU_KERNELS[2], gat["launches"]["gat_fwd"]),
+            ("gat_bwd", TPU_KERNELS[4], gat["launches"]["gat_bwd"]),
+            ("gat_bwd_dst", TPU_KERNELS[5], gat2["launches"]["gat_bwd_dst"]),
+            ("gat_bwd_src", TPU_KERNELS[6], gat2["launches"]["gat_bwd_src"])):
+        per_layer = "[" not in name
+        e = gat_entries[f"{name}[h=4]" if per_layer else name]
+        kernels.append(kernel_row(name, row, count, e, library=False))
+        if per_layer:
+            kernels[-1].update(second_shape("h1", gat_entries[f"{name}[h=1]"]))
+    if any(k["launches"] <= 0 for k in kernels):
+        fail(f"a kernel of the main paths was never launched: {kernels}")
+    return kernels
+
+
 def main() -> None:
     try:
         import torch
@@ -665,49 +1036,7 @@ def main() -> None:
     log(f"built {', '.join(os.path.relpath(p, HERE) for p in libs.values())} "
         f"in {time.time() - t0:.1f} s")
 
-    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    entries = kernel_phase(device, flush_buf)
-    gat_entries, gat_tables = gat_kernel_phase(device, flush_buf)
-    gat_step_times(device, gat_tables, flush_buf)
-    del flush_buf, gat_tables
-    gat_autograd_check(device)
-    small_reference_check(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        processed = build_processed(tmp)
-        launches, cfg, _ = slice_phase(tmp, processed, "rec_k8.yaml")
-        check_rec_k8_launches(launches)
-        gat_launches, gat_cfg, gat_outdir = slice_phase(tmp, processed, "gat.yaml")
-        check_gat_launches(gat_launches)
-        predict_check(gat_outdir)
-        profile_phase(cfg, ["bsda_spmm_kernel"])
-        profile_phase(gat_cfg, ["gat_fwd_kernel", "gat_bwd_kernel"])
-
-    kernels = []
-    for variant, row in (("ring", TPU_KERNELS[0]), ("banded", TPU_KERNELS[1])):
-        e = entries[variant]
-        kernels.append({
-            "name": f"bsda_spmm[{variant}: F={e['f']} bf16]", "route": "cuda",
-            "source": row[2], "replaces": row[0], "launches": launches[variant],
-            "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
-            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
-            "library_ms": e["library_ms"],
-        })
-    # the backward runs once per layer under one count: its entry holds the
-    # hidden layer's shape (h=4) and, under *_h1 keys, the final layer's
-    for name, row, count in (
-            ("gat_fwd[h=4 gated]", TPU_KERNELS[3], gat_launches["gat_fwd_gated"]),
-            ("gat_fwd[h=1]", TPU_KERNELS[2], gat_launches["gat_fwd"]),
-            ("gat_bwd[h=4]", TPU_KERNELS[4], gat_launches["gat_bwd"])):
-        e = gat_entries[name]
-        kernels.append({
-            "name": name.replace("gat_bwd[h=4]", "gat_bwd"), "route": "cuda",
-            "source": row[2], "replaces": row[0], "launches": count,
-            "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
-            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": None,
-        })
-    h1 = gat_entries["gat_bwd[h=1]"]
-    kernels[-1].update({f"{k}_h1": h1[k] for k in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    kernels = drive(device)
     table = [{"replaces": loc, "tpu_kernel": name,
               "status": "ported" if port else "todo", "port": port}
              for loc, name, port in TPU_KERNELS]

@@ -44,7 +44,7 @@ def rebuild_model_and_data(run_dir: str, processed_dir: Optional[str] = None,
     if device:
         cfg = dict(cfg, device=device)
     dev = resolve_device(cfg.get("device", "auto"))
-    data, gops = build_graph_ops(cfg, prepare_data(cfg), dev)
+    data, gops = build_graph_ops(cfg, prepare_data(cfg), dev, training=False)
     model = build_model(cfg["arch"], data.num_features, cfg)
     checkpoint.load_best(run_dir, model)
     return cfg, data, gops, model.to(dev).eval()

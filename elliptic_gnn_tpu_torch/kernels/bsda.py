@@ -398,17 +398,61 @@ def build_bsda_for_kind(edge_index: np.ndarray, num_nodes: int, kind: str,
     if kind == "gat":
         # self-loops + unit weights: `a` holds edge multiplicities for the
         # attention kernels (kernels/gat_cuda.py) and their plain versions
-        # (kernels/bsda_gat.py); always int8 (exact)
-        if transpose:
-            raise NotImplementedError(
-                "transpose tables for GAT (gat_block_transpose) are not "
-                "ported to elliptic_gnn_tpu_torch yet: they serve only the "
-                "two-sweep backward, ROADMAP Queue B #6 (_sweep_dst_call + "
-                "_sweep_src_call); pass transpose=False")
+        # (kernels/bsda_gat.py); always int8 (exact). The transpose is the
+        # exact block transpose of the dense tables, so that the two-sweep
+        # backward partitions the edges as the forward did (a transpose
+        # built on its own would keep other chunk pairs dense).
         ei = add_self_loops(edge_index, num_nodes)
-        return build_bsda(ei, num_nodes, mean=False, depth=depth,
-                          a_dtype="int8")
+        g = build_bsda(ei, num_nodes, mean=False, depth=depth, a_dtype="int8")
+        if transpose:
+            g = dataclasses.replace(g, transpose=gat_block_transpose(g))
+        return g
     raise ValueError(f"BSDA supports sage/gcn/gat, not {kind!r}")
+
+
+def gat_block_transpose(g: BsdaGraph) -> BsdaGraph:
+    """Exact block transpose of g's dense tables (no residual).
+
+    For every kept dense pair (destination chunk I, slot d) with a nonzero
+    block and source chunk J = src_chunk[I, d], the transpose holds
+    aT[J, slot'] = a[I, d] UNtransposed (rows = destinations, columns =
+    sources: what the source-oriented backward sweep walks) and
+    srcT[J, slot'] = I, slots in increasing (I, d). Its depth is the largest
+    number of references to one chunk; padding slots point a chunk at itself
+    with zero multiplicities; slot_occ is the per-chunk reference count.
+    The planes are bit-packed as the forward tables' are."""
+    a = g.a.cpu().numpy()
+    src = g.src_chunk.cpu().numpy().astype(np.int64)
+    b, _, c, _ = a.shape
+    i_chunk, d_i = np.nonzero(a.any(axis=(2, 3)))  # increasing (I, d)
+    j_chunk = src[i_chunk, d_i]
+    order = np.argsort(j_chunk, kind="stable")
+    i_chunk, d_i, j_chunk = i_chunk[order], d_i[order], j_chunk[order]
+    occ_t = np.bincount(j_chunk, minlength=b)
+    slot = np.arange(j_chunk.size) - np.repeat(np.cumsum(occ_t) - occ_t, occ_t)
+    dt = max(1, int(occ_t.max())) if b else 1
+    a_t = np.zeros((b, dt, c, c), a.dtype)
+    a_t[j_chunk, slot] = a[i_chunk, d_i]
+    src_t = np.tile(np.arange(b, dtype=np.int32)[:, None], (1, dt))
+    src_t[j_chunk, slot] = i_chunk
+    pack = _auto_pack(a_t.astype(np.int64), dt)
+    return BsdaGraph(
+        a=torch.from_numpy(a_t),
+        a_packed=(torch.from_numpy(pack_a_planes(a_t.astype(np.int64), pack))
+                  if pack > 1 else None),
+        a_pack=pack,
+        src_chunk=torch.from_numpy(src_t),
+        slot_occ=torch.from_numpy(occ_t.astype(np.int32)),
+        residual=None,
+        residual_rows=None,
+        num_nodes=g.num_nodes,
+        num_chunks=b,
+        depth=dt,
+        n_pad=g.n_pad,
+        a_dtype_name=g.a_dtype_name,
+        chunk=c,
+        max_chunk_dist=int(np.abs(src_t - np.arange(b)[:, None]).max()) if b else 0,
+    )
 
 
 # ---------------- aggregation ----------------

@@ -40,8 +40,8 @@
 // Design: as gat_fwd.cu (one block per destination chunk, warp per row,
 // lane l owns columns l, l+32, ...). The two dot products over a head's
 // ch columns (gbar . val per row, xp_j . A_i per edge) go through a
-// per-warp shared-memory row: every column writes its product, then sums
-// its head's ch entries. Any (h, ch) with h*ch + 2h <= 512.
+// per-warp shared-memory row (gat_common.cuh head_sum): every column writes
+// its product, then sums its head's ch entries. Any (h, ch) with h*ch + 2h <= 512.
 //
 // Plain C interface, loaded with ctypes (kernels/gat_cuda.py).
 
@@ -52,26 +52,6 @@
 namespace {
 
 using namespace gat;
-
-// sum[k] = sum of part[] over the columns of column k's head. All lanes of
-// the warp call this together.
-template <int CPL>
-__device__ __forceinline__ void head_sum(float* red, const float (&part)[CPL],
-                                         float (&sum)[CPL], const int (&head)[CPL],
-                                         const bool (&live)[CPL], int lane, int ch) {
-#pragma unroll
-  for (int k = 0; k < CPL; ++k)
-    if (live[k]) red[lane + 32 * k] = part[k];
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) {
-    float v = 0.f;
-    if (live[k])
-      for (int x = head[k] * ch; x < (head[k] + 1) * ch; ++x) v += red[x];
-    sum[k] = v;
-  }
-  __syncwarp();
-}
 
 template <int CPL>
 __global__ void __launch_bounds__(kThreads)

@@ -1,6 +1,8 @@
-// Shared by gat_fwd.cu and gat_bwd.cu: the block shape, the staging of a
-// destination chunk's multiplicity planes in shared memory, and the walk
-// over the edges of one destination row.
+// Shared by gat_fwd.cu, gat_bwd.cu, gat_bwd_dst.cu and gat_bwd_src.cu: the
+// block shape, the staging of a chunk's multiplicity planes in shared
+// memory, the walk over the edges of one destination row (a row of the
+// planes) or of one source (a column of the planes), and the per-head sum
+// over a warp's columns.
 //
 // Table layout (kernels/bsda.py): a [B, planes, 128, 128] bytes. With
 // pack 1 a byte is the int8 multiplicity of slot d = plane; with pack 2 or
@@ -80,8 +82,89 @@ __device__ __forceinline__ void for_each_edge(const uint32_t* planes_sm,
   }
 }
 
+// Column walks (gat_bwd_src.cu). The planes keep the forward orientation,
+// rows = destinations and columns = sources, so a source owns a column. The
+// planes are staged with rows padded to 33 words: byte (i, j) then lies in
+// bank (i + j / 4) % 32, and the 32 lanes of a warp, standing for 32
+// consecutive rows, read one column's bytes without a bank conflict.
+constexpr int kColRowWords = kChunk / 4 + 1;            // 33
+constexpr int kColPlaneWords = kChunk * kColRowWords;   // 16,896 bytes a plane
+
+// As stage_tables, into the padded layout. Ends with a block barrier.
+__device__ __forceinline__ void stage_tables_cols(uint32_t* planes_sm, int32_t* src_sm,
+                                                  const uint8_t* a,
+                                                  const int32_t* src_chunk, int b,
+                                                  int depth, int planes,
+                                                  int n_planes) {
+  const uint32_t* src32 = reinterpret_cast<const uint32_t*>(
+      a + (size_t)b * planes * (size_t)kPlaneBytes);
+  for (int q = threadIdx.x; q < n_planes * kPlaneWords; q += kThreads) {
+    const int p = q / kPlaneWords;
+    const int r = q % kPlaneWords;
+    planes_sm[p * kColPlaneWords + (r / (kChunk / 4)) * kColRowWords +
+              r % (kChunk / 4)] = __ldg(src32 + q);
+  }
+  if (threadIdx.x < depth) src_sm[threadIdx.x] = src_chunk[b * depth + threadIdx.x];
+  __syncthreads();
+}
+
+// Calls f(row, mult) for every edge in column j of the staged planes, in
+// increasing (plane, i, slot) order, where row = src_sm[slot] * 128 + i is
+// the node at the other end (a destination, when the planes are a transpose
+// table's). Lane l tests rows l, l + 32, l + 64, l + 96 of each plane; the
+// whole warp calls this together and every lane sees every edge.
+template <typename F>
+__device__ __forceinline__ void for_each_edge_in_column(const uint32_t* planes_sm,
+                                                        const int32_t* src_sm,
+                                                        int n_planes, int pack, int j,
+                                                        int lane, F&& f) {
+  const int bits = 8 / pack;
+  const uint32_t mask = (1u << bits) - 1u;
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(planes_sm);
+  for (int p = 0; p < n_planes; ++p) {
+    for (int q = 0; q < kChunk / 32; ++q) {
+      const uint32_t byte =
+          bytes[(p * kColPlaneWords + (32 * q + lane) * kColRowWords) * 4 + j];
+      uint32_t nz = __ballot_sync(0xffffffffu, byte != 0u);
+      while (nz != 0u) {
+        const int k = __ffs(nz) - 1;
+        nz &= nz - 1u;
+        const uint32_t bk = __shfl_sync(0xffffffffu, byte, k);
+        for (int sl = 0; sl < pack; ++sl) {
+          const uint32_t m = (bk >> (bits * sl)) & mask;
+          if (m != 0u)
+            f(src_sm[p * pack + sl] * kChunk + 32 * q + k, static_cast<float>(m));
+        }
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ float lrelu(float t, float slope) {
   return t >= 0.f ? t : t * slope;
+}
+
+// sum[k] = sum of part[] over the columns of column k's head, through the
+// warp's shared-memory row `red` (CPL * 32 floats), always in column order.
+// Lane l owns columns l, l + 32, ... (CPL of them, `live` where below h * ch)
+// and column c belongs to head[k] = c / ch. All lanes of the warp call this
+// together.
+template <int CPL>
+__device__ __forceinline__ void head_sum(float* red, const float (&part)[CPL],
+                                         float (&sum)[CPL], const int (&head)[CPL],
+                                         const bool (&live)[CPL], int lane, int ch) {
+#pragma unroll
+  for (int k = 0; k < CPL; ++k)
+    if (live[k]) red[lane + 32 * k] = part[k];
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    float v = 0.f;
+    if (live[k])
+      for (int x = head[k] * ch; x < (head[k] + 1) * ch; ++x) v += red[x];
+    sum[k] = v;
+  }
+  __syncwarp();
 }
 
 }  // namespace gat

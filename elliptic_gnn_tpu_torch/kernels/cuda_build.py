@@ -26,6 +26,8 @@ SOURCES: Dict[str, Sequence[str]] = {
     "bsda_spmm": (),
     "gat_fwd": ("gat_common.cuh",),
     "gat_bwd": ("gat_common.cuh",),
+    "gat_bwd_dst": ("gat_common.cuh",),
+    "gat_bwd_src": ("gat_common.cuh",),
 }
 
 

@@ -17,7 +17,12 @@ The shift m is treated as a constant: everything downstream of (acc, s) is
 invariant to it, so its own cotangent contributes nothing.
 
 `dense_bwd_head` is the dense-block part of these sums, the plain version
-of the backward CUDA kernel (kernels/gat_cuda.py). `attend_bwd` is the
+of the one-sweep backward CUDA kernel (kernels/gat_cuda.py). `sweep_dst_head`
+and `sweep_src_head` are the same sums as two sweeps, each over its own
+tables (the destination sweep over g, the source sweep over g.transpose,
+kernels/bsda.py::gat_block_transpose): the plain versions of the two-sweep
+backward kernels, which take the destination-side cotangents from the grad
+payload G2 that `grad_payload` builds. `attend_bwd` is the
 whole vector-Jacobian product of bsda_gat.attend's output y = acc / s,
 dense blocks and spill, for which A_i = g_i / s_i and
 S_i = -(y_i . g_i) / s_i. The exponent is clamped at 0: for real edges
@@ -31,6 +36,15 @@ import torch
 from .bsda import BsdaGraph
 
 
+def _block_terms(mult, asrc_j, adst_i, m_i, slope: float):
+    """(e, e * lrelu'(t)) over dense blocks [B, D, Ci, Cj]; asrc_j broadcasts
+    along Ci, adst_i and m_i along Cj."""
+    t = asrc_j + adst_i
+    lr = torch.where(t >= 0, t, t * slope)
+    e = torch.exp((lr - m_i).clamp_max(0.0)) * mult
+    return e, e * torch.where(t >= 0, 1.0, slope)
+
+
 def dense_bwd_head(g: BsdaGraph, xp_h, asrc_h, adst_h, m_h, abar_h, sbar_h,
                    slope: float):
     """One head's dense-block gradients. xp_h, abar_h [N_pad, Ch]; asrc_h,
@@ -38,19 +52,16 @@ def dense_bwd_head(g: BsdaGraph, xp_h, asrc_h, adst_h, m_h, abar_h, sbar_h,
     dadst [N_pad])."""
     b, c = g.num_chunks, g.chunk
     ch = xp_h.shape[1]
-    mult = g.a.to(torch.float32)            # [B, D, Ci, Cj]
     src = g.src_chunk.long()
-    m3 = m_h.reshape(b, c)
     abar3 = abar_h.reshape(b, c, ch)
-    sbar3 = sbar_h.reshape(b, c)
 
-    t = asrc_h.reshape(b, c)[src][:, :, None, :] \
-        + adst_h.reshape(b, c)[:, None, :, None]             # [B, D, Ci, Cj]
-    lr = torch.where(t >= 0, t, t * slope)
-    e = torch.exp((lr - m3[:, None, :, None]).clamp_max(0.0)) * mult
+    e, e_sig = _block_terms(
+        g.a.to(torch.float32), asrc_h.reshape(b, c)[src][:, :, None, :],
+        adst_h.reshape(b, c)[:, None, :, None],
+        m_h.reshape(b, c)[:, None, :, None], slope)           # [B, D, Ci, Cj]
     xp_g = xp_h.reshape(b, c, ch)[src]                        # [B, D, Cj, Ch]
     q = torch.einsum("bif,bdjf->bdij", abar3, xp_g)           # x_j . A_i
-    dt = e * torch.where(t >= 0, 1.0, slope) * (q + sbar3[:, None, :, None])
+    dt = e_sig * (q + sbar_h.reshape(b, c)[:, None, :, None])
 
     dadst = dt.sum(dim=(1, 3)).reshape(-1)
     # source-side sums scatter at chunk granularity; (b, d) -> src_chunk ids
@@ -62,6 +73,66 @@ def dense_bwd_head(g: BsdaGraph, xp_h, asrc_h, adst_h, m_h, abar_h, sbar_h,
     dxp = xp_h.new_zeros((b, c, ch)).index_add_(
         0, flat, dxp_bd.reshape(-1, c, ch)).reshape(-1, ch)
     return dxp, dasrc, dadst
+
+
+def grad_payload(gbar: torch.Tensor, payload: torch.Tensor, out_k: torch.Tensor,
+                 h: int, ch: int, normalized: bool) -> torch.Tensor:
+    """G2 [N_pad, h*ch + 3h] = [ A_bar | S_bar | a_dst | m ], the
+    destination-side rows of the two-sweep backward, always in the RAW
+    gauge: A_bar and S_bar are the cotangents of (acc, s). `gbar` is the
+    cotangent of the forward's output `out_k` = [ acc or val | m | s ]
+    (its m columns are dropped), `payload` the forward's input. With
+    `normalized` the forward wrote val = acc / s and gbar is the cotangent
+    of (val, s): A_bar = gbar / s, S_bar = gbar_s - (gbar . val) / s. This is
+    the one place where the gauge is changed; the sweeps only see raw rows."""
+    hc = h * ch
+    abar, sbar = gbar[:, :hc], gbar[:, hc + h: hc + 2 * h]
+    if normalized:
+        inv_s = 1.0 / out_k[:, hc + h: hc + 2 * h].clamp_min(1e-16)
+        dot = (abar * out_k[:, :hc]).reshape(-1, h, ch).sum(dim=-1)
+        sbar = sbar - dot * inv_s
+        abar = (abar.reshape(-1, h, ch) * inv_s[..., None]).reshape(-1, hc)
+    return torch.cat([abar, sbar, payload[:, hc + h: hc + 2 * h],
+                      out_k[:, hc: hc + h]], dim=1)
+
+
+def sweep_dst_head(g: BsdaGraph, xp_h, asrc_h, abar_h, sbar_h, adst_h, m_h,
+                   slope: float) -> torch.Tensor:
+    """One head of the destination sweep over the FORWARD tables g: own
+    rows i carry (A_bar, S_bar, a_dst, m), streamed rows j carry (xp,
+    a_src). Returns d a_dst [N_pad]."""
+    b, c = g.num_chunks, g.chunk
+    ch = xp_h.shape[1]
+    src = g.src_chunk.long()
+    _, e_sig = _block_terms(
+        g.a.to(torch.float32), asrc_h.reshape(b, c)[src][:, :, None, :],
+        adst_h.reshape(b, c)[:, None, :, None],
+        m_h.reshape(b, c)[:, None, :, None], slope)           # [B, D, Ci, Cj]
+    q = torch.einsum("bif,bdjf->bdij", abar_h.reshape(b, c, ch),
+                     xp_h.reshape(b, c, ch)[src])
+    dt = e_sig * (q + sbar_h.reshape(b, c)[:, None, :, None])
+    return dt.sum(dim=(1, 3)).reshape(-1)
+
+
+def sweep_src_head(g_t: BsdaGraph, xp_h, asrc_h, abar_h, sbar_h, adst_h, m_h,
+                   slope: float):
+    """One head of the source sweep over the TRANSPOSE tables g_t
+    (a[J, slot, i, j]: source j of chunk J, destination i of chunk
+    src_chunk[J, slot]): own rows j carry (xp, a_src), streamed rows i
+    carry (A_bar, S_bar, a_dst, m). Returns (d xp [N_pad, Ch], d a_src
+    [N_pad])."""
+    b, c = g_t.num_chunks, g_t.chunk
+    ch = xp_h.shape[1]
+    dst = g_t.src_chunk.long()                                # [B, DT] -> I
+    abar_g = abar_h.reshape(b, c, ch)[dst]                    # [B, DT, Ci, Ch]
+    e, e_sig = _block_terms(
+        g_t.a.to(torch.float32), asrc_h.reshape(b, c)[:, None, None, :],
+        adst_h.reshape(b, c)[dst][:, :, :, None],
+        m_h.reshape(b, c)[dst][:, :, :, None], slope)         # [B, DT, Ci, Cj]
+    q = torch.einsum("bdif,bjf->bdij", abar_g, xp_h.reshape(b, c, ch))
+    dt = e_sig * (q + sbar_h.reshape(b, c)[dst][:, :, :, None])
+    dxp = torch.einsum("bdij,bdif->bjf", e, abar_g).reshape(-1, ch)
+    return dxp, dt.sum(dim=(1, 2)).reshape(-1)
 
 
 def _spill_bwd(g: BsdaGraph, xp, asrc, adst, m, abar, sbar, slope,

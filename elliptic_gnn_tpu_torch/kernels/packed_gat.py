@@ -26,6 +26,11 @@ backward: everything downstream of (acc, s) is invariant to it), and it
 is told the gauge of its cotangent (val or raw acc) by the forward that
 produced it, never by the caller of backward.
 
+Two backwards give the same cotangent (kernels/gat_cuda.py): one sweep
+with atomics, the default, or two sweeps without, bit-reproducible, which
+need g.transpose. `use_two_sweep_backward` chooses; the trainer asks the
+same function whether to build the transpose tables.
+
 On CPU tensors the same pipeline runs through the kernels' plain versions.
 Semantics match PyG GATConv: LeakyReLU(0.2) scores, per-destination
 softmax over the self-looped edge multiset, ELU and concat between layers,
@@ -33,6 +38,7 @@ single-head final layer.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -41,7 +47,16 @@ import torch.nn.functional as F
 from ..utils.common import dropout as dropout_fn
 from .bsda import BsdaGraph
 from .bsda_gat import merge_partials, spill_partials
-from .gat_cuda import gat_bwd, gat_fwd
+from .gat_cuda import gat_bwd, gat_bwd_two_sweep, gat_fwd
+
+
+def use_two_sweep_backward() -> bool:
+    """True when the GAT backward must be the bit-reproducible two-sweep
+    pair: EGNN_GAT_ONE_SWEEP=0 (the JAX package's switch, same meaning), or
+    torch.use_deterministic_algorithms(True), PyTorch's contract for an op
+    whose default backward sums with atomics."""
+    return (os.environ.get("EGNN_GAT_ONE_SWEEP", "1") == "0"
+            or torch.are_deterministic_algorithms_enabled())
 
 
 def _spill_gather_index(g: BsdaGraph):
@@ -123,8 +138,11 @@ class _AttendDense(torch.autograd.Function):
     def backward(ctx, gbar):
         payload, out_k = ctx.saved_tensors
         g, h, ch, negative_slope, normalized = ctx.meta
-        ct = gat_bwd(g, gbar.contiguous(), payload, out_k, h, ch, negative_slope,
-                     normalized=normalized)
+        # two sweeps without transpose tables raise: no sliding back to the
+        # one-sweep kernel
+        bwd = gat_bwd_two_sweep if use_two_sweep_backward() else gat_bwd
+        ct = bwd(g, gbar.contiguous(), payload, out_k, h, ch, negative_slope,
+                 normalized=normalized)
         return ct, None, None, None, None, None
 
 

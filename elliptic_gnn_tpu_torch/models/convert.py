@@ -8,7 +8,8 @@ The JAX pytrees, already converted to numpy arrays. SAGE-ResBN:
 
 JAX stores dense weights as [d_in, d_out]; nn.Linear holds [d_out, d_in].
 GAT: params = {"layers": [{"w" [F, H, Ch], "a_src", "a_dst" [H, Ch], "b"}]},
-no state; the port keeps the same shapes.
+no state; the port keeps the same shapes. GCN: {"layers": [{"w", "b"}]};
+SAGE: {"layers": [{"w_l", "b_l", "w_r"}]}; no state either.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .modules import GAT, SageResBN
+from .modules import GAT, GCN, SAGE, SageResBN
 
 
 def _copy(dst: torch.Tensor, src, transpose: bool = False) -> None:
@@ -38,12 +39,19 @@ def params_from_jax(params_np: dict, state_np: dict, model: nn.Module) -> nn.Mod
                 for name in ("w", "a_src", "a_dst", "b"):
                     _copy(getattr(layer, name), p[name])
             return model
-        if not isinstance(model, SageResBN):
+        if isinstance(model, GCN):
+            for layer, p in zip(model.layers, params_np["layers"]):
+                _copy(layer.lin.weight, p["w"], transpose=True)
+                _copy(layer.bias, p["b"])
+            return model
+        if not isinstance(model, (SAGE, SageResBN)):
             raise TypeError(f"no JAX counterpart known for {type(model).__name__}")
         for layer, p in zip(model.layers, params_np["layers"]):
             _copy(layer.lin_l.weight, p["w_l"], transpose=True)
             _copy(layer.lin_l.bias, p["b_l"])
             _copy(layer.lin_r.weight, p["w_r"], transpose=True)
+        if isinstance(model, SAGE):
+            return model
         if model.bns is not None:
             for bn, p, s in zip(model.bns, params_np["bns"], state_np["bns"]):
                 _copy(bn.scale, p["scale"])

@@ -1,5 +1,5 @@
-"""The SAGE-ResBN family and GAT as nn.Modules (port of
-elliptic_gnn_tpu/models/modules.py, those two parts).
+"""GCN, SAGE, the SAGE-ResBN family and GAT as nn.Modules (port of
+elliptic_gnn_tpu/models/modules.py).
 
     model = build_model("sage_resbn", in_dim, cfg, generator=gen)
     logits = model(x, g, t_idx, generator=dropout_gen)
@@ -9,7 +9,9 @@ BatchNorm updates its running statistics in training mode, in place.
 Parameters keep the JAX model's semantics — SAGEConv as lin_l(mean agg) +
 lin_r(x), BatchNorm with torch-convention running stats and the JAX
 formula for the batch variance, residual identity or linear projection, and
-the exact sinusoid (or learned) time embedding. `amp` means bf16 operands
+the exact sinusoid (or learned) time embedding. GCN is spmm(g, x @ w) + b
+per layer over the symmetrically normalized self-looped graph; GCN and
+SAGE put ReLU and dropout between layers. `amp` means bf16 operands
 into the aggregation with f32 accumulation; the dense products stay f32.
 GAT keeps the JAX layer parameters (w [F, H, Ch], a_src, a_dst [H, Ch],
 b) and runs in f32 whatever `amp` says, as the JAX pipeline does.
@@ -36,7 +38,6 @@ MODEL_GRAPH_KIND = {
     "sage_res": "sage",
 }
 SAGE_RESBN_ARCHS = ("sage_resbn", "sage_bn", "sage_res")
-PORTED_ARCHS = SAGE_RESBN_ARCHS + ("gat",)
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -110,6 +111,58 @@ class SageLayer(nn.Module):
     def forward(self, x: torch.Tensor, g, compute_dtype=None) -> torch.Tensor:
         agg = spmm(g, x, compute_dtype=compute_dtype)
         return self.lin_l(agg) + self.lin_r(x)
+
+
+class GcnLayer(nn.Module):
+    """Counterpart of gcn_layer_apply: the dense product first, then the
+    normalized aggregation of its result, plus bias."""
+
+    def __init__(self, d_in: int, d_out: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.lin = _linear(d_in, d_out, False, generator)
+        self.bias = nn.Parameter(torch.zeros(d_out))
+
+    def forward(self, x: torch.Tensor, g, compute_dtype=None) -> torch.Tensor:
+        return spmm(g, self.lin(x), compute_dtype=compute_dtype) + self.bias
+
+
+class _ConvStack(nn.Module):
+    """The plain stacks (counterpart of _stack_apply): conv -> ReLU ->
+    dropout between layers, the final conv produces the logits."""
+
+    layer_cls: type
+    uses_time_embed = False
+
+    def __init__(self, in_dim: int, cfg: dict,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = int(cfg.get("hidden_dim", 128))
+        layers = int(cfg.get("layers", 3))
+        if layers < 2:
+            raise ValueError(f"layers must be >= 2, got {layers}")
+        self.dropout = float(cfg.get("dropout", 0.2))
+        self.compute_dtype = torch.bfloat16 if bool(cfg.get("amp", False)) else None
+        dims = [in_dim] + [hidden] * (layers - 1) + [2]
+        self.layers = nn.ModuleList(
+            self.layer_cls(dims[i], dims[i + 1], generator) for i in range(layers))
+
+    def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x
+        for layer in self.layers[:-1]:
+            h = torch.relu(layer(h, g, self.compute_dtype))
+            h = _dropout(h, self.dropout, self.training, generator)
+        return self.layers[-1](h, g, self.compute_dtype)
+
+
+class GCN(_ConvStack):
+    layer_cls = GcnLayer
+
+
+class SAGE(_ConvStack):
+    layer_cls = SageLayer
 
 
 def sinusoid_time_embed(t_idx: torch.Tensor, dim: int,
@@ -279,17 +332,14 @@ class GAT(nn.Module):
         return self.layers[-1](h, g)
 
 
+_ARCH_CLASS = {"gcn": GCN, "sage": SAGE, "gat": GAT}
+
+
 def build_model(arch: str, in_dim: int, cfg: dict,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Model factory with the JAX package's config keys and defaults.
-    The SAGE-ResBN family and GAT are ported so far."""
+    """Model factory with the JAX package's config keys and defaults."""
     if arch in SAGE_RESBN_ARCHS:
         return SageResBN(in_dim, cfg, generator)
-    if arch == "gat":
-        return GAT(in_dim, cfg, generator)
-    if arch in MODEL_GRAPH_KIND:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to elliptic_gnn_tpu_torch yet "
-            f"(ported: {', '.join(PORTED_ARCHS)}; gcn and sage are ROADMAP "
-            "Queue A #6)")
+    if arch in _ARCH_CLASS:
+        return _ARCH_CLASS[arch](in_dim, cfg, generator)
     raise ValueError(f"Unknown arch {arch!r}")

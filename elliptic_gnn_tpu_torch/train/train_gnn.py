@@ -6,9 +6,11 @@ Same YAML keys and the same `outputs/gnn/<run>` artifacts (metrics.json,
 scores_*.npy, y_*.npy, node_idx_*.npy, timestep_*.npy, config_used.yaml,
 training_log.csv, best.ckpt) as the JAX trainer. Each epoch: forward over
 the full graph through the BSDA tables (the CUDA kernels on the GPU: the
-SpMM for the SAGE-ResBN family, the flash attention for GAT), masked loss
-on train nodes, backward (the SpMM on the transpose tables, the GAT
-backward kernel on the forward tables), grad clip, Adam with L2, then an
+SpMM for GCN, SAGE and the SAGE-ResBN family, the flash attention for GAT),
+masked loss on train nodes, backward (the SpMM on the transpose tables; for
+GAT the one-sweep backward kernel on the forward tables or, with
+EGNN_GAT_ONE_SWEEP=0 or torch.use_deterministic_algorithms(True), the
+bit-reproducible two-sweep pair), grad clip, Adam with L2, then an
 eval forward whose val probabilities and the loss come back to the host in
 one copy. The host processes epoch e while
 epoch e+1 runs on the device, so early stopping lags one epoch, as in the
@@ -18,7 +20,7 @@ Runs on CUDA (`device: auto` or `cuda`) and raises when there is no GPU,
 unless the config says `device: cpu`.
 
 Not ported yet (raise): mini-batch training, multi-device meshes, resume
-and periodic checkpoints, hub ablation, profiling, the gcn and sage archs.
+and periodic checkpoints, hub ablation, profiling.
 `epochs_per_sync > 1` runs the serial loop.
 """
 from __future__ import annotations
@@ -36,6 +38,7 @@ import yaml
 from ..graph import load_processed, make_temporal_masks
 from ..graph.transform import append_scalar_time, symmetrize_edges
 from ..kernels.bsda import bfs_order, build_bsda_for_kind
+from ..kernels.packed_gat import use_two_sweep_backward
 from ..models import MODEL_GRAPH_KIND, build_model
 from ..models.convert import params_from_jax
 from ..models.losses import class_weights, make_loss_fn
@@ -105,12 +108,15 @@ def prepare_data(cfg: dict):
     return data
 
 
-def build_graph_ops(cfg: dict, data, device: torch.device):
+def build_graph_ops(cfg: dict, data, device: torch.device,
+                    training: bool = True):
     """(data, gops): the graph BFS-renumbered (artifacts translate back via
     data.orig_index) and its int8 BSDA tables on `device`, as the JAX
     trainer builds them for its kernel paths: depth 3 with transpose tables
-    for sage/gcn (gradients run the SpMM on A^T), depth 4 without for gat
-    (its backward walks the forward tables)."""
+    for sage/gcn (gradients run the SpMM on A^T), depth 4 for gat, whose
+    one-sweep backward walks the forward tables; its transpose tables are
+    built only for `training` with the two-sweep backward chosen
+    (kernels/packed_gat.py::use_two_sweep_backward)."""
     arch = cfg["arch"]
     if arch not in MODEL_GRAPH_KIND:
         raise ValueError(
@@ -122,7 +128,8 @@ def build_graph_ops(cfg: dict, data, device: torch.device):
     gops = build_bsda_for_kind(
         data.edge_index, data.num_nodes, kind,
         depth=int(cfg.get("bsda_depth", 4 if kind == "gat" else 3)),
-        a_dtype="int8", transpose=kind != "gat",
+        a_dtype="int8",
+        transpose=kind != "gat" or (training and use_two_sweep_backward()),
     ).to(device)
     return data, gops
 

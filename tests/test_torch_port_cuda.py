@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (BSDA SpMM, flash-GAT forward and backward)
-against their plain PyTorch versions, on the card. Every test here needs
+"""The port's CUDA kernels (BSDA SpMM, flash-GAT forward, one-sweep backward
+and the two-sweep backward pair) against their plain PyTorch versions, on
+the card. Every test here needs
 an NVIDIA GPU and skips without one; this file imports nothing of JAX so
 that it runs on a machine without it:
 
@@ -10,7 +11,9 @@ another order); bf16 results rtol 1/64, atol 1e-3 (two bf16 ulps: the f32
 sums may round to neighbouring bf16 values); full SpMM and model outputs
 under amp rtol 2e-2, atol 2e-2. GAT (f32): forward rtol 1e-4, atol 1e-5 on
 val and m + log s (expf on the card against torch.exp, sums in another
-order); backward and parameter gradients rtol 5e-4, atol 5e-5 (atomics).
+order); backward and parameter gradients rtol 5e-4, atol 5e-5 (atomics in
+the one-sweep backward; the two sweeps are held to the same tolerance
+against their plain versions and must repeat bit for bit).
 """
 import dataclasses
 
@@ -222,9 +225,9 @@ def test_gat_model_on_cuda_matches_cpu(cuda):
         logits = run(x.to(device), g.to(device))
         torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
         kernel_path = device != "cpu" and not plain
-        assert gat_cuda.launches == (
-            {"gat_fwd": 1, "gat_fwd_gated": 1, "gat_bwd": 2} if kernel_path
-            else {"gat_fwd": 0, "gat_fwd_gated": 0, "gat_bwd": 0})
+        assert gat_cuda.launches == {
+            "gat_fwd": int(kernel_path), "gat_fwd_gated": int(kernel_path),
+            "gat_bwd": 2 * int(kernel_path), "gat_bwd_dst": 0, "gat_bwd_src": 0}
         model.eval()
         with torch.no_grad():
             ev = run(x.to(device), g.to(device))
@@ -249,3 +252,155 @@ def test_gat_kernels_reject_what_they_do_not_take(cuda):
         gat_cuda.gat_fwd_cuda(g.to(cuda), pay.to(cuda)[:, :36], 4, 8)
     with pytest.raises(ValueError, match="<= 512"):
         gat_cuda.gat_fwd_cuda(g.to(cuda), pay.to(cuda), 64, 8)
+
+
+# ---------------- the two-sweep backward ----------------
+
+def _two_sweep_inputs(cuda, h, ch, normalized, pack4=True):
+    g = _gat_graph(pack4=pack4)
+    t = bsda.gat_block_transpose(g)
+    if not pack4:
+        t = dataclasses.replace(t, a_packed=None, a_pack=1)
+    g = dataclasses.replace(g, transpose=t).to(cuda)
+    shape = (g.num_chunks * 128, gat_cuda.payload_width(h, ch))
+    pay, gbar = _randn(shape, 2, cuda), _randn(shape, 3, cuda)
+    out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
+    return g, pay, gbar, out_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,ch", [(4, 8), (1, 2), (2, 16), (3, 5), (8, 40)])
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("pack4", [True, False])
+def test_gat_sweep_kernels_match_plain(cuda, h, ch, normalized, pack4):
+    """Each sweep against its plain version on the same G2, each writing
+    only its own columns; their sum against the one-sweep kernel."""
+    from elliptic_gnn_tpu_torch.kernels.gat_bwd import grad_payload
+
+    g, pay, gbar, out_k = _two_sweep_inputs(cuda, h, ch, normalized, pack4)
+    g2 = grad_payload(gbar, pay, out_k, h, ch, normalized)
+    hc = h * ch
+    d_dst = gat_cuda.gat_bwd_dst_cuda(g, g2, pay, h, ch, 0.2)
+    d_src = gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch, 0.2)
+    torch.cuda.synchronize()
+    assert not d_dst[:, : hc + h].any() and not d_src[:, hc + h:].any()
+    np.testing.assert_allclose(
+        d_dst.cpu().numpy(),
+        gat_cuda.gat_bwd_dst_plain(g, g2, pay, h, ch, 0.2).cpu().numpy(), **GAT_BWD)
+    np.testing.assert_allclose(
+        d_src.cpu().numpy(),
+        gat_cuda.gat_bwd_src_plain(g.transpose, pay, g2, h, ch, 0.2).cpu().numpy(),
+        **GAT_BWD)
+    one = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    np.testing.assert_allclose((d_dst + d_src).cpu().numpy(), one.cpu().numpy(),
+                               **GAT_BWD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,ch", [(4, 8), (1, 2), (8, 40)])
+def test_gat_two_sweep_repeats_bit_for_bit(cuda, h, ch):
+    """Two runs of the two-sweep backward give the same bits, in every
+    column, and it launches each sweep once and the one-sweep kernel never."""
+    g, pay, gbar, out_k = _two_sweep_inputs(cuda, h, ch, True)
+    gat_cuda.reset_launches()
+    first = gat_cuda.gat_bwd_two_sweep(g, gbar, pay, out_k, h, ch, 0.2, True)
+    assert gat_cuda.launches == {"gat_fwd": 0, "gat_fwd_gated": 0, "gat_bwd": 0,
+                                 "gat_bwd_dst": 1, "gat_bwd_src": 1}
+    for _ in range(3):
+        again = gat_cuda.gat_bwd_two_sweep(g, gbar, pay, out_k, h, ch, 0.2, True)
+        assert torch.equal(first, again)
+    want = gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, True)
+    np.testing.assert_allclose(first.cpu().numpy(), want.cpu().numpy(), **GAT_BWD)
+
+
+@pytest.mark.cuda
+def test_gat_model_two_sweep_on_cuda(cuda, monkeypatch):
+    """The GAT training step on the card with the two-sweep backward
+    chosen: the sweeps' launches, gradients equal bit for bit on a repeat
+    and within tolerance of the one-sweep step; without transpose tables it
+    raises instead of sliding back."""
+    g = _gat_graph(6000, seed=4)
+    g_t = dataclasses.replace(g, transpose=bsda.gat_block_transpose(g)).to(cuda)
+    cfg = {"hidden_dim": 32, "layers": 2, "heads": 4, "dropout": 0.0}
+    x = _randn((g.num_nodes, 30), 5, cuda)
+    y = torch.from_numpy(np.random.default_rng(6).integers(0, 2, g.num_nodes)).to(cuda)
+    model = build_model("gat", 30, cfg,
+                        generator=torch.Generator().manual_seed(0)).to(cuda).train()
+
+    def step(tables):
+        model.zero_grad(set_to_none=True)
+        gat_cuda.reset_launches()
+        torch.nn.functional.cross_entropy(model(x, tables), y).backward()
+        return [p.grad.clone() for p in model.parameters()], dict(gat_cuda.launches)
+
+    monkeypatch.delenv("EGNN_GAT_ONE_SWEEP", raising=False)
+    one, counts = step(g_t)
+    assert counts["gat_bwd"] == 2 and counts["gat_bwd_dst"] == counts["gat_bwd_src"] == 0
+    monkeypatch.setenv("EGNN_GAT_ONE_SWEEP", "0")
+    two, counts = step(g_t)
+    assert counts == {"gat_fwd": 1, "gat_fwd_gated": 1, "gat_bwd": 0,
+                      "gat_bwd_dst": 2, "gat_bwd_src": 2}
+    again, _ = step(g_t)
+    for a, b, c in zip(two, again, one):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), **GAT_BWD)
+    with pytest.raises(ValueError, match="transpose tables"):
+        step(g.to(cuda))
+
+
+# ---------------- GCN and SAGE through the BSDA kernel ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,dtype", [(2, torch.bfloat16), (2, torch.float32),
+                                     (128, torch.bfloat16)])
+def test_gcn_tables_both_scales_match_plain(cuda, f, dtype):
+    """GCN's tables carry dst_scale and src_scale together, and its last
+    layer aggregates the F = 2 logits: kernel against plain version on the
+    forward and the transpose tables."""
+    from elliptic_gnn_tpu_torch.kernels.bsda_spmm_cuda import bsda_dense_cuda
+
+    data, _ = _graph()
+    g = bsda.build_bsda_for_kind(data.edge_index, data.num_nodes, "gcn", depth=3,
+                                 a_dtype="int8", transpose=True).to(cuda)
+    assert g.dst_scale is not None and g.src_scale is not None
+    x = _randn((g.num_nodes, f), 1, cuda, dtype)
+    for table in (g, g.transpose):
+        got = bsda_dense_cuda(table, x)
+        torch.cuda.synchronize()
+        want = bsda.bsda_dense_plain(table, x)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gcn", "sage"])
+@pytest.mark.parametrize("amp", [False, True])
+def test_conv_stack_on_cuda_matches_cpu(cuda, arch, amp):
+    """GCN and SAGE logits and parameter gradients on the card (BSDA kernel)
+    against the same weights on the CPU (plain version)."""
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
+
+    data, _ = _graph(6000, seed=4)
+    g = bsda.build_bsda_for_kind(data.edge_index, data.num_nodes, arch, depth=3,
+                                 a_dtype="int8", transpose=True)
+    cfg = {"hidden_dim": 128, "layers": 3, "dropout": 0.0, "amp": amp}
+    x = _randn((data.num_nodes, 167), 5, "cpu")
+    y = torch.from_numpy(np.random.default_rng(6).integers(0, 2, data.num_nodes))
+    results = []
+    for device in ("cpu", cuda):
+        model = build_model(arch, 167, cfg,
+                            generator=torch.Generator().manual_seed(0)).to(device).train()
+        bsda_spmm_cuda.reset_launches()
+        logits = model(x.to(device), g.to(device))
+        torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
+        # three layers forward, and backward on the transpose tables where
+        # the aggregated tensor needs a gradient: not SAGE's first, the input
+        kernel_launches = 6 if arch == "gcn" else 5
+        assert sum(bsda_spmm_cuda.launches.values()) == (
+            0 if device == "cpu" else kernel_launches)
+        results.append((logits.detach().cpu().numpy(),
+                        [p.grad.cpu().numpy() for p in model.parameters()]))
+    tol = AMP if amp else dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(results[1][0], results[0][0], **tol)
+    for a, b in zip(results[1][1], results[0][1]):
+        np.testing.assert_allclose(a, b, **tol)

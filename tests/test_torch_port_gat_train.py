@@ -164,8 +164,10 @@ def test_resume_and_unported_archs_raise(runs, tmp_path):
     cfg_p = dict(runs[1], output_root=str(tmp_path))
     with pytest.raises(NotImplementedError, match="resume"):
         train_gnn.main(dict(cfg_p, resume=True))
-    with pytest.raises(NotImplementedError, match="Queue A #6"):
-        train_gnn.main(dict(cfg_p, arch="gcn"))
+    # every arch of the JAX package is ported (gcn and sage:
+    # tests/test_torch_port_archs.py); an unknown one is refused
+    with pytest.raises(ValueError, match="Unknown arch"):
+        train_gnn.main(dict(cfg_p, arch="gin"))
     for value in (False, "sometimes"):
         with pytest.raises(ValueError, match="gat_fused_vjp"):
             train_gnn.main(dict(cfg_p, gat_fused_vjp=value))

@@ -133,10 +133,15 @@ def test_build_bsda_gat_matches(depth):
 
 
 def test_gat_transpose_tables_raise():
-    """gat_block_transpose waits with the two-sweep backward kernels."""
+    """transpose=True no longer raises for 'gat': it attaches
+    gat_block_transpose's tables (held against the JAX package's in
+    tests/test_torch_port_gat_bwd2.py). An unknown kind still raises."""
     ei, _ = port_graph(300, 2, 1.5, seed=9)
-    with pytest.raises(NotImplementedError, match="Queue B #6"):
-        port_bsda.build_bsda_for_kind(ei, 300, "gat", depth=3, transpose=True)
+    g = port_bsda.build_bsda_for_kind(ei, 300, "gat", depth=3, transpose=True)
+    assert g.transpose is not None and g.transpose.residual is None
+    assert int(g.transpose.a.sum()) == int(g.a.sum())
+    with pytest.raises(ValueError, match="sage/gcn/gat"):
+        port_bsda.build_bsda_for_kind(ei, 300, "gin", depth=3, transpose=True)
 
 
 def test_pack_a_planes_roundtrip():
