@@ -17,6 +17,8 @@ Phases (any failure exits non-zero before the result line):
      torch.sparse yardstick; then on the same graph directed, the GCN
      tables (self-looped, dst and src scales together) at F=128 and F=2 and
      the SAGE tables at F=167 and F=128, bf16, kernel against plain version;
+     every launch shape twice, the two results equal bit for bit; one line
+     per shape with kernel, bound and library ms and their ratios;
   4. GAT kernels vs plain: on the same graph, directed and self-looped,
      depth 4: the forward at (h, ch) = (4, 8) with the slot cover and
      (1, 2) without, normalize on and off, compared on val = acc / s and
@@ -25,6 +27,9 @@ Phases (any failure exits non-zero before the result line):
      backward (destination sweep over the forward tables, source sweep over
      the transpose tables): each sweep against its plain version, their sum
      against the one-sweep kernel, two launches of each bit for bit equal;
+     the BSDA and GAT forward kernels on a 700-node graph with a hub chunk
+     of thousands of dense edges and an empty chunk, against their plain
+     versions and twice, bit for bit;
      one training step of the gat.yaml model through the kernels, with the
      one-sweep and with the two-sweep backward, against its plain version,
      gradients and times; and on a 6,000-node graph with a spill,
@@ -205,19 +210,22 @@ def kernel_phase(device, flush_buf):
                 dname = str(dtype).replace("torch.", "")
                 x = torch.randn((g.num_nodes, f), generator=gen, device=device).to(dtype)
                 got = bsda_spmm_cuda.bsda_dense_cuda(t, x)
+                same = torch.equal(got, bsda_spmm_cuda.bsda_dense_cuda(t, x))
                 torch.cuda.synchronize()
                 want = bsda.bsda_dense_plain(t, x)
                 diff = (got.float() - want.float()).abs()
                 max_abs = float(diff.max())
                 max_rel = float((diff / want.float().abs().clamp_min(1e-6)).max())
                 tol = TOL[dname]
-                ok = bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
+                ok = same and bool(
+                    (diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
                 ms = cuda_ms(lambda: bsda_spmm_cuda.bsda_dense_cuda(t, x), flush_buf)
                 plain_ms = cuda_ms(lambda: bsda.bsda_dense_plain(t, x), flush_buf)
                 case = f"{table_name} pack={pack} F={f} {dname}"
                 log(f"kernel vs plain [{case}]: max_abs={max_abs:.3e} "
                     f"max_rel={max_rel:.3e} (tol rtol={tol['rtol']:.3g} "
-                    f"atol={tol['atol']:.3g}) {'ok' if ok else 'MISMATCH'} | "
+                    f"atol={tol['atol']:.3g}) {'ok' if ok else 'MISMATCH'}, two launches "
+                    f"{'bit-equal' if same else 'DIFFER'} | "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
                 if not ok:
                     failures.append(case)
@@ -266,7 +274,9 @@ def spmm_entry(label, t, x, r, flush_buf):
         library_ms=library_ms, bytes=bytes_moved, nnz=nnz, f=f)
     log(f"{label}: bytes={bytes_moved} nnz={nnz} bound={entry['bound_ms']:.4f} ms "
         f"({entry['bound_by']}) kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-        f"library={library_ms if library_ms is None else f'{library_ms:.4f}'} ms")
+        f"library={library_ms if library_ms is None else f'{library_ms:.4f}'} ms | "
+        f"kernel / bound {r['ms'] / entry['bound_ms']:.2f}, kernel / library "
+        + ("n/a" if library_ms is None else f"{r['ms'] / library_ms:.2f}"))
     return entry
 
 
@@ -295,12 +305,14 @@ def arch_kernel_phase(device, flush_buf):
             errs = []
             for table in (g, g.transpose):
                 got = bsda_spmm_cuda.bsda_dense_cuda(table, x)
+                same = torch.equal(got, bsda_spmm_cuda.bsda_dense_cuda(table, x))
                 torch.cuda.synchronize()
                 want = bsda.bsda_dense_plain(table, x)
                 diff = (got.float() - want.float()).abs()
                 errs.append(float(diff.max()))
-                if not bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all()):
-                    failures.append(f"{kind} F={f}")
+                if not same or not bool(
+                        (diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all()):
+                    failures.append(f"{kind} F={f}{'' if same else ' (two launches differ)'}")
             r = dict(max_abs=max(errs),
                      ms=cuda_ms(lambda: bsda_spmm_cuda.bsda_dense_cuda(g, x), flush_buf),
                      plain_ms=cuda_ms(lambda: bsda.bsda_dense_plain(g, x), flush_buf))
@@ -367,10 +379,11 @@ def gat_kernel_phase(device, flush_buf):
         fwd_name = f"gat_fwd[h={h}{' gated' if gated else ''}]"
         for normalize in (True, False):
             got = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalize)
+            same = torch.equal(got, gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalize))
             torch.cuda.synchronize()
             want = gat_cuda.gat_fwd_plain(g, pay, h, ch, 0.2, normalize)
             errs = []
-            ok = bool(torch.isfinite(got).all())
+            ok = same and bool(torch.isfinite(got).all())
             for a, b in zip(gauge_free(got, h, ch, normalize),
                             gauge_free(want, h, ch, normalize)):
                 errs.append(float((a - b).abs().max()))
@@ -382,7 +395,8 @@ def gat_kernel_phase(device, flush_buf):
             case = f"{fwd_name} normalize={normalize}"
             log(f"kernel vs plain [{case}]: max_abs val={errs[0]:.3e} "
                 f"m+log s={errs[1]:.3e} (tol rtol={GAT_FWD_TOL['rtol']:.3g} "
-                f"atol={GAT_FWD_TOL['atol']:.3g}) {'ok' if ok else 'MISMATCH'} | "
+                f"atol={GAT_FWD_TOL['atol']:.3g}) {'ok' if ok else 'MISMATCH'}, two "
+                f"launches {'bit-equal' if same else 'DIFFER'} | "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             if not ok:
                 failures.append(case)
@@ -426,7 +440,8 @@ def gat_kernel_phase(device, flush_buf):
     for name, e in entries.items():
         log(f"{name}: bytes={e['bytes']} bound={e['bound_ms']:.4f} ms "
             f"({e['bound_by']}) kernel={e['ms']:.4f} ms plain={e['plain_ms']:.4f} ms "
-            "library=none (no single PyTorch call computes this function)")
+            "library=none (no single PyTorch call computes this function) | "
+            f"kernel / bound {e['ms'] / e['bound_ms']:.2f}")
     return entries, g
 
 
@@ -538,6 +553,65 @@ def gat_two_sweep_phase(device, flush_buf, g):
             f"({e['bound_by']}) kernel={e['ms']:.4f} ms plain={e['plain_ms']:.4f} ms "
             "library=none (no single PyTorch call computes this function)")
     return entries
+
+
+def hub_phase(device) -> None:
+    """The two edge-list kernels on a 700-node graph in which one chunk
+    holds thousands of dense edges (several edge lists, many gather batches,
+    a row of 300 sources) and one chunk none: against their plain versions,
+    and two launches bit for bit."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.graph.synthetic import hub_edges
+    from elliptic_gnn_tpu_torch.kernels import bsda, bsda_spmm_cuda, gat_cuda
+
+    n = 700
+    ei = hub_edges(n, seed=11)
+    gen = torch.Generator(device=device).manual_seed(7)
+    failures = []
+    g = bsda.build_bsda_for_kind(ei, n, "sage", depth=3, a_dtype="int8",
+                                 transpose=True).to(device)
+    hub, empty = int((g.a[1] != 0).sum()), int((g.a[3] != 0).sum())
+    if hub <= 2048 or empty != 0:
+        fail(f"the hub graph's chunks hold {hub} and {empty} edges, not > 2048 and 0")
+    for f, dtype in ((2, torch.bfloat16), (168, torch.bfloat16), (65, torch.float32)):
+        dname = str(dtype).replace("torch.", "")
+        x = torch.randn((n, f), generator=gen, device=device).to(dtype)
+        for name, table in (("forward", g), ("transpose", g.transpose)):
+            got = bsda_spmm_cuda.bsda_dense_cuda(table, x)
+            same = torch.equal(got, bsda_spmm_cuda.bsda_dense_cuda(table, x))
+            torch.cuda.synchronize()
+            want = bsda.bsda_dense_plain(table, x)
+            ok = same and within(got.float(), want.float(), TOL[dname])
+            log(f"hub graph, bsda_spmm [{name} F={f} {dname}]: max_abs="
+                f"{float((got.float() - want.float()).abs().max()):.3e} "
+                f"{'ok' if ok else 'MISMATCH'}, two launches "
+                f"{'bit-equal' if same else 'DIFFER'}")
+            if not ok:
+                failures.append(f"bsda_spmm {name} F={f} {dname}")
+    g = bsda.build_bsda_for_kind(ei, n, "gat", depth=4, transpose=False).to(device)
+    n_pad = g.num_chunks * g.chunk
+    for h, ch in ((4, 8), (1, 2)):
+        pay = torch.randn((n_pad, gat_cuda.payload_width(h, ch)), generator=gen,
+                          device=device)
+        want = gauge_free(gat_cuda.gat_fwd_plain(g, pay, h, ch, 0.2, True), h, ch, True)
+        for gated in (True, False):
+            got = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, True, gated=gated)
+            same = torch.equal(
+                got, gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, True, gated=gated))
+            torch.cuda.synchronize()
+            errs = [float((a - b).abs().max())
+                    for a, b in zip(gauge_free(got, h, ch, True), want)]
+            ok = same and bool(torch.isfinite(got).all()) and all(
+                within(a, b, GAT_FWD_TOL)
+                for a, b in zip(gauge_free(got, h, ch, True), want))
+            log(f"hub graph, gat_fwd [h={h} ch={ch}{' gated' if gated else ''}]: max_abs "
+                f"val={errs[0]:.3e} m+log s={errs[1]:.3e} {'ok' if ok else 'MISMATCH'}, "
+                f"two launches {'bit-equal' if same else 'DIFFER'}")
+            if not ok:
+                failures.append(f"gat_fwd h={h} gated={gated}")
+    if failures:
+        fail(f"a kernel disagrees with its plain version on the hub graph: {failures}")
 
 
 def gat_step_times(device, g, flush_buf) -> None:
@@ -928,6 +1002,7 @@ def drive(device) -> list:
     gat_entries.update(gat_two_sweep_phase(device, flush_buf, gat_tables))
     gat_step_times(device, gat_tables, flush_buf)
     del flush_buf, gat_tables
+    hub_phase(device)
     gat_autograd_check(device)
     small_reference_check(device)
     with tempfile.TemporaryDirectory() as tmp:

@@ -123,3 +123,29 @@ def generate(
         edge_index = np.zeros((2, 0), dtype=np.int32)
 
     return GraphData(x=x, y=y, timestep=timestep, edge_index=edge_index)
+
+
+def hub_edges(num_nodes: int, hub_chunk: int = 1, empty_chunk: int = 3,
+              hub_pairs: int = 3000, hub_row_sources: int = 300,
+              seed: int = 0, chunk: int = 128) -> np.ndarray:
+    """Edges [2, E] (source, destination) int64 of a directed graph, in its
+    final numbering, that strains the per-chunk edge handling of the BSDA
+    kernels: about two local in-edges a node, but `hub_pairs` random edges
+    into the rows of chunk `hub_chunk` from that chunk and its two
+    neighbours, `hub_row_sources` distinct sources into one of its rows, a
+    tenth of the hub's edges doubled (multiplicity 2), and no edge at all
+    into chunk `empty_chunk`."""
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(num_nodes), 2)
+    src = np.clip(dst + rng.integers(-40, 41, dst.size), 0, num_nodes - 1)
+    lo = max(hub_chunk - 1, 0) * chunk
+    hi = min((hub_chunk + 2) * chunk, num_nodes)
+    hub_dst = hub_chunk * chunk + rng.integers(0, chunk, hub_pairs)
+    hub_src = rng.integers(lo, hi, hub_pairs)
+    row_src = lo + rng.permutation(hi - lo)[:hub_row_sources]
+    row_dst = np.full(row_src.size, hub_chunk * chunk + 5)
+    twice = rng.integers(0, hub_pairs, hub_pairs // 10)
+    src = np.concatenate([src, hub_src, row_src, hub_src[twice]])
+    dst = np.concatenate([dst, hub_dst, row_dst, hub_dst[twice]])
+    keep = dst // chunk != empty_chunk
+    return np.stack([src[keep], dst[keep]]).astype(np.int64)

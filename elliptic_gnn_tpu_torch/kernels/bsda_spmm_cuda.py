@@ -27,6 +27,13 @@ from .bsda import BsdaGraph, spmm_with
 # tile on a graph of more than RING G-blocks runs _ring_call, else
 # _banded_call; the count is kept per variant for the kernel table
 _FEAT_TILE, _GROUP, _RING = 128, 8, 4
+# a block's shared memory (csrc/bsda_edges.cuh): two gather buffers, two
+# src-scale buffers, the dst scales, the list's offsets and src_chunk row,
+# and an edge list that holds one row's worst case, 128 * depth edges of 12
+# bytes (an edge word and an 8-byte item; the items may lie in the buffers)
+MAX_SMEM = 232448
+_BUFFERS_BYTES = 2 * 20480 + 2 * 2048 + 512 + 1104 + 1024
+MAX_ROWS = 1 << 24  # an edge word keeps the source row in 24 bits
 
 launches = {"ring": 0, "banded": 0}
 _lib: Optional[ctypes.CDLL] = None
@@ -82,7 +89,12 @@ def bsda_dense_cuda(g: BsdaGraph, xc: torch.Tensor) -> torch.Tensor:
     if g.chunk != 128:
         raise ValueError(f"the kernel is built for 128-row chunks, not {g.chunk}")
     a, planes, pack = kernel_table(g)
+    if g.depth > 256 or _BUFFERS_BYTES + max(2048, 128 * g.depth) * 12 > MAX_SMEM:
+        raise ValueError(f"depth {g.depth}: one row's edge list does not fit a "
+                         "block's shared memory")
     n0, f = xc.shape
+    if n0 > MAX_ROWS:
+        raise ValueError(f"x has {n0} rows; the kernel's edge list takes {MAX_ROWS}")
     if n0 > g.num_chunks * g.chunk:
         raise ValueError(f"x has {n0} rows; the tables hold {g.num_chunks * g.chunk}")
     tensors = [a, g.src_chunk] + [s for s in (g.dst_scale, g.src_scale)

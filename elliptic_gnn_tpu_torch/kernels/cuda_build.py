@@ -23,8 +23,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 # every kernel source of the package, and the headers each includes
 SOURCES: Dict[str, Sequence[str]] = {
-    "bsda_spmm": (),
-    "gat_fwd": ("gat_common.cuh",),
+    "bsda_spmm": ("bsda_edges.cuh",),
+    "gat_fwd": ("bsda_edges.cuh",),
     "gat_bwd": ("gat_common.cuh",),
     "gat_bwd_dst": ("gat_common.cuh",),
     "gat_bwd_src": ("gat_common.cuh",),

@@ -47,7 +47,7 @@ import torch
 from . import cuda_build
 from .bsda import BsdaGraph
 from .bsda_gat import dense_part
-from .bsda_spmm_cuda import kernel_table
+from .bsda_spmm_cuda import MAX_ROWS, kernel_table
 from .gat_bwd import dense_bwd_head, grad_payload, sweep_dst_head, sweep_src_head
 
 SOURCES = ("gat_fwd", "gat_bwd", "gat_bwd_dst", "gat_bwd_src")  # csrc/<name>.cu
@@ -103,6 +103,9 @@ def _check(g: BsdaGraph, h: int, ch: int, plane_bytes: int = PLANE_BYTES,
     if g.chunk != 128:
         raise ValueError(f"the kernels are built for 128-row chunks, not {g.chunk}")
     a, planes, pack = kernel_table(g)
+    if g.num_chunks * g.chunk > MAX_ROWS:
+        raise ValueError(f"{g.num_chunks * g.chunk} rows: the forward kernel's edge "
+                         f"list takes {MAX_ROWS}")
     if g.depth > MAX_DEPTH or planes * plane_bytes > MAX_SMEM:
         raise ValueError(f"depth {g.depth} in {planes} planes does not fit a "
                          "block's shared memory")

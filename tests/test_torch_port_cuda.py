@@ -404,3 +404,103 @@ def test_conv_stack_on_cuda_matches_cpu(cuda, arch, amp):
     np.testing.assert_allclose(results[1][0], results[0][0], **tol)
     for a, b in zip(results[1][1], results[0][1]):
         np.testing.assert_allclose(a, b, **tol)
+
+
+# ---------------- the ragged edges of the edge-list kernels ----------------
+
+def _hub_graph(kind, depth, packed, n=700):
+    """synthetic.hub_edges: chunk 1 holds thousands of dense edges (several
+    edge lists, many gather batches, a row of 300 sources), chunk 3 none;
+    700 nodes are no multiple of 128. Bit-packed (pack 2) or int8 planes."""
+    g = bsda.build_bsda_for_kind(synthetic.hub_edges(n, seed=11), n, kind,
+                                 depth=depth, a_dtype="int8", transpose=True)
+    assert int((g.a[1] != 0).sum()) > 2048 and g.a_pack > 1
+    return g if packed else _unpacked(g)
+
+
+def _assert_spmm_kernel(g, x, tol):
+    from elliptic_gnn_tpu_torch.kernels.bsda_spmm_cuda import bsda_dense_cuda
+
+    for table in (g, g.transpose):
+        got = bsda_dense_cuda(table, x)
+        again = bsda_dense_cuda(table, x)
+        torch.cuda.synchronize()
+        want = bsda.bsda_dense_plain(table, x)
+        assert got.dtype == x.dtype and got.shape == want.shape
+        assert torch.equal(got, again)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", [4, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 3, 63, 65, 167, 200])
+def test_spmm_kernel_ragged_widths(cuda, f, dtype, pack):
+    """Widths that are no multiple of a tile, a vector or a copy, on forward
+    and transpose tables; two launches give the same bits."""
+    _, g = _graph()
+    assert g.num_nodes % 128 != 0 and g.a_pack == 4
+    g = (g if pack == 4 else _unpacked(g)).to(cuda)
+    x = _randn((g.num_nodes, f), f, cuda, dtype)
+    _assert_spmm_kernel(g, x, F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sage", "gcn"])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("f,dtype", [(2, torch.bfloat16), (65, torch.float32),
+                                     (168, torch.bfloat16), (200, torch.float32)])
+def test_spmm_kernel_hub_graph(cuda, kind, packed, f, dtype):
+    g = _hub_graph(kind, 3, packed).to(cuda)
+    x = _randn((g.num_nodes, f), f, cuda, dtype)
+    _assert_spmm_kernel(g, x, F32 if dtype == torch.float32 else BF16)
+    if kind == "sage":  # no edge into chunk 3: zeros, not what the buffer held
+        from elliptic_gnn_tpu_torch.kernels.bsda_spmm_cuda import bsda_dense_cuda
+        assert not bool(bsda_dense_cuda(g, x)[3 * 128: 4 * 128].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,ch", [(1, 1), (1, 2), (4, 8), (3, 5), (8, 62)])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+def test_gat_forward_kernel_hub_graph(cuda, h, ch, normalize, packed):
+    """The hub graph with one chunk emptied (occ 0), with the slot cover and
+    without: rows of 300 edges straddle gather batches and are rescaled."""
+    g = _hub_graph("gat", 4, packed)
+    a, occ = g.a.clone(), g.slot_occ.clone()
+    a[3], occ[3] = 0, 0
+    a_packed = None
+    if packed:
+        a_packed = g.a_packed.clone()
+        a_packed[3] = 0
+    g = dataclasses.replace(g, a=a, a_packed=a_packed, slot_occ=occ,
+                            transpose=None).to(cuda)
+    pay = _randn((g.num_chunks * 128, gat_cuda.payload_width(h, ch)), h + ch, cuda)
+    want = gat_cuda.gat_fwd_plain(g, pay, h, ch, 0.2, normalize)
+    hc = h * ch
+    for gated in (True, False):
+        got = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalize, gated=gated)
+        again = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalize, gated=gated)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        for p, q in zip(_gauge_free(got, h, ch, normalize),
+                        _gauge_free(want, h, ch, normalize)):
+            np.testing.assert_allclose(p.cpu().numpy(), q.cpu().numpy(), **GAT_FWD)
+        empty = got[3 * 128: 4 * 128]
+        assert (empty[:, :hc] == 0).all() and (empty[:, hc + h:] == 0).all()
+        assert (empty[:, hc: hc + h] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [2, 3, 64, 167])
+def test_spmm_kernel_takes_2_byte_aligned_views(cuda, f):
+    """bf16 x that begins 2 bytes after a 4-byte boundary (a contiguous view
+    into a larger buffer): no copy is aligned, the segments are shifted."""
+    _, g = _graph()
+    g = g.to(cuda)
+    n = g.num_nodes
+    flat = _randn((n * f + 1,), f, cuda, torch.bfloat16)
+    x = flat[1:].view(n, f)
+    assert x.is_contiguous() and x.data_ptr() % 4 == 2
+    _assert_spmm_kernel(g, x, BF16)
