@@ -29,7 +29,11 @@ Phases (any failure exits non-zero before the result line):
      against the one-sweep kernel, two launches of each bit for bit equal;
      the BSDA and GAT forward kernels on a 700-node graph with a hub chunk
      of thousands of dense edges and an empty chunk, against their plain
-     versions and twice, bit for bit;
+     versions and twice, bit for bit; the one-sweep backward and the source
+     sweep on the same graph with an out-hub (a source of 300 edges, a
+     source chunk whose transpose edge list is taken in several groups),
+     against their plain versions, the source sweep twice bit for bit and
+     the one-sweep backward's d a_dst too;
      one training step of the gat.yaml model through the kernels, with the
      one-sweep and with the two-sweep backward, against its plain version,
      gradients and times; and on a 6,000-node graph with a spill,
@@ -551,19 +555,24 @@ def gat_two_sweep_phase(device, flush_buf, g):
     for name, e in entries.items():
         log(f"{name}: bytes={e['bytes']} bound={e['bound_ms']:.4f} ms "
             f"({e['bound_by']}) kernel={e['ms']:.4f} ms plain={e['plain_ms']:.4f} ms "
-            "library=none (no single PyTorch call computes this function)")
+            "library=none (no single PyTorch call computes this function) | "
+            f"kernel / bound {e['ms'] / e['bound_ms']:.2f}")
     return entries
 
 
 def hub_phase(device) -> None:
-    """The two edge-list kernels on a 700-node graph in which one chunk
+    """The four edge-list kernels on a 700-node graph in which one chunk
     holds thousands of dense edges (several edge lists, many gather batches,
     a row of 300 sources) and one chunk none: against their plain versions,
-    and two launches bit for bit."""
+    and two launches bit for bit. The backwards on the same graph with the
+    out-hub: the source sweep's transpose list of chunk 1 exceeds one list
+    and its row 9 (300 destinations) several gather batches; the one-sweep
+    backward adds hundreds of edges into that source by atomics."""
     import torch
 
     from elliptic_gnn_tpu_torch.graph.synthetic import hub_edges
     from elliptic_gnn_tpu_torch.kernels import bsda, bsda_spmm_cuda, gat_cuda
+    from elliptic_gnn_tpu_torch.kernels.gat_bwd import grad_payload
 
     n = 700
     ei = hub_edges(n, seed=11)
@@ -610,6 +619,43 @@ def hub_phase(device) -> None:
                 f"two launches {'bit-equal' if same else 'DIFFER'}")
             if not ok:
                 failures.append(f"gat_fwd h={h} gated={gated}")
+    g = bsda.build_bsda_for_kind(hub_edges(n, seed=11, out_hub=True), n, "gat",
+                                 depth=4, transpose=True).to(device)
+    t = g.transpose
+    out_list, fan = int((t.a[1] != 0).sum()), int((t.a[1, :, 9] != 0).sum())
+    if out_list <= 2048 or fan <= 256:
+        fail(f"the out-hub graph's transpose chunk 1 holds {out_list} edges and its "
+             f"row 9 {fan}, not > 2048 and > 256")
+    for h, ch in ((4, 8), (1, 2)):
+        hc, width = h * ch, gat_cuda.payload_width(h, ch)
+        pay = torch.randn((n_pad, width), generator=gen, device=device)
+        gbar = torch.randn((n_pad, width), generator=gen, device=device)
+        for normalized in (True, False):
+            out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
+            got = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            again = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            g2 = grad_payload(gbar, pay, out_k, h, ch, normalized)
+            src = gat_cuda.gat_bwd_src_cuda(t, pay, g2, h, ch, 0.2)
+            same_src = torch.equal(src, gat_cuda.gat_bwd_src_cuda(t, pay, g2, h, ch, 0.2))
+            torch.cuda.synchronize()
+            want = gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            want_src = gat_cuda.gat_bwd_src_plain(t, pay, g2, h, ch, 0.2)
+            same_dst = torch.equal(got[:, hc + h:], again[:, hc + h:])
+            ok = (bool(torch.isfinite(got).all()) and within(got, want, GAT_BWD_TOL)
+                  and same_dst)
+            ok_src = (bool(torch.isfinite(src).all()) and within(src, want_src, GAT_BWD_TOL)
+                      and same_src)
+            log(f"out-hub graph [h={h} ch={ch} normalized={normalized}]: gat_bwd max_abs="
+                f"{float((got - want).abs().max()):.3e} {'ok' if ok else 'MISMATCH'}, d a_dst "
+                f"of two launches {'bit-equal' if same_dst else 'DIFFER'}; gat_bwd_src "
+                f"max_abs={float((src - want_src).abs().max()):.3e} "
+                f"{'ok' if ok_src else 'MISMATCH'}, two launches "
+                f"{'bit-equal' if same_src else 'DIFFER'} (tol rtol="
+                f"{GAT_BWD_TOL['rtol']:.3g} atol={GAT_BWD_TOL['atol']:.3g})")
+            if not ok:
+                failures.append(f"gat_bwd h={h} normalized={normalized}")
+            if not ok_src:
+                failures.append(f"gat_bwd_src h={h} normalized={normalized}")
     if failures:
         fail(f"a kernel disagrees with its plain version on the hub graph: {failures}")
 

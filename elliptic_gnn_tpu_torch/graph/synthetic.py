@@ -127,14 +127,20 @@ def generate(
 
 def hub_edges(num_nodes: int, hub_chunk: int = 1, empty_chunk: int = 3,
               hub_pairs: int = 3000, hub_row_sources: int = 300,
-              seed: int = 0, chunk: int = 128) -> np.ndarray:
+              seed: int = 0, chunk: int = 128, out_hub: bool = False) -> np.ndarray:
     """Edges [2, E] (source, destination) int64 of a directed graph, in its
     final numbering, that strains the per-chunk edge handling of the BSDA
     kernels: about two local in-edges a node, but `hub_pairs` random edges
     into the rows of chunk `hub_chunk` from that chunk and its two
     neighbours, `hub_row_sources` distinct sources into one of its rows, a
     tenth of the hub's edges doubled (multiplicity 2), and no edge at all
-    into chunk `empty_chunk`."""
+    into chunk `empty_chunk`.
+
+    `out_hub` adds the same out of chunk `hub_chunk`, for the kernels that
+    walk the reversed edges: one of its rows is the source of edges into
+    `hub_row_sources` distinct destinations of the three chunks around it,
+    and `hub_pairs` more random edges leave its rows for those chunks. The
+    default leaves the graph as it was (the extra draws come last)."""
     rng = np.random.default_rng(seed)
     dst = np.repeat(np.arange(num_nodes), 2)
     src = np.clip(dst + rng.integers(-40, 41, dst.size), 0, num_nodes - 1)
@@ -147,5 +153,12 @@ def hub_edges(num_nodes: int, hub_chunk: int = 1, empty_chunk: int = 3,
     twice = rng.integers(0, hub_pairs, hub_pairs // 10)
     src = np.concatenate([src, hub_src, row_src, hub_src[twice]])
     dst = np.concatenate([dst, hub_dst, row_dst, hub_dst[twice]])
+    if out_hub:
+        out_src = hub_chunk * chunk + rng.integers(0, chunk, hub_pairs)
+        out_dst = rng.integers(lo, hi, hub_pairs)
+        fan_dst = lo + rng.permutation(hi - lo)[:hub_row_sources]
+        fan_src = np.full(fan_dst.size, hub_chunk * chunk + 9)
+        src = np.concatenate([src, out_src, fan_src])
+        dst = np.concatenate([dst, out_dst, fan_dst])
     keep = dst // chunk != empty_chunk
     return np.stack([src[keep], dst[keep]]).astype(np.int64)

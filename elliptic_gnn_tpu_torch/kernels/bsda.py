@@ -415,12 +415,16 @@ def gat_block_transpose(g: BsdaGraph) -> BsdaGraph:
 
     For every kept dense pair (destination chunk I, slot d) with a nonzero
     block and source chunk J = src_chunk[I, d], the transpose holds
-    aT[J, slot'] = a[I, d] UNtransposed (rows = destinations, columns =
-    sources: what the source-oriented backward sweep walks) and
-    srcT[J, slot'] = I, slots in increasing (I, d). Its depth is the largest
-    number of references to one chunk; padding slots point a chunk at itself
-    with zero multiplicities; slot_occ is the per-chunk reference count.
-    The planes are bit-packed as the forward tables' are."""
+    aT[J, slot', j, i] = a[I, d, i, j] (each plane transposed) and
+    srcT[J, slot'] = I, slots in increasing (I, d). Rows are then the
+    sources of chunk J and columns the destinations of chunk I: the tables
+    read like forward tables of the reversed edges (aT[J, s, j, i] is the
+    multiplicity of the edge between row J*C + j and row srcT[J, s]*C + i),
+    which is how the source sweep's kernel walks them. The JAX package's
+    gat_block_transpose keeps the planes untransposed. Its depth is the
+    largest number of references to one chunk; padding slots point a chunk
+    at itself with zero multiplicities; slot_occ is the per-chunk reference
+    count. The planes are bit-packed as the forward tables' are."""
     a = g.a.cpu().numpy()
     src = g.src_chunk.cpu().numpy().astype(np.int64)
     b, _, c, _ = a.shape
@@ -432,7 +436,7 @@ def gat_block_transpose(g: BsdaGraph) -> BsdaGraph:
     slot = np.arange(j_chunk.size) - np.repeat(np.cumsum(occ_t) - occ_t, occ_t)
     dt = max(1, int(occ_t.max())) if b else 1
     a_t = np.zeros((b, dt, c, c), a.dtype)
-    a_t[j_chunk, slot] = a[i_chunk, d_i]
+    a_t[j_chunk, slot] = np.swapaxes(a[i_chunk, d_i], -1, -2)
     src_t = np.tile(np.arange(b, dtype=np.int32)[:, None], (1, dt))
     src_t[j_chunk, slot] = i_chunk
     pack = _auto_pack(a_t.astype(np.int64), dt)

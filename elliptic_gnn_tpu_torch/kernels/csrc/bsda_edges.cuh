@@ -1,9 +1,13 @@
-// Shared by bsda_spmm.cu and gat_fwd.cu: what both do per destination
-// chunk of the BSDA tables. Find the chunk's edges in its bit-packed
-// planes, list them in shared memory, fetch one row segment of a dense
-// array per edge into shared memory with asynchronous copies, and hand
-// every destination row's edges, in a fixed order, to the one thread group
-// that owns the row.
+// Shared by bsda_spmm.cu, gat_fwd.cu, gat_bwd.cu and gat_bwd_src.cu: what
+// they do per owned chunk of the BSDA tables. Find the chunk's edges in its
+// bit-packed planes, list them in shared memory, fetch one row segment of a
+// dense array per edge into shared memory with asynchronous copies, and
+// hand every owned row's edges, in a fixed order, to the one thread group
+// that owns the row. The owned rows are destinations on the forward
+// tables; on the GAT transpose tables (kernels/bsda.py::gat_block_transpose,
+// planes stored transposed) they are sources and the listed rows their
+// destinations. The GAT backwards also sum per head over a group's threads
+// (head_sums).
 //
 // Table layout (kernels/bsda.py): a [B, planes, 128, 128] bytes. With
 // pack 1 a byte is the multiplicity of slot d = plane; with pack 2 or 4 a
@@ -417,6 +421,50 @@ __device__ __forceinline__ void gather_rows_shifted(unsigned char* buf, int stri
   }
 }
 
+// The word offset of a 4-byte-aligned address in its 16-byte block: 0..3.
+__device__ __forceinline__ int word_in_block(const void* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3u);
+}
+
+// The same for f32 rows that are 4-byte but not 16-byte aligned (a row
+// length that is no multiple of 4 floats): the 16-byte blocks that cover
+// the segment are copied by cp.async from the aligned address at or below
+// its start, two blocks for a 20-byte segment where 4-byte copies would
+// take five, so that the segment lies word_in_block(its start) words into
+// the slot; a block that reaches outside [base, base + n_rows * row_bytes)
+// is copied word by word. The slot needs seg_bytes + 12 bytes.
+__device__ __forceinline__ void gather_rows_covered(unsigned char* buf, int stride,
+                                                    const unsigned char* base,
+                                                    size_t row_bytes, int seg_bytes,
+                                                    const uint32_t* edge, int n,
+                                                    int n_rows) {
+  const unsigned char* end = base + (size_t)n_rows * row_bytes;
+  const int max_blocks = (seg_bytes + 12 + 15) / 16;
+  const int shift = max_blocks > 1 ? min(32 - __clz(max_blocks - 1), 8) : 0;
+  const int q0 = threadIdx.x & ((1 << shift) - 1);
+  for (int e = threadIdx.x >> shift; e < n; e += kThreads >> shift) {
+    const int row = edge[e] & kRowMask;
+    unsigned char* dst = buf + (size_t)e * stride;
+    const unsigned char* start = base + (size_t)row * row_bytes;
+    const unsigned char* from = start - 4 * word_in_block(start);
+    const int blocks = static_cast<int>((start + seg_bytes - from + 15) / 16);
+    for (int q = q0; q < blocks; q += 1 << shift) {
+      const unsigned char* p = from + 16 * q;
+      if (row >= n_rows) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) reinterpret_cast<uint32_t*>(dst + 16 * q)[k] = 0u;
+      } else if (p >= base && p + 16 <= end) {
+        cp_async<16>(dst + 16 * q, p);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (p + 4 * k >= base && p + 4 * k + 4 <= end)
+            cp_async<4>(dst + 16 * q + 4 * k, p + 4 * k);
+      }
+    }
+  }
+}
+
 // vec: 16, 8 or 4 (aligned rows) or 2 (gather_rows_shifted).
 __device__ __forceinline__ void gather(int vec, unsigned char* buf, int stride,
                                        const void* base, size_t row_bytes,
@@ -465,6 +513,55 @@ __device__ __forceinline__ void walk_rows(Op& op, int& row, bool& open, int row_
     open = false;
     row += row_step;
   }
+}
+
+// ---------------- per-head sums of a thread group (the GAT backwards) ----------------
+
+// The lanes of the thread group of `group` threads (a power of two, at most
+// 32, aligned in its warp) that the calling thread belongs to.
+__device__ __forceinline__ unsigned group_mask(int group) {
+  if (group >= 32) return kFull;
+  const int lane = threadIdx.x & 31;
+  return ((1u << group) - 1u) << (lane & ~(group - 1));
+}
+
+// Whether head_sums can take the shuffle path: a head's `runs` runs are a
+// power of two no larger than the group, so that they lie in one aligned
+// set of lanes at the same k.
+__host__ __device__ inline bool head_shuffle(int runs, int group) {
+  return (runs & (runs - 1)) == 0 && runs <= group;
+}
+
+// A group owns a row; thread c holds runs r = c + group * k (k < CPL) of V
+// adjacent columns, run r of head r / runs, and n_runs runs are live.
+// Replaces part[k] by the sum of part over the runs of run k's head, the
+// same bits in every thread of the head: with `shuffle` by log2(runs) xor
+// shuffles (commutative pairs, no barrier), else through the group's
+// scratch row `red` (CPL * group floats), summed in run order. Every
+// thread of the group calls this together, with mask = group_mask(group).
+template <int CPL>
+__device__ __forceinline__ void head_sums(float (&part)[CPL], bool shuffle, int runs,
+                                          int n_runs, int c, int group, unsigned mask,
+                                          float* red) {
+  if (shuffle) {
+    for (int o = 1; o < runs; o <<= 1) {
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) part[k] += __shfl_xor_sync(mask, part[k], o);
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) red[c + group * k] = part[k];
+  __syncwarp(mask);
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    const int r = c + group * k;
+    float v = 0.f;
+    if (r < n_runs)
+      for (int x = r / runs * runs; x < (r / runs + 1) * runs; ++x) v += red[x];
+    part[k] = v;
+  }
+  __syncwarp(mask);
 }
 
 __host__ __device__ inline int round_up(int v, int to) { return (v + to - 1) / to * to; }

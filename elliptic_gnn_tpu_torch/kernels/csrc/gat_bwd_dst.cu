@@ -29,10 +29,12 @@
 // of the walk (plane, column, slot); one plain store per head. No atomics:
 // two launches on the same inputs give the same bits.
 //
-// Design: as gat_bwd.cu without its per-source sums: one block per
-// destination chunk, warp w owns rows 16w..16w+15, lane l owns columns
-// l, l+32, ...; the slot cover occ limits the planes staged. Any (h, ch)
-// with h*ch + 2h <= 512.
+// Design (gat_common.cuh): one block per destination chunk, the planes the
+// slot cover occ names staged in shared memory, warp w owns rows
+// 16w..16w+15 and walks each row's nonzero plane words by ballot, lane l
+// owns columns l, l+32, ...; per edge the payload's xp and a_src are read
+// from global memory and the head dot goes through the warp's shared-memory
+// row. Any (h, ch) with h*ch + 2h <= 512.
 //
 // Plain C interface, loaded with ctypes (kernels/gat_cuda.py).
 

@@ -1,8 +1,7 @@
-// Shared by gat_fwd.cu, gat_bwd.cu, gat_bwd_dst.cu and gat_bwd_src.cu: the
-// block shape, the staging of a chunk's multiplicity planes in shared
-// memory, the walk over the edges of one destination row (a row of the
-// planes) or of one source (a column of the planes), and the per-head sum
-// over a warp's columns.
+// Used by gat_bwd_dst.cu alone (the other kernels walk the edge lists of
+// bsda_edges.cuh): the block shape, the staging of a chunk's multiplicity
+// planes in shared memory, the walk over the edges of one destination row
+// (a row of the planes), and the per-head sum over a warp's columns.
 //
 // Table layout (kernels/bsda.py): a [B, planes, 128, 128] bytes. With
 // pack 1 a byte is the int8 multiplicity of slot d = plane; with pack 2 or
@@ -11,7 +10,7 @@
 // multiplicity of edge (src_chunk[b, d] * 128 + j) -> (b * 128 + i).
 //
 // The tables are >99% zeros (about two edges a row at Elliptic scale), so
-// both kernels touch only the edges: per row each lane tests one 4-byte
+// the kernel touches only the edges: per row each lane tests one 4-byte
 // word of every staged plane, a warp ballot finds the nonzero words, and
 // the warp walks those together.
 #pragma once
@@ -29,7 +28,6 @@ constexpr int kPlaneBytes = kChunk * kChunk;   // 16 KB
 constexpr int kPlaneWords = kPlaneBytes / 4;
 constexpr int kMaxDepth = 64;                  // src_chunk row staged in shared memory
 constexpr int kMaxCols = 512;                  // h * ch + 2 h <= 512
-constexpr float kNegInf = -1e30f;              // the package's NEG_INF
 
 // Planes the block must read: slots at and beyond occ[b] are all zero.
 __device__ __forceinline__ int planes_needed(const int32_t* occ, int b,
@@ -76,64 +74,6 @@ __device__ __forceinline__ void for_each_edge(const uint32_t* planes_sm,
         for (int sl = 0; sl < pack; ++sl) {
           const uint32_t m = (byte >> (bits * sl)) & mask;
           if (m != 0u) f(src_sm[p * pack + sl] * kChunk + j, static_cast<float>(m));
-        }
-      }
-    }
-  }
-}
-
-// Column walks (gat_bwd_src.cu). The planes keep the forward orientation,
-// rows = destinations and columns = sources, so a source owns a column. The
-// planes are staged with rows padded to 33 words: byte (i, j) then lies in
-// bank (i + j / 4) % 32, and the 32 lanes of a warp, standing for 32
-// consecutive rows, read one column's bytes without a bank conflict.
-constexpr int kColRowWords = kChunk / 4 + 1;            // 33
-constexpr int kColPlaneWords = kChunk * kColRowWords;   // 16,896 bytes a plane
-
-// As stage_tables, into the padded layout. Ends with a block barrier.
-__device__ __forceinline__ void stage_tables_cols(uint32_t* planes_sm, int32_t* src_sm,
-                                                  const uint8_t* a,
-                                                  const int32_t* src_chunk, int b,
-                                                  int depth, int planes,
-                                                  int n_planes) {
-  const uint32_t* src32 = reinterpret_cast<const uint32_t*>(
-      a + (size_t)b * planes * (size_t)kPlaneBytes);
-  for (int q = threadIdx.x; q < n_planes * kPlaneWords; q += kThreads) {
-    const int p = q / kPlaneWords;
-    const int r = q % kPlaneWords;
-    planes_sm[p * kColPlaneWords + (r / (kChunk / 4)) * kColRowWords +
-              r % (kChunk / 4)] = __ldg(src32 + q);
-  }
-  if (threadIdx.x < depth) src_sm[threadIdx.x] = src_chunk[b * depth + threadIdx.x];
-  __syncthreads();
-}
-
-// Calls f(row, mult) for every edge in column j of the staged planes, in
-// increasing (plane, i, slot) order, where row = src_sm[slot] * 128 + i is
-// the node at the other end (a destination, when the planes are a transpose
-// table's). Lane l tests rows l, l + 32, l + 64, l + 96 of each plane; the
-// whole warp calls this together and every lane sees every edge.
-template <typename F>
-__device__ __forceinline__ void for_each_edge_in_column(const uint32_t* planes_sm,
-                                                        const int32_t* src_sm,
-                                                        int n_planes, int pack, int j,
-                                                        int lane, F&& f) {
-  const int bits = 8 / pack;
-  const uint32_t mask = (1u << bits) - 1u;
-  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(planes_sm);
-  for (int p = 0; p < n_planes; ++p) {
-    for (int q = 0; q < kChunk / 32; ++q) {
-      const uint32_t byte =
-          bytes[(p * kColPlaneWords + (32 * q + lane) * kColRowWords) * 4 + j];
-      uint32_t nz = __ballot_sync(0xffffffffu, byte != 0u);
-      while (nz != 0u) {
-        const int k = __ffs(nz) - 1;
-        nz &= nz - 1u;
-        const uint32_t bk = __shfl_sync(0xffffffffu, byte, k);
-        for (int sl = 0; sl < pack; ++sl) {
-          const uint32_t m = (bk >> (bits * sl)) & mask;
-          if (m != 0u)
-            f(src_sm[p * pack + sl] * kChunk + 32 * q + k, static_cast<float>(m));
         }
       }
     }

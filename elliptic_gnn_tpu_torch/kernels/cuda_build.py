@@ -25,9 +25,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES: Dict[str, Sequence[str]] = {
     "bsda_spmm": ("bsda_edges.cuh",),
     "gat_fwd": ("bsda_edges.cuh",),
-    "gat_bwd": ("gat_common.cuh",),
+    "gat_bwd": ("bsda_edges.cuh",),
     "gat_bwd_dst": ("gat_common.cuh",),
-    "gat_bwd_src": ("gat_common.cuh",),
+    "gat_bwd_src": ("bsda_edges.cuh",),
 }
 
 

@@ -37,8 +37,8 @@ from .bsda import BsdaGraph
 
 
 def _block_terms(mult, asrc_j, adst_i, m_i, slope: float):
-    """(e, e * lrelu'(t)) over dense blocks [B, D, Ci, Cj]; asrc_j broadcasts
-    along Ci, adst_i and m_i along Cj."""
+    """(e, e * lrelu'(t)) over dense blocks [B, D, C, C]; asrc_j broadcasts
+    along the destination axis, adst_i and m_i along the source axis."""
     t = asrc_j + adst_i
     lr = torch.where(t >= 0, t, t * slope)
     e = torch.exp((lr - m_i).clamp_max(0.0)) * mult
@@ -117,22 +117,22 @@ def sweep_dst_head(g: BsdaGraph, xp_h, asrc_h, abar_h, sbar_h, adst_h, m_h,
 def sweep_src_head(g_t: BsdaGraph, xp_h, asrc_h, abar_h, sbar_h, adst_h, m_h,
                    slope: float):
     """One head of the source sweep over the TRANSPOSE tables g_t
-    (a[J, slot, i, j]: source j of chunk J, destination i of chunk
-    src_chunk[J, slot]): own rows j carry (xp, a_src), streamed rows i
-    carry (A_bar, S_bar, a_dst, m). Returns (d xp [N_pad, Ch], d a_src
-    [N_pad])."""
+    (a[J, slot, j, i]: row j = source j of chunk J, column i = destination
+    i of chunk src_chunk[J, slot]; kernels/bsda.py::gat_block_transpose):
+    own rows j carry (xp, a_src), streamed rows i carry (A_bar, S_bar,
+    a_dst, m). Returns (d xp [N_pad, Ch], d a_src [N_pad])."""
     b, c = g_t.num_chunks, g_t.chunk
     ch = xp_h.shape[1]
     dst = g_t.src_chunk.long()                                # [B, DT] -> I
     abar_g = abar_h.reshape(b, c, ch)[dst]                    # [B, DT, Ci, Ch]
     e, e_sig = _block_terms(
-        g_t.a.to(torch.float32), asrc_h.reshape(b, c)[:, None, None, :],
-        adst_h.reshape(b, c)[dst][:, :, :, None],
-        m_h.reshape(b, c)[dst][:, :, :, None], slope)         # [B, DT, Ci, Cj]
-    q = torch.einsum("bdif,bjf->bdij", abar_g, xp_h.reshape(b, c, ch))
-    dt = e_sig * (q + sbar_h.reshape(b, c)[dst][:, :, :, None])
-    dxp = torch.einsum("bdij,bdif->bjf", e, abar_g).reshape(-1, ch)
-    return dxp, dt.sum(dim=(1, 2)).reshape(-1)
+        g_t.a.to(torch.float32), asrc_h.reshape(b, c)[:, None, :, None],
+        adst_h.reshape(b, c)[dst][:, :, None, :],
+        m_h.reshape(b, c)[dst][:, :, None, :], slope)         # [B, DT, Cj, Ci]
+    q = torch.einsum("bdif,bjf->bdji", abar_g, xp_h.reshape(b, c, ch))
+    dt = e_sig * (q + sbar_h.reshape(b, c)[dst][:, :, None, :])
+    dxp = torch.einsum("bdji,bdif->bjf", e, abar_g).reshape(-1, ch)
+    return dxp, dt.sum(dim=(1, 3)).reshape(-1)
 
 
 def _spill_bwd(g: BsdaGraph, xp, asrc, adst, m, abar, sbar, slope,

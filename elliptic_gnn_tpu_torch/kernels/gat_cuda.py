@@ -20,8 +20,17 @@ forward tables that sums the per-source columns with f32 atomics, so their
 last bits vary from run to run. `gat_bwd_two_sweep` builds G2
 (kernels/gat_bwd.py::grad_payload) and runs a destination sweep over the
 forward tables and a source sweep over g.transpose
-(kernels/bsda.py::gat_block_transpose): every output is summed by the one
-warp that owns its row, in a fixed order, so two runs give the same bits.
+(kernels/bsda.py::gat_block_transpose, planes stored transposed): every
+output is summed by the one warp or thread group that owns its row, in a
+fixed order, so two runs give the same bits.
+
+gat_fwd.cu, gat_bwd.cu and gat_bwd_src.cu walk per-chunk edge lists
+(csrc/bsda_edges.cuh); each launch fixes its plan (copy width, list size,
+gather batch and stride, thread group) in the C launch function, and the
+wrappers raise where a list cannot fit a block: depth above 256, or more
+shared memory than a block has, or more than 2^24 rows. gat_bwd_dst.cu
+stages the planes in shared memory (csrc/gat_common.cuh): depth 64 at
+most.
 
 `gat_fwd`, `gat_bwd` and `gat_bwd_two_sweep` launch the kernels for CUDA
 tensors and use the plain PyTorch versions for CPU tensors, and for
@@ -52,10 +61,16 @@ from .gat_bwd import dense_bwd_head, grad_payload, sweep_dst_head, sweep_src_hea
 
 SOURCES = ("gat_fwd", "gat_bwd", "gat_bwd_dst", "gat_bwd_src")  # csrc/<name>.cu
 MAX_WIDTH = 512   # h*ch + 2h, as the TPU package's flash_eligible
-MAX_DEPTH = 64    # csrc/gat_common.cuh kMaxDepth
-MAX_SMEM = 232448 - 20 * 1024  # a block's shared memory less the static part
-PLANE_BYTES = 128 * 128           # a staged plane (gat_common.cuh kPlaneBytes)
-COLUMN_PLANE_BYTES = 128 * 33 * 4  # with rows padded to 33 words (kColPlaneWords)
+MAX_SMEM = 232448  # a block's shared memory on sm_90
+# gat_bwd_dst.cu (csrc/gat_common.cuh): the src_chunk row and the planes
+# staged, beside at most 20 KB of static shared memory
+STAGED_MAX_DEPTH = 64
+PLANE_BYTES = 128 * 128
+# the edge-list kernels (csrc/bsda_edges.cuh): an item keeps its plane in 8
+# bits; a list holds max(128 * depth, 2048) edges of 4 bytes and as many
+# 8-byte items, beside two 20 KB gather buffers, the offsets and src_chunk
+LIST_MAX_DEPTH = 256
+HEAD_SUM_BYTES = 256 * 16 * 4  # the backwards' head-sum rows, at most
 
 launches = {"gat_fwd": 0, "gat_fwd_gated": 0, "gat_bwd": 0,
             "gat_bwd_dst": 0, "gat_bwd_src": 0}
@@ -93,10 +108,21 @@ def _load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def _check(g: BsdaGraph, h: int, ch: int, plane_bytes: int = PLANE_BYTES,
+def _edge_list_smem(depth: int, extra: int) -> int:
+    """Shared memory of a block of the edge-list kernels at `depth`, at
+    most, with `extra` bytes beside the list and the gather buffers
+    (csrc/bsda_edges.cuh list_bytes and buffer_area)."""
+    cap = max(128 * depth, 2048)
+    return max(2 * 20480, 8 * cap) + extra + 4 * cap + 4 * (2 * 129 + 18 + depth + 3)
+
+
+def _check(g: BsdaGraph, h: int, ch: int, staged: bool = False, extra: int = 0,
            **tensors: torch.Tensor):
     """Validate what the kernels read; returns (A bytes, planes, pack).
-    Every tensor is [N_pad, W] but the one named g2, [N_pad, h*ch + 3h]."""
+    Every tensor is [N_pad, W] but the one named g2, [N_pad, h*ch + 3h].
+    `staged`: gat_bwd_dst.cu's limits (planes staged in shared memory),
+    else the edge list's, with `extra` bytes of shared memory of the
+    kernel's own."""
     width = payload_width(h, ch)
     if h < 1 or ch < 1 or width > MAX_WIDTH:
         raise ValueError(f"(h, ch) = ({h}, {ch}): need h*ch + 2h <= {MAX_WIDTH}")
@@ -104,10 +130,15 @@ def _check(g: BsdaGraph, h: int, ch: int, plane_bytes: int = PLANE_BYTES,
         raise ValueError(f"the kernels are built for 128-row chunks, not {g.chunk}")
     a, planes, pack = kernel_table(g)
     if g.num_chunks * g.chunk > MAX_ROWS:
-        raise ValueError(f"{g.num_chunks * g.chunk} rows: the forward kernel's edge "
-                         f"list takes {MAX_ROWS}")
-    if g.depth > MAX_DEPTH or planes * plane_bytes > MAX_SMEM:
+        raise ValueError(f"{g.num_chunks * g.chunk} rows: the kernels' edge "
+                         f"lists take {MAX_ROWS}")
+    if staged and (g.depth > STAGED_MAX_DEPTH
+                   or planes * PLANE_BYTES > MAX_SMEM - 20 * 1024):
         raise ValueError(f"depth {g.depth} in {planes} planes does not fit a "
+                         "block's shared memory")
+    if not staged and (g.depth > LIST_MAX_DEPTH
+                       or _edge_list_smem(g.depth, extra) > MAX_SMEM):
+        raise ValueError(f"depth {g.depth}: one row's edge list does not fit a "
                          "block's shared memory")
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
@@ -157,7 +188,7 @@ def gat_fwd_cuda(g: BsdaGraph, payload: torch.Tensor, h: int, ch: int,
     """The forward kernel: payload [N_pad, W] -> [ acc | m | s ] (acc / s
     in the acc columns with `normalize`). `gated` passes the slot cover
     occ; None means the TPU package's rule, heads >= 2."""
-    a, planes, pack = _check(g, h, ch, payload=payload)
+    a, planes, pack = _check(g, h, ch, extra=128 * 4 * h, payload=payload)
     gated = h >= 2 if gated is None else gated
     out = torch.empty_like(payload)
     lib = _load("gat_fwd")
@@ -182,7 +213,8 @@ def gat_bwd_cuda(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
     `out_k` = gat_fwd(payload, normalize=normalized) -> cotangent of the
     payload [ d xp | d a_src | d a_dst ]. The per-source columns are summed
     with f32 atomics: their last bits vary from run to run."""
-    a, planes, pack = _check(g, h, ch, gbar=gbar, payload=payload, out_k=out_k)
+    a, planes, pack = _check(g, h, ch, extra=HEAD_SUM_BYTES, gbar=gbar,
+                             payload=payload, out_k=out_k)
     ct = torch.zeros_like(payload)
     lib = _load("gat_bwd")
     with torch.cuda.device(payload.device):
@@ -207,7 +239,7 @@ def gat_bwd_dst_cuda(g: BsdaGraph, g2: torch.Tensor, payload: torch.Tensor,
     columns of the payload's cotangent, written into `ct` [N_pad, W] (a
     zeroed one when None; its other columns are left as they are)."""
     ct = torch.zeros_like(payload) if ct is None else ct
-    tables = _check(g, h, ch, g2=g2, payload=payload, ct=ct)
+    tables = _check(g, h, ch, staged=True, g2=g2, payload=payload, ct=ct)
     _launch_sweep("gat_bwd_dst", g, g2, payload, ct, tables, h, ch, negative_slope)
     return ct
 
@@ -221,8 +253,7 @@ def gat_bwd_src_cuda(g_t: BsdaGraph, payload: torch.Tensor, g2: torch.Tensor,
     [N_pad, W] (a zeroed one when None; its d a_dst columns are left as
     they are)."""
     ct = torch.zeros_like(payload) if ct is None else ct
-    tables = _check(g_t, h, ch, plane_bytes=COLUMN_PLANE_BYTES, payload=payload,
-                    g2=g2, ct=ct)
+    tables = _check(g_t, h, ch, extra=HEAD_SUM_BYTES, payload=payload, g2=g2, ct=ct)
     _launch_sweep("gat_bwd_src", g_t, payload, g2, ct, tables, h, ch, negative_slope)
     return ct
 

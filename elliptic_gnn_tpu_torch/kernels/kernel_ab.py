@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""A/B of the port's bsda_spmm and gat_fwd kernels on one NVIDIA GPU: the
-sources in this checkout against those of another checkout, in one
-process, at the launch shapes of the configs (chip_smoke.py's tables).
+"""A/B of the port's edge-list kernels (bsda_spmm, gat_fwd, gat_bwd,
+gat_bwd_src) on one NVIDIA GPU: the sources in this checkout against those
+of another checkout, in one process, at the launch shapes of the configs
+(chip_smoke.py's tables).
 
     python3 -m elliptic_gnn_tpu_torch.kernels.kernel_ab --parent DIR \
-        [--shares] [--set NAME:CONSTANT=VALUE,... ...]
+        [--only NAME,...] [--shares] [--set NAME:CONSTANT=VALUE,... ...]
 
 DIR holds the other checkout's elliptic_gnn_tpu_torch/kernels/csrc (e.g.
 `git archive <commit> | tar -x -C build/parent`, which .gitignore lists).
 Every library is built by nvcc into build/torch_ab. Per shape it prints the
 CUDA-event medians (L2 flushed) in the order parent, this, this, parent,
-whether the two SpMM results are equal bit for bit, and the largest
-difference of the two GAT forwards on acc / s and m + log s.
+whether the two SpMM results are equal bit for bit, the largest difference
+of the two GAT forwards on acc / s and m + log s, and the largest
+difference of the two results of each GAT backward. --only limits the run
+to the named kernels.
 
---shares also times copies of the parent's and of this checkout's sources
-with parts taken out (text substitutions, below), to show where the time
-goes.
+The GAT source sweep reads the transpose tables; a source that walks them
+by columns (the design before csrc/bsda_edges.cuh) is given the planes
+untransposed, as it was built for.
+
+--shares also times copies of both checkouts' sources with parts taken out
+(text substitutions, below, chosen by each source's design), to show where
+the time goes.
 --set NAME:CONSTANT=VALUE[,CONSTANT=VALUE...] also builds a copy of this
 checkout's sources with those `constexpr int` constants of bsda_edges.cuh
 changed (e.g. occ6:kBufBytes=8192,kMinBlocks=6) and times it beside the
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import os
 import re
 import shutil
@@ -37,9 +45,13 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OUT = os.path.join(HERE, "build", "torch_ab")
+KERNELS = ("bsda_spmm", "gat_fwd", "gat_bwd", "gat_bwd_src")
 
-# parts taken out of the parent's kernels: (source, variant, [(old, new)])
-PARENT_SHARES = [
+# parts taken out of a kernel: (source, variant, [(old, new)]); STAGED_CUTS
+# for the sources that stage the planes in shared memory and walk them by
+# ballot (before csrc/bsda_edges.cuh), EDGE_LIST_CUTS for those on it: the
+# kernel stops after a stage, or skips one
+STAGED_CUTS = [
     ("bsda_spmm", "no_walk",  # planes and x tiles staged, no edge walked
      [("uint32_t nz = __ballot_sync(0xffffffffu, word != 0u);", "uint32_t nz = 0u;")]),
     ("bsda_spmm", "no_x_tile",  # planes staged and walked, no x tile staged
@@ -57,21 +69,41 @@ PARENT_SHARES = [
     ("gat_fwd", "no_pass_1",  # the max pass taken out
      [("if (live[k]) mx[k] = fmaxf(mx[k], __ldg(p + head[k]));",
        "if (live[k]) mx[k] = 0.f;")]),
+    ("gat_bwd", "no_walk",  # planes staged, rows begun and ended, no edge walked
+     [("for_each_edge(\n        planes_sm, src_sm, n_planes,",
+       "for_each_edge(\n        planes_sm, src_sm, 0,")]),
+    ("gat_bwd", "no_loads",  # edges walked, no source row read (atomics kept)
+     [("__ldg(p + hc + head[k])", "1.f"), ("__ldg(p + lane + 32 * k)", "1.f")]),
+    ("gat_bwd_src", "no_walk",  # planes staged, rows begun and stored, no edge walked
+     [("for_each_edge_in_column(\n        planes_sm, dst_sm, n_planes,",
+       "for_each_edge_in_column(\n        planes_sm, dst_sm, 0,")]),
+    ("gat_bwd_src", "no_loads",  # edges walked, no G2 row read
+     [("__ldg(d + hc + h + head[k])", "1.f"), ("__ldg(d + hc + 2 * h + head[k])", "1.f"),
+      ("__ldg(d + lane + 32 * k)", "1.f"), ("__ldg(d + hc + head[k])", "1.f")]),
 ]
-# and of this checkout's: the kernel stops after a stage, or skips one
-THIS_SHARES = [
-    ("bsda_spmm", "this_count_only",
+_GAT_LIST_ONLY = [("    fetch(0);\n    int row = r0 + gid;",
+                   "    if (pl.h > 0) return;\n    fetch(0);\n    int row = r0 + gid;")]
+_GAT_NO_WALK = [("      walk_rows(op, row,", "      if (pl.h < 0) walk_rows(op, row,")]
+EDGE_LIST_CUTS = [
+    ("bsda_spmm", "count_only",
      [("  if (!whole) __syncthreads();", "  if (pl.f > 0) return;\n  if (!whole) __syncthreads();")]),
-    ("bsda_spmm", "this_list_only",
+    ("bsda_spmm", "list_only",
      [("    fetch(0);\n    int row = 0;", "    if (pl.f > 0) return;\n    fetch(0);\n    int row = 0;")]),
-    ("bsda_spmm", "this_no_walk",
+    ("bsda_spmm", "no_walk",
      [("      walk_rows(op, row,", "      if (pl.f < 0) walk_rows(op, row,")]),
-    ("gat_fwd", "this_list_only",
-     [("    fetch(0);\n    int row = r0 + gid;",
-       "    if (pl.h > 0) return;\n    fetch(0);\n    int row = r0 + gid;")]),
-    ("gat_fwd", "this_no_walk",
-     [("      walk_rows(op, row,", "      if (pl.h < 0) walk_rows(op, row,")]),
+] + [(name, cut, subs) for name in ("gat_fwd", "gat_bwd", "gat_bwd_src")
+     for cut, subs in (("list_only", _GAT_LIST_ONLY), ("no_walk", _GAT_NO_WALK))] + [
+    ("gat_bwd_src", "no_long_rows",  # the rows the block sums after the walk left out
+     [("      if (len > kLongRow)", "      if (pl.h < 0 && len > kLongRow)")]),
+    ("gat_bwd_src", "long_16", [("constexpr int kLongRow = 32;", "constexpr int kLongRow = 16;")]),
+    ("gat_bwd_src", "long_64", [("constexpr int kLongRow = 32;", "constexpr int kLongRow = 64;")]),
 ]
+
+
+def on_edge_list(path: str) -> bool:
+    """Whether the source at `path` walks bsda_edges.cuh's edge lists."""
+    with open(path) as fh:
+        return '#include "bsda_edges.cuh"' in fh.read()
 
 
 def nvcc(src: str, lib: str, include: str, flags=()) -> subprocess.Popen:
@@ -83,9 +115,9 @@ def nvcc(src: str, lib: str, include: str, flags=()) -> subprocess.Popen:
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def retuned_copy(label: str, values: str) -> str:
-    """A directory holding this checkout's two sources beside a
-    bsda_edges.cuh with constants changed."""
+def retuned_copy(label: str, values: str, names) -> str:
+    """A directory holding this checkout's sources beside a bsda_edges.cuh
+    with constants changed."""
     with open(os.path.join(CSRC, "bsda_edges.cuh")) as fh:
         text = fh.read()
     for pair in values.split(","):
@@ -97,62 +129,73 @@ def retuned_copy(label: str, values: str) -> str:
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "bsda_edges.cuh"), "w") as fh:
         fh.write(text)
-    for name in ("bsda_spmm", "gat_fwd"):
+    for name in names:
         shutil.copy(os.path.join(CSRC, f"{name}.cu"), path)
     return path
 
 
-def build_all(parent: str, shares: bool, defines) -> dict:
-    """{(source, variant): library path}, all compiled in parallel."""
+def build_all(parent: str, names, shares: bool, defines) -> tuple:
+    """({(source, variant): library path}, {(source, variant): on the edge
+    list}), all compiled in parallel. Variants: "parent", "this", the
+    retuned copies "this_<label>", and with `shares` "<side>_<cut>"."""
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
-    for name in ("bsda_spmm", "gat_fwd"):
-        jobs[(name, "this")] = (os.path.join(CSRC, f"{name}.cu"), CSRC, ())
-        jobs[(name, "parent")] = (os.path.join(parent, f"{name}.cu"), parent, ())
+    for name in names:
+        jobs[(name, "this")] = (os.path.join(CSRC, f"{name}.cu"), CSRC)
+        jobs[(name, "parent")] = (os.path.join(parent, f"{name}.cu"), parent)
         for spec in defines:
             label, values = spec.split(":", 1)
-            copy = retuned_copy(label, values)
-            jobs[(name, f"this_{label}")] = (os.path.join(copy, f"{name}.cu"), copy, ())
-    cuts = [(parent, c) for c in PARENT_SHARES] + [(CSRC, c) for c in THIS_SHARES]
-    for base, (name, variant, subs) in cuts if shares else []:
-        with open(os.path.join(base, f"{name}.cu")) as fh:
-            text = fh.read()
-        for old, new in subs:
-            if old not in text:
-                sys.exit(f"{base}/{name}.cu has no {old!r}")
-            text = text.replace(old, new)
-        path = os.path.join(OUT, f"{name}_{variant}.cu")
-        with open(path, "w") as fh:
-            fh.write(text)
-        jobs[(name, variant)] = (path, base, ())
+            copy = retuned_copy(label, values, names)
+            jobs[(name, f"this_{label}")] = (os.path.join(copy, f"{name}.cu"), copy)
+    design = {key: on_edge_list(src) for key, (src, _) in jobs.items()}
+    for side, base in (("parent", parent), ("this", CSRC)) if shares else ():
+        for name in names:
+            edge_list = design[(name, side)]
+            for cut_name, cut, subs in EDGE_LIST_CUTS if edge_list else STAGED_CUTS:
+                if cut_name != name:
+                    continue
+                with open(os.path.join(base, f"{name}.cu")) as fh:
+                    text = fh.read()
+                for old, new in subs:
+                    if old not in text:
+                        sys.exit(f"{base}/{name}.cu has no {old!r}")
+                    text = text.replace(old, new)
+                path = os.path.join(OUT, f"{name}_{side}_{cut}.cu")
+                with open(path, "w") as fh:
+                    fh.write(text)
+                jobs[(name, f"{side}_{cut}")] = (path, base)
+                design[(name, f"{side}_{cut}")] = edge_list
     procs, libs = {}, {}
-    for key, (src, include, flags) in jobs.items():
+    for key, (src, include) in jobs.items():
         libs[key] = os.path.join(OUT, f"lib{key[0]}_{key[1]}.so")
-        procs[key] = nvcc(src, libs[key], include, ("-Xptxas=-v",) + tuple(flags))
+        procs[key] = nvcc(src, libs[key], include, ("-Xptxas=-v",))
     failed = []
     for key, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {key}:\n{out}")
-        elif key[1] == "this":
-            print(out)
+        elif key[1] in ("this", "parent"):
+            print(f"ptxas, {key[0]} ({key[1]}):\n{out}")
     if failed:
         sys.exit("\n".join(failed))
-    return libs
+    return libs, design
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
+    ap.add_argument("--only", default=",".join(KERNELS))
     ap.add_argument("--shares", action="store_true")
     ap.add_argument("--set", nargs="*", default=[], dest="retuned")
     args = ap.parse_args()
+    names = [n for n in KERNELS if n in args.only.split(",")]
 
     import torch
 
     sys.path.insert(0, HERE)  # chip_smoke.py: the tables, the timer, the gauge
     import chip_smoke as cs
     from . import bsda_spmm_cuda, gat_cuda
+    from .gat_bwd import grad_payload
 
     if not torch.cuda.is_available():
         sys.exit("this script needs a GPU")
@@ -162,7 +205,7 @@ def main() -> None:
         capture_output=True, text=True).stdout.strip()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
-    paths = build_all(args.parent, args.shares, args.retuned)
+    paths, design = build_all(args.parent, names, args.shares, args.retuned)
     print(f"built {len(paths)} libraries in {time.time() - t0:.1f} s")
 
     def use(name, variant):
@@ -183,25 +226,34 @@ def main() -> None:
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     variants = {n: [v for (m, v) in paths if m == n and v not in ("this", "parent")]
-                for n in ("bsda_spmm", "gat_fwd")}
+                for n in names}
 
     def compare(name, label, call, same):
+        """call(edge_list) runs the wrapper with the library in use, given
+        whether its source is on the edge list."""
         outs, ms = {}, {}
         for v in ("parent", "this", "this", "parent"):
             use(name, v)
-            outs[v] = call()
-            ms.setdefault(v, []).append(cs.cuda_ms(call, flush))
+            outs[v] = call(design[(name, v)])
+            ms.setdefault(v, []).append(
+                cs.cuda_ms(lambda: call(design[(name, v)]), flush))
         extra = {}
         for v in variants[name]:
             use(name, v)
-            extra[v] = cs.cuda_ms(call, flush)
+            extra[v] = cs.cuda_ms(lambda: call(design[(name, v)]), flush)
+        use(name, "this")
         print(f"{label}: parent {ms['parent'][0]:.4f} {ms['parent'][1]:.4f} ms | this "
               f"{ms['this'][0]:.4f} {ms['this'][1]:.4f} ms | {same(outs['parent'], outs['this'])}"
               + "".join(f" | {v} {t:.4f}" for v, t in extra.items()), flush=True)
 
+    def max_diff(a, b):
+        return f"max diff {float((a.float() - b.float()).abs().max()):.3e}"
+
     gen = torch.Generator(device=device).manual_seed(0)
     for kind, sym, widths in (("sage", True, (64, 168)), ("gcn", False, (128, 2)),
                               ("sage", False, (128, 167))):
+        if "bsda_spmm" not in names:
+            break
         g = cs.elliptic_tables(device, kind, symmetrize=sym)
         for f in widths:
             for dtype in (torch.bfloat16, torch.float32):
@@ -212,23 +264,43 @@ def main() -> None:
                     compare("bsda_spmm",
                             f"bsda_spmm {kind}{' symmetrized' if sym else ''} {tname} F={f} "
                             f"{str(dtype)[6:]}",
-                            lambda: bsda_spmm_cuda.bsda_dense_cuda(t, x),
+                            lambda _e: bsda_spmm_cuda.bsda_dense_cuda(t, x),
                             lambda a, b: "bit-equal" if torch.equal(a, b) else
                             f"DIFFER by {float((a.float() - b.float()).abs().max()):.3e}")
         del g
+    if not any(n.startswith("gat") for n in names):
+        return
     g = cs.elliptic_tables(device, "gat")
     n_pad = g.num_chunks * g.chunk
+    t_rows = g.transpose  # planes row-oriented: rows = sources
+    t_cols = dataclasses.replace(  # the same planes untransposed, for a column walk
+        t_rows, a=t_rows.a.transpose(-1, -2).contiguous(),
+        a_packed=None if t_rows.a_packed is None
+        else t_rows.a_packed.transpose(-1, -2).contiguous())
     for h, ch in ((4, 8), (1, 2)):
-        pay = torch.randn((n_pad, gat_cuda.payload_width(h, ch)), generator=gen,
-                          device=device)
+        width = gat_cuda.payload_width(h, ch)
+        pay = torch.randn((n_pad, width), generator=gen, device=device)
+        gbar = torch.randn((n_pad, width), generator=gen, device=device)
 
         def diff(a, b):
             return "max diff val %.3e, m+log s %.3e" % tuple(
                 float((p - q).abs().max()) for p, q in zip(
                     cs.gauge_free(a, h, ch, True), cs.gauge_free(b, h, ch, True)))
 
-        compare("gat_fwd", f"gat_fwd h={h} ch={ch}",
-                lambda: gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, True), diff)
+        if "gat_fwd" in names:
+            compare("gat_fwd", f"gat_fwd h={h} ch={ch}",
+                    lambda _e: gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, True), diff)
+        out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, True)
+        if "gat_bwd" in names:
+            compare("gat_bwd", f"gat_bwd h={h} ch={ch} normalized",
+                    lambda _e: gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, True),
+                    max_diff)
+        if "gat_bwd_src" in names:
+            g2 = grad_payload(gbar, pay, out_k, h, ch, True)
+            compare("gat_bwd_src", f"gat_bwd_src h={h} ch={ch}",
+                    lambda edge_list: gat_cuda.gat_bwd_src_cuda(
+                        t_rows if edge_list else t_cols, pay, g2, h, ch, 0.2),
+                    max_diff)
 
 
 if __name__ == "__main__":

@@ -408,12 +408,14 @@ def test_conv_stack_on_cuda_matches_cpu(cuda, arch, amp):
 
 # ---------------- the ragged edges of the edge-list kernels ----------------
 
-def _hub_graph(kind, depth, packed, n=700):
+def _hub_graph(kind, depth, packed, n=700, out_hub=False):
     """synthetic.hub_edges: chunk 1 holds thousands of dense edges (several
     edge lists, many gather batches, a row of 300 sources), chunk 3 none;
-    700 nodes are no multiple of 128. Bit-packed (pack 2) or int8 planes."""
-    g = bsda.build_bsda_for_kind(synthetic.hub_edges(n, seed=11), n, kind,
-                                 depth=depth, a_dtype="int8", transpose=True)
+    700 nodes are no multiple of 128. Bit-packed (pack 2) or int8 planes.
+    `out_hub`: chunk 1 is also the source of thousands (its transpose list
+    is taken in several groups), its row 9 of 300."""
+    g = bsda.build_bsda_for_kind(synthetic.hub_edges(n, seed=11, out_hub=out_hub), n,
+                                 kind, depth=depth, a_dtype="int8", transpose=True)
     assert int((g.a[1] != 0).sum()) > 2048 and g.a_pack > 1
     return g if packed else _unpacked(g)
 
@@ -490,6 +492,48 @@ def test_gat_forward_kernel_hub_graph(cuda, h, ch, normalize, packed):
         empty = got[3 * 128: 4 * 128]
         assert (empty[:, :hc] == 0).all() and (empty[:, hc + h:] == 0).all()
         assert (empty[:, hc: hc + h] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,ch", [(1, 1), (1, 2), (4, 8), (2, 16), (3, 8), (1, 4),
+                                  (3, 5), (8, 62), (1, 256)])
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+def test_gat_backward_kernels_out_hub_graph(cuda, h, ch, normalized, packed):
+    """The one-sweep backward and the source sweep on the out-hub graph:
+    hub rows and the out-hub source straddle gather batches, the transpose
+    chunk 1 takes several edge lists; heads whose runs take xor shuffles
+    ((1, 2), (4, 8), (2, 16)), none ((1, 1)) or the scratch row ((3, 5),
+    (8, 62), (1, 256)); rows of 16-byte vector atomics and of scalar ones
+    ((3, 8): 30 columns); G2 rows that are not 16-byte aligned, gathered
+    by the 16-byte blocks that cover them (all but (4, 8), (8, 62) and
+    (1, 256)). Against the plain versions; the source sweep and the
+    one-sweep d a_dst bit for bit on a repeat."""
+    from elliptic_gnn_tpu_torch.kernels.gat_bwd import grad_payload
+
+    g = _hub_graph("gat", 4, packed, out_hub=True)
+    assert int((g.transpose.a[1] != 0).sum()) > 2048
+    g = g.to(cuda)
+    hc = h * ch
+    shape = (g.num_chunks * 128, gat_cuda.payload_width(h, ch))
+    pay, gbar = _randn(shape, h + ch, cuda), _randn(shape, 2 * h + ch, cuda)
+    out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
+    got = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    again = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    g2 = grad_payload(gbar, pay, out_k, h, ch, normalized)
+    src = gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch, 0.2)
+    src_again = gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch, 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, hc + h:], again[:, hc + h:])
+    assert torch.equal(src, src_again) and not src[:, hc + h:].any()
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, normalized).cpu().numpy(),
+        **GAT_BWD)
+    np.testing.assert_allclose(
+        src.cpu().numpy(),
+        gat_cuda.gat_bwd_src_plain(g.transpose, pay, g2, h, ch, 0.2).cpu().numpy(),
+        **GAT_BWD)
 
 
 @pytest.mark.cuda

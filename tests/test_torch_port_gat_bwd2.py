@@ -59,9 +59,11 @@ def graphs():
 
 @pytest.mark.parametrize("depth", [3, 4])
 def test_gat_block_transpose_matches(depth):
-    """(a) a, src_chunk, slot_occ, depth, max_chunk_dist and every other
-    field of the transpose equal the JAX package's; the port also bit-packs
-    the transpose planes for its kernel, which the JAX package does not."""
+    """(a) src_chunk, slot_occ, depth, max_chunk_dist and every other field
+    of the transpose equal the JAX package's, and its planes equal the JAX
+    package's with their last two axes swapped (the port stores them
+    row-oriented: rows = sources, for its kernel's row walk); the port also
+    bit-packs the transpose planes, which the JAX package does not."""
     ei = _edges()
     gj = jax_bsda.build_bsda_for_kind(ei, N, "gat", depth=depth, transpose=True)
     gp = port_bsda.build_bsda_for_kind(ei, N, "gat", depth=depth, transpose=True)
@@ -75,8 +77,10 @@ def test_gat_block_transpose_matches(depth):
         np.testing.assert_array_equal(
             (packed[:, d // pack] >> (bits * (d % pack))) & ((1 << bits) - 1),
             t.a[:, d].numpy())
-    assert_tables_equal(gj, dataclasses.replace(
-        gp, transpose=dataclasses.replace(t, a_packed=None, a_pack=1)))
+    assert_tables_equal(gj, dataclasses.replace(gp, transpose=dataclasses.replace(
+        t, a=t.a.transpose(-1, -2).contiguous(), a_packed=None, a_pack=1)))
+    np.testing.assert_array_equal(
+        t.a.numpy(), np.swapaxes(np.asarray(gj.transpose.a), -1, -2))
     # gat_block_transpose called alone gives the same tables
     again = port_bsda.gat_block_transpose(dataclasses.replace(gp, transpose=None))
     assert_tables_equal(t, again)
