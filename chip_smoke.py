@@ -24,16 +24,22 @@ Phases (any failure exits non-zero before the result line):
      (1, 2) without, normalize on and off, compared on val = acc / s and
      m + log s; the backward in both gauges against the closed form; two
      runs of the same backward against each other (atomics); the two-sweep
-     backward (destination sweep over the forward tables, source sweep over
-     the transpose tables): each sweep against its plain version, their sum
-     against the one-sweep kernel, two launches of each bit for bit equal;
+     backward (destination sweep over the forward tables, which also
+     writes the grad payload G2, source sweep over the transpose tables):
+     each sweep against its plain version, G2 against grad_payload, their
+     sum against the one-sweep kernel, two launches of each bit for bit
+     equal, grad_payload timed alone; GAT wider than one launch (4, 128)
+     and (1, 600): the four kernels against their plain versions in both
+     gauges, and a training step and eval pass of a GAT of 4 heads of 128
+     through the kernels with both backwards, launch counts read, against
+     its plain version;
      the BSDA and GAT forward kernels on a 700-node graph with a hub chunk
      of thousands of dense edges and an empty chunk, against their plain
-     versions and twice, bit for bit; the one-sweep backward and the source
-     sweep on the same graph with an out-hub (a source of 300 edges, a
-     source chunk whose transpose edge list is taken in several groups),
-     against their plain versions, the source sweep twice bit for bit and
-     the one-sweep backward's d a_dst too;
+     versions and twice, bit for bit; the three backwards on the same graph
+     with an out-hub (a source of 300 edges, a source chunk whose transpose
+     edge list is taken in several groups), against their plain versions,
+     the two sweeps twice bit for bit and the one-sweep backward's d a_dst
+     too;
      one training step of the gat.yaml model through the kernels, with the
      one-sweep and with the two-sweep backward, against its plain version,
      gradients and times; and on a 6,000-node graph with a spill,
@@ -46,7 +52,8 @@ Phases (any failure exits non-zero before the result line):
      and sage.yaml at full width for a few epochs each, with the launch
      counts set to 0 just before and read just after: every epoch must have
      gone through the kernels, losses and scores must be finite, the
-     artifacts and best.ckpt present; predict.predict on the GAT run dir
+     artifacts present and best.ckpt an npz in the JAX package's key layout
+     (read with numpy alone); predict.predict on the GAT run dir
      must reproduce its scores_test.npy; gat.yaml again, twice, with the
      two-sweep backward chosen (EGNN_GAT_ONE_SWEEP=0): only the two sweeps
      may run the backward, the two runs' scores_test.npy must be equal bit
@@ -77,6 +84,7 @@ N_EDGES = 234355
 EPOCHS = 5
 PROFILE_EPOCHS = 3
 TIMING_ITERS = 20
+SPIN_CYCLES = 200_000               # device spin before a timed call, ~0.1 ms
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,        # CUDA-core f32
             "bfloat16": 989e12}      # dense bf16 tensor cores
@@ -115,7 +123,11 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, flush_buf) -> float:
-    """Median CUDA-event time of fn() in ms; L2 flushed before each launch."""
+    """Median CUDA-event time of fn() in ms, device time only: before each
+    call the L2 is flushed and the device held in a spin of SPIN_CYCLES
+    (~0.1 ms), so that the host has queued all of fn()'s work (the
+    wrappers' checks take tens of microseconds of Python) before the start
+    event is reached."""
     import torch
 
     for _ in range(3):
@@ -124,6 +136,7 @@ def cuda_ms(fn, flush_buf) -> float:
     times = []
     for _ in range(TIMING_ITERS):
         flush_buf.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -451,10 +464,11 @@ def gat_kernel_phase(device, flush_buf):
 
 def gat_two_sweep_phase(device, flush_buf, g):
     """The two-sweep backward at the main path's shapes: the destination
-    sweep over the forward tables `g` and the source sweep over g.transpose,
-    each against its plain version on the same G2, their sum against the
-    one-sweep kernel, two launches of each bit for bit; returns the
-    kernel-line entries by name."""
+    sweep over the forward tables `g`, which writes G2, and the source sweep
+    over g.transpose, each against its plain version (the destination
+    sweep's: grad_payload and gat_bwd_dst_plain), G2 against grad_payload,
+    their sum against the one-sweep kernel, two launches of each bit for
+    bit; returns the kernel-line entries by name."""
     import torch
 
     from elliptic_gnn_tpu_torch.kernels import gat_cuda
@@ -492,42 +506,51 @@ def gat_two_sweep_phase(device, flush_buf, g):
         gbar = torch.randn((n_pad, width), generator=gen, device=device)
         for normalized in (True, False):
             out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
-            g2 = grad_payload(gbar, pay, out_k, h, ch, normalized)
 
             def dst():
-                return gat_cuda.gat_bwd_dst_cuda(g, g2, pay, h, ch, 0.2)
+                return gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+
+            def dst_plain():
+                return gat_cuda.gat_bwd_dst_fused_plain(g, gbar, pay, out_k, h, ch, 0.2,
+                                                        normalized)
+
+            (d_dst, g2), (again, g2_again) = dst(), dst()
 
             def src():
                 return gat_cuda.gat_bwd_src_cuda(t, pay, g2, h, ch, 0.2)
 
-            d_dst, d_src = dst(), src()
+            d_src = src()
             torch.cuda.synchronize()
-            want_dst = gat_cuda.gat_bwd_dst_plain(g, g2, pay, h, ch, 0.2)
+            want_dst, want_g2 = dst_plain()
+            g2_ref = grad_payload(gbar, pay, out_k, h, ch, normalized)
             want_src = gat_cuda.gat_bwd_src_plain(t, pay, g2, h, ch, 0.2)
             one = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
             err_dst = float((d_dst - want_dst).abs().max())
+            err_g2 = float((g2 - g2_ref).abs().max())
             err_src = float((d_src - want_src).abs().max())
             err_one = float((d_dst + d_src - one).abs().max())
             own_columns = not bool(d_dst[:, : hc + h].any() or d_src[:, hc + h:].any())
-            same = torch.equal(d_dst, dst()) and torch.equal(d_src, src())
-            ok = (bool(torch.isfinite(d_dst).all() and torch.isfinite(d_src).all())
+            same = (torch.equal(d_dst, again) and torch.equal(g2, g2_again)
+                    and torch.equal(d_src, src()))
+            ok = (bool(torch.isfinite(d_dst).all() and torch.isfinite(d_src).all()
+                       and torch.isfinite(g2).all())
                   and within(d_dst, want_dst, GAT_BWD_TOL)
+                  and within(g2, want_g2, GAT_BWD_TOL) and torch.equal(want_g2, g2_ref)
                   and within(d_src, want_src, GAT_BWD_TOL)
                   and within(d_dst + d_src, one, GAT_BWD_TOL) and own_columns)
             case = f"gat two-sweep[h={h}] normalized={normalized}"
-            log(f"kernel vs plain [{case}]: max_abs dst={err_dst:.3e} src={err_src:.3e}, "
-                f"dst + src vs one-sweep kernel {err_one:.3e} (tol rtol="
-                f"{GAT_BWD_TOL['rtol']:.3g} atol={GAT_BWD_TOL['atol']:.3g}) "
-                f"{'ok' if ok else 'MISMATCH'}; two launches of each "
-                f"{'bit-equal' if same else 'DIFFER'}")
+            log(f"kernel vs plain [{case}]: max_abs d a_dst={err_dst:.3e} G2 vs "
+                f"grad_payload={err_g2:.3e} src={err_src:.3e}, dst + src vs one-sweep "
+                f"kernel {err_one:.3e} (tol rtol={GAT_BWD_TOL['rtol']:.3g} "
+                f"atol={GAT_BWD_TOL['atol']:.3g}) {'ok' if ok else 'MISMATCH'}; two "
+                f"launches of each {'bit-equal' if same else 'DIFFER'}")
             if not ok or not same:
                 failures.append(case)
             if not normalized:
                 continue  # the main path's forward normalizes in the kernel
             times = dict(
                 dst=cuda_ms(dst, flush_buf), src=cuda_ms(src, flush_buf),
-                dst_plain=cuda_ms(lambda: gat_cuda.gat_bwd_dst_plain(
-                    g, g2, pay, h, ch, 0.2), flush_buf),
+                dst_plain=cuda_ms(dst_plain, flush_buf),
                 src_plain=cuda_ms(lambda: gat_cuda.gat_bwd_src_plain(
                     t, pay, g2, h, ch, 0.2), flush_buf),
                 g2=cuda_ms(lambda: grad_payload(gbar, pay, out_k, h, ch, True),
@@ -537,19 +560,23 @@ def gat_two_sweep_phase(device, flush_buf, g):
                 two=cuda_ms(lambda: gat_cuda.gat_bwd_two_sweep(
                     g, gbar, pay, out_k, h, ch, 0.2, True), flush_buf))
             log(f"backward of one layer [h={h}]: one-sweep kernel {times['one']:.4f} ms; "
-                f"two-sweep {times['two']:.4f} ms = grad payload (plain torch) "
-                f"{times['g2']:.4f} + dst {times['dst']:.4f} + src {times['src']:.4f} ms")
-            # columns a sweep must touch: all of G2, the payload's xp and
-            # a_src, and its own output columns
+                f"two-sweep {times['two']:.4f} ms = dst with G2 {times['dst']:.4f} + src "
+                f"{times['src']:.4f} ms; grad_payload alone (plain torch, the work the "
+                f"dst kernel took in) {times['g2']:.4f} ms")
+            # columns the dst sweep must touch: gbar's acc and s, out_k's val,
+            # m and s, the payload's a_dst (own rows) and xp, a_src (streamed),
+            # G2 and d a_dst written
             entries[f"gat_bwd_dst[h={h}]"] = dict(
-                max_abs_err=err_dst, ms=times["dst"], plain_ms=times["dst_plain"],
-                **bound(planes_read["dst"], (hc + 3 * h) + (hc + h) + h,
-                        4.0 * nnz * hc))
+                max_abs_err=max(err_dst, float((g2 - want_g2).abs().max())),
+                ms=times["dst"], plain_ms=times["dst_plain"], grad_payload_ms=times["g2"],
+                **bound(planes_read["dst"],
+                        (hc + h) + (hc + 2 * h) + h + (hc + h) + (hc + 3 * h) + h,
+                        4.0 * nnz * hc + 2.0 * n_pad * hc))
             entries[f"gat_bwd_src[h={h}]"] = dict(
                 max_abs_err=err_src, ms=times["src"], plain_ms=times["src_plain"],
                 **bound(planes_read["src"], (hc + 3 * h) + 2 * (hc + h),
                         6.0 * nnz * hc))
-        del pay, gbar, out_k, g2, d_dst, d_src, want_dst, want_src, one
+        del pay, gbar, out_k, g2, d_dst, d_src, want_dst, want_src, one, again, g2_again
     if failures:
         fail(f"two-sweep GAT backward fails its checks: {failures}")
     for name, e in entries.items():
@@ -560,19 +587,142 @@ def gat_two_sweep_phase(device, flush_buf, g):
     return entries
 
 
+def wide_gat_phase(device, flush_buf, g) -> None:
+    """GAT wider than one launch (h*ch + 2h > 512 columns), on the
+    Elliptic-scale GAT tables `g`: the four kernels at (4, 128) (two launches
+    of two heads) and (1, 600) (two column tiles of one head) against their
+    plain versions in both gauges, the two sweeps twice bit for bit; then a
+    training step and an eval pass of a GAT of 4 heads of 128 through the
+    kernels, with both backwards, launch counts read, against the plain
+    version on the card."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import gat_cuda
+    from elliptic_gnn_tpu_torch.models import build_model
+
+    n_pad = g.num_chunks * g.chunk
+    gen = torch.Generator(device=device).manual_seed(9)
+    failures = []
+    for h, ch in ((4, 128), (1, 600)):
+        width = gat_cuda.payload_width(h, ch)
+        tiles = gat_cuda.width_tiles(h, ch)
+        # inputs of variance sqrt(8 / ch): the head dot xp_j . A_i then has
+        # the variance it has at (4, 8) with unit inputs, so that the f32
+        # rounding of its ch products is held to the same tolerance
+        sd = (8.0 / ch) ** 0.25
+        pay = sd * torch.randn((n_pad, width), generator=gen, device=device)
+        gbar = sd * torch.randn((n_pad, width), generator=gen, device=device)
+        for normalized in (True, False):
+            gat_cuda.reset_launches()
+            out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
+            one = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            d_dst, g2 = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2,
+                                                  normalized)
+            d_src = gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch, 0.2)
+            two = gat_cuda.gat_bwd_two_sweep(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            counts = dict(gat_cuda.launches)
+            same = torch.equal(two, gat_cuda.gat_bwd_two_sweep(
+                g, gbar, pay, out_k, h, ch, 0.2, normalized))
+            torch.cuda.synchronize()
+            n = len(tiles)  # launches a call: fwd, bwd, dst, src, then both sweeps
+            want_counts = {"gat_fwd": 0 if h >= 2 else n, "gat_fwd_gated": n if h >= 2 else 0,
+                           "gat_bwd": n, "gat_bwd_dst": 2 * n, "gat_bwd_src": 2 * n}
+            errs, ok = {}, same and counts == want_counts
+            want = gat_cuda.gat_fwd_plain(g, pay, h, ch, 0.2, normalized)
+            for name, a, b in zip(("val", "m+log s"), gauge_free(out_k, h, ch, normalized),
+                                  gauge_free(want, h, ch, normalized)):
+                errs[name] = float((a - b).abs().max())
+                ok = ok and within(a, b, GAT_FWD_TOL)
+            want = gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            want_dst, want_g2 = gat_cuda.gat_bwd_dst_fused_plain(
+                g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            want_src = gat_cuda.gat_bwd_src_plain(g.transpose, pay, g2, h, ch, 0.2)
+            for name, a, b, tol in (("gat_bwd", one, want, GAT_BWD_TOL),
+                                    ("two-sweep", two, want, GAT_BWD_TOL),
+                                    ("d a_dst", d_dst, want_dst, GAT_BWD_TOL),
+                                    ("G2", g2, want_g2, GAT_BWD_TOL),
+                                    ("src", d_src, want_src, GAT_BWD_TOL)):
+                errs[name] = float((a - b).abs().max())
+                ok = ok and bool(torch.isfinite(a).all()) and within(a, b, tol)
+            case = f"wide GAT (h={h}, ch={ch}, {len(tiles)} launches) normalized={normalized}"
+            log(f"kernels vs plain [{case}]: max_abs " + ", ".join(
+                f"{k}={v:.3e}" for k, v in errs.items())
+                + f" {'ok' if ok else 'MISMATCH'}; launches {counts}; two-sweep twice "
+                f"{'bit-equal' if same else 'DIFFER'}")
+            if not ok:
+                failures.append(case)
+            if normalized:
+                ms = {name: cuda_ms(fn, flush_buf) for name, fn in (
+                    ("fwd", lambda: gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, True)),
+                    ("bwd", lambda: gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2,
+                                                          True)),
+                    ("dst", lambda: gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch,
+                                                              0.2, True)),
+                    ("src", lambda: gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch,
+                                                              0.2)))}
+                log(f"wide GAT (h={h}, ch={ch}) ms, all launches of a call: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in ms.items()))
+        del pay, gbar, out_k, one, d_dst, g2, d_src, two, want, want_dst, want_g2, want_src
+    if failures:
+        fail(f"the GAT kernels disagree with their plain versions past 512 columns: "
+             f"{failures}")
+
+    cfg = {"hidden_dim": 512, "layers": 2, "heads": 4, "dropout": 0.0}
+    x = torch.randn((g.num_nodes, 167), generator=gen, device=device)
+    y = torch.randint(0, 2, (g.num_nodes,), generator=gen, device=device)
+    model = build_model("gat", 167, cfg,
+                        generator=torch.Generator().manual_seed(0)).to(device)
+    results = {}
+    for name, run, two_sweep in (("one-sweep", model, False), ("two-sweep", model, True),
+                                 ("plain", model.forward_plain, False)):
+        with two_sweep_backward() if two_sweep else contextlib.nullcontext():
+            model.train().zero_grad(set_to_none=True)
+            gat_cuda.reset_launches()
+            torch.nn.functional.cross_entropy(run(x, g), y).backward()
+            model.eval()
+            with torch.no_grad():
+                scores = run(x, g)
+            counts = dict(gat_cuda.launches)
+        results[name] = ([p.grad.clone() for p in model.parameters()], scores, counts)
+        log(f"wide GAT model (hidden 512, 4 heads of 128) {name}: training step and eval "
+            f"pass, launches {counts}")
+    bwd = {"one-sweep": ("gat_bwd",), "two-sweep": ("gat_bwd_dst", "gat_bwd_src")}
+    for name, keys in bwd.items():
+        counts = results[name][2]
+        # two launches of the hidden layer and one of the final layer a pass
+        if counts["gat_fwd_gated"] != 4 or counts["gat_fwd"] != 2 or \
+                any(counts[k] != 3 for k in keys):
+            fail(f"the wide GAT model's {name} step did not run through the kernels: "
+                 f"{counts}")
+    if any(results["plain"][2].values()):
+        fail("the plain version of the wide GAT model launched a kernel")
+    grads_p, scores_p, _ = results["plain"]
+    for name in bwd:
+        grads, scores, _ = results[name]
+        err = max(float((a - b).abs().max()) for a, b in zip(grads, grads_p))
+        ok = within(scores, scores_p, GAT_FWD_TOL) and all(
+            within(a, b, GAT_BWD_TOL) for a, b in zip(grads, grads_p))
+        log(f"wide GAT model {name} vs plain version on the card: logits max_abs="
+            f"{float((scores - scores_p).abs().max()):.3e}, parameter gradients max_abs="
+            f"{err:.3e} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"the wide GAT model's {name} step disagrees with its plain version")
+
+
 def hub_phase(device) -> None:
     """The four edge-list kernels on a 700-node graph in which one chunk
     holds thousands of dense edges (several edge lists, many gather batches,
     a row of 300 sources) and one chunk none: against their plain versions,
-    and two launches bit for bit. The backwards on the same graph with the
-    out-hub: the source sweep's transpose list of chunk 1 exceeds one list
-    and its row 9 (300 destinations) several gather batches; the one-sweep
-    backward adds hundreds of edges into that source by atomics."""
+    and two launches bit for bit. The three backwards on the same graph
+    with the out-hub: the source sweep's transpose list of chunk 1 exceeds
+    one list and its row 9 (300 destinations) several gather batches; the
+    one-sweep backward adds hundreds of edges into that source by atomics;
+    the destination sweep walks the hub rows and writes G2, which the
+    source sweep reads."""
     import torch
 
     from elliptic_gnn_tpu_torch.graph.synthetic import hub_edges
     from elliptic_gnn_tpu_torch.kernels import bsda, bsda_spmm_cuda, gat_cuda
-    from elliptic_gnn_tpu_torch.kernels.gat_bwd import grad_payload
 
     n = 700
     ei = hub_edges(n, seed=11)
@@ -634,26 +784,39 @@ def hub_phase(device) -> None:
             out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
             got = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
             again = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
-            g2 = grad_payload(gbar, pay, out_k, h, ch, normalized)
+            dst, g2 = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            dst_again, g2_again = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2,
+                                                            normalized)
             src = gat_cuda.gat_bwd_src_cuda(t, pay, g2, h, ch, 0.2)
             same_src = torch.equal(src, gat_cuda.gat_bwd_src_cuda(t, pay, g2, h, ch, 0.2))
             torch.cuda.synchronize()
             want = gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+            want_dst, want_g2 = gat_cuda.gat_bwd_dst_fused_plain(g, gbar, pay, out_k, h, ch,
+                                                                 0.2, normalized)
             want_src = gat_cuda.gat_bwd_src_plain(t, pay, g2, h, ch, 0.2)
             same_dst = torch.equal(got[:, hc + h:], again[:, hc + h:])
+            same_sweep = torch.equal(dst, dst_again) and torch.equal(g2, g2_again)
             ok = (bool(torch.isfinite(got).all()) and within(got, want, GAT_BWD_TOL)
                   and same_dst)
+            ok_dst = (bool(torch.isfinite(dst).all() and torch.isfinite(g2).all())
+                      and within(dst, want_dst, GAT_BWD_TOL)
+                      and within(g2, want_g2, GAT_BWD_TOL) and same_sweep)
             ok_src = (bool(torch.isfinite(src).all()) and within(src, want_src, GAT_BWD_TOL)
                       and same_src)
             log(f"out-hub graph [h={h} ch={ch} normalized={normalized}]: gat_bwd max_abs="
                 f"{float((got - want).abs().max()):.3e} {'ok' if ok else 'MISMATCH'}, d a_dst "
-                f"of two launches {'bit-equal' if same_dst else 'DIFFER'}; gat_bwd_src "
+                f"of two launches {'bit-equal' if same_dst else 'DIFFER'}; gat_bwd_dst "
+                f"max_abs d a_dst={float((dst - want_dst).abs().max()):.3e} G2="
+                f"{float((g2 - want_g2).abs().max()):.3e} {'ok' if ok_dst else 'MISMATCH'}, "
+                f"two launches {'bit-equal' if same_sweep else 'DIFFER'}; gat_bwd_src "
                 f"max_abs={float((src - want_src).abs().max()):.3e} "
                 f"{'ok' if ok_src else 'MISMATCH'}, two launches "
                 f"{'bit-equal' if same_src else 'DIFFER'} (tol rtol="
                 f"{GAT_BWD_TOL['rtol']:.3g} atol={GAT_BWD_TOL['atol']:.3g})")
             if not ok:
                 failures.append(f"gat_bwd h={h} normalized={normalized}")
+            if not ok_dst:
+                failures.append(f"gat_bwd_dst h={h} normalized={normalized}")
             if not ok_src:
                 failures.append(f"gat_bwd_src h={h} normalized={normalized}")
     if failures:
@@ -909,8 +1072,41 @@ def slice_phase(tmp, processed, config_name, run_name=None):
     log(f"losses {losses}; val PR-AUC {val_pr_auc}; test PR-AUC "
         f"{metrics['pr_auc_illicit']:.4f}, ROC-AUC {metrics['roc_auc']:.4f} "
         f"(random weights, {epochs} epochs)")
+    check_jax_ckpt(outdir, cfg)
     return dict(launches=launches, cfg=cfg, outdir=outdir, losses=losses,
                 val_pr_auc=val_pr_auc, scores=scores)
+
+
+def check_jax_ckpt(outdir, cfg) -> None:
+    """best.ckpt in the JAX package's layout, read with numpy alone: a flat
+    npz whose keys are the '/'-joined paths of the JAX model's params and
+    state (params/layers/<i>/<name>, params/bns/<i>/..., state/bns/<i>/...,
+    params/res_projs/<i>/w, params/time_emb), dense weights [d_in, d_out],
+    BN counts 0-d."""
+    import numpy as np
+
+    with np.load(os.path.join(outdir, "best.ckpt"), allow_pickle=False) as z:
+        shapes = {k: z[k].shape for k in z.files}
+    arch, layers, hidden = cfg["arch"], int(cfg["layers"]), int(cfg["hidden_dim"])
+    per_layer = {"gat": ("w", "a_src", "a_dst", "b"), "gcn": ("w", "b")}.get(
+        arch, ("w_l", "b_l", "w_r"))
+    want = {f"params/layers/{i}/{n}" for i in range(layers) for n in per_layer}
+    optional = set()
+    if arch in ("sage_resbn", "sage_bn", "sage_res"):
+        if cfg.get("use_bn", True):
+            want |= {f"{tree}/bns/{i}/{n}" for i in range(layers - 1)
+                     for tree, names in (("params", ("scale", "bias")),
+                                         ("state", ("mean", "var", "count")))
+                     for n in names}
+        optional = {f"params/res_projs/{i}/w" for i in range(layers - 1)} | {"params/time_emb"}
+    last = shapes.get(f"params/layers/{layers - 1}/{per_layer[0]}", ())
+    ok = (want <= set(shapes) and set(shapes) - want <= optional
+          and len(last) >= 2 and last[0] == hidden and last[-1] == 2
+          and all(shapes[k] == () for k in shapes if k.endswith("/count")))
+    log(f"best.ckpt of {cfg['run_name']}: npz of {len(shapes)} arrays in the JAX layout "
+        f"{'ok' if ok else 'WRONG'} (final layer {per_layer[0]} {last})")
+    if not ok:
+        fail(f"best.ckpt of {cfg['run_name']} is not in the JAX npz layout: {shapes}")
 
 
 def check_rec_k8_launches(launches) -> None:
@@ -1047,6 +1243,7 @@ def drive(device) -> list:
     gat_entries, gat_tables = gat_kernel_phase(device, flush_buf)
     gat_entries.update(gat_two_sweep_phase(device, flush_buf, gat_tables))
     gat_step_times(device, gat_tables, flush_buf)
+    wide_gat_phase(device, flush_buf, gat_tables)
     del flush_buf, gat_tables
     hub_phase(device)
     gat_autograd_check(device)
@@ -1122,6 +1319,9 @@ def drive(device) -> list:
         kernels.append(kernel_row(name, row, count, e, library=False))
         if per_layer:
             kernels[-1].update(second_shape("h1", gat_entries[f"{name}[h=1]"]))
+        if name == "gat_bwd_dst":  # the plain torch step the kernel took in
+            kernels[-1].update(grad_payload_ms=e["grad_payload_ms"],
+                               grad_payload_ms_h1=gat_entries[f"{name}[h=1]"]["grad_payload_ms"])
     if any(k["launches"] <= 0 for k in kernels):
         fail(f"a kernel of the main paths was never launched: {kernels}")
     return kernels

@@ -1,136 +1,340 @@
 // Flash GAT backward, destination sweep, for Hopper (sm_90a): the
 // destination-side half of the two-sweep vector-Jacobian product of
-// gat_fwd.cu's dense part, over the FORWARD tables,
+// gat_fwd.cu's dense part, over the FORWARD tables, with the grad payload
+// G2 that the source sweep (gat_bwd_src.cu) reads built on the way,
 //
 //     e_ij      = mult_ij * exp(lrelu(t_ij) - m_i),  t_ij = a_dst_i + a_src_j
 //     d a_dst_i = sum_j e_ij * lrelu'(t_ij) * (xp_j . A_i + S_i)
+//     G2_i      = [ A_i | S_i | a_dst_i | m_i ]
 //
 // where (A_i, S_i) are the cotangents of (acc_i, s_i) at fixed m_i, in the
-// raw gauge (kernels/gat_bwd.py::grad_payload turns a cotangent of the
-// normalized output into them, once, for both sweeps).
+// raw gauge.
 //
-// in:  g2      [B*128, W2] own rows [ A (h*ch) | S (h) | a_dst (h) | m (h) ],
-//              W2 = h*ch + 3h: m is the forward's, so e is the forward's,
-//      payload [B*128, W] streamed rows: the forward's input
-//              [ xp | a_src | a_dst ], of which xp and a_src are read.
+// in:  gbar    [B*128, W] cotangent of the forward's output (acc columns
+//              and s columns are read; the m columns never are: the shift
+//              is a constant of the backward),
+//      payload [B*128, W] the forward's input [ xp | a_src | a_dst ]: a_dst
+//              of the own rows, xp and a_src of the streamed rows,
+//      out_k   [B*128, W] the forward's output: its m columns give the same
+//              m, and so the same e, as the forward; with `normalized` its
+//              acc columns hold val = acc / s and gbar is the cotangent of
+//              (val, s), turned into (A, S) per row in registers:
+//              A = gbar / s, S = gbar_s - (gbar . val) / s, with
+//              1 / max(s, 1e-16) (kernels/gat_bwd.py::grad_payload).
 // out: ct [B*128, W]: the d a_dst columns (h*ch + h .. h*ch + 2h) of every
-//      row are written; the other columns belong to gat_bwd_src.cu.
+//      row; the other columns belong to gat_bwd_src.cu.
+//      g2 [B*128, W2], W2 = h*ch + 3h: every row [ A | S | a_dst | m ],
+//      rows with no edge too.
 //
-// Replaces elliptic_gnn_tpu/kernels/pallas_gat_bwd.py::_sweep_dst_call. Not
-// carried over: the VMEM ring of payload chunks, the 128-lane padding, the
-// rank-1 separable exponent and the MXU "rowdot" over dense 128x128 blocks.
-// Only the edges are walked (gat_common.cuh) and e is computed per edge.
+// Replaces elliptic_gnn_tpu/kernels/pallas_gat_bwd.py::_sweep_dst_call,
+// and the assembly of its G2 rows in ::flash_gat_backward3. Not carried
+// over: the VMEM ring of payload chunks, the 128-lane padding, the rank-1
+// separable exponent and the MXU "rowdot" over dense 128x128 blocks. Only
+// the edges are walked and e is computed per edge.
 //
-// What bounds it: bytes (planes, g2 and the payload's xp and a_src columns
-// read once, h columns written); per edge 2 h ch multiply-adds and h exps.
+// What bounds it: bytes (planes; gbar's acc and s, out_k's val, m and s,
+// the payload's a_dst and, once per edge list, its xp and a_src read; G2
+// and h columns written); per edge 2 h ch multiply-adds and h exps.
 //
-// Reproducibility: every d a_dst_i is a sum over row i's own edges, kept in
-// registers by the one warp that owns the row and taken in the fixed order
-// of the walk (plane, column, slot); one plain store per head. No atomics:
-// two launches on the same inputs give the same bits.
+// Design (bsda_edges.cuh, as gat_bwd.cu): one block per destination chunk.
+// The block lists the chunk's edges once (with occ only the covered planes
+// are read), then fetches every edge's [ xp | a_src ] segment of the
+// payload into shared memory with cp.async, two buffers deep. A thread
+// group owns a row and a thread CPL runs of V adjacent columns of it (V = 4
+// where ch is a multiple of 4, else 1). At row begin the row reads its
+// a_dst, m, A and S (normalized: val and s too) from global memory, a
+// group's first row while the first batch is in flight, and stores its G2
+// row straight from registers: 16 bytes a run where rows are aligned, else
+// a float at a time. Staging the chunk's G2 rows in shared memory and
+// writing them out as one span of 16-byte stores (the rows are 20 bytes at
+// (h, ch) = (1, 2)) was 3% slower at (1, 2) and 1-8% at (4, 8) on an H100;
+// forming them again after the walk, in the freed gather buffers, 5% slower
+// at (4, 8). Per edge: e and the gate per run, q = xp_j . A_i summed over
+// the head's runs by xor shuffles inside the group where a head's runs are
+// a power of two of lanes (else through a scratch row of the group), and
+// d a_dst_i += e * gate * (q + S) per head.
 //
-// Design (gat_common.cuh): one block per destination chunk, the planes the
-// slot cover occ names staged in shared memory, warp w owns rows
-// 16w..16w+15 and walks each row's nonzero plane words by ballot, lane l
-// owns columns l, l+32, ...; per edge the payload's xp and a_src are read
-// from global memory and the head dot goes through the warp's shared-memory
-// row. Any (h, ch) with h*ch + 2h <= 512.
+// Reproducibility: d a_dst_i is a sum over row i's own edges, kept in
+// registers by the one thread group that owns the row and taken in list
+// order; the head sums (of q, and of gbar . val) are the same in every
+// launch; every output is written once with a plain store. No atomics: two
+// launches on the same inputs give the same bits. Rows whose edges straddle
+// two gather batches (hubs) carry their sums in registers; no rescale, m is
+// the forward's. Any (h, ch) with h*ch + 2h <= 512.
 //
 // Plain C interface, loaded with ctypes (kernels/gat_cuda.py).
 
 #include <math.h>
 
-#include "gat_common.cuh"
+#include "bsda_edges.cuh"
 
 namespace {
 
-using namespace gat;
+using namespace bsda;
 
-template <int CPL>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMaxCols = 512;  // h * ch + 2 h <= 512
+
+__device__ __forceinline__ float lrelu(float t, float slope) {
+  return t >= 0.f ? t : t * slope;
+}
+
+// What the launch fixes for every block.
+struct Plan {
+  int depth, planes, pack, h, ch, normalized;
+  float slope;
+  int vec;       // copy width of the payload gather in bytes (16, 8 or 4)
+  int list_cap;  // edges a list holds
+  int batch;     // edges a gather buffer holds
+  int stride;    // bytes between two edges' segments in a buffer
+  int group;     // threads that share a row
+  int area;      // bytes of the two gather buffers, at least the list's items
+  int runs;      // runs of V columns a head holds
+  int shuffle;   // head sums by xor shuffles (else a scratch row a group)
+  int red;       // bytes of the groups' scratch rows (0 with shuffle)
+  int wide;      // rows of gbar and out_k are 16-byte aligned
+  int wide2;     // rows of g2 are 16-byte aligned
+};
+
+// One destination row: the state of a thread, for its CPL runs.
+template <int CPL, int V>
+struct RowDstVjp {
+  const float* seg;  // this batch's buffer: per edge [ xp | a_src ] of its source
+  const uint32_t* edge;
+  const float* gbar;
+  const float* payload;
+  const float* out_k;
+  float* ct;
+  float* g2_rows;  // the chunk's G2 rows
+  float* red;      // the group's scratch row
+  size_t row0;     // the chunk's first row
+  int stride_f, e0, hc, h, width, width2, normalized, runs, n_runs, c, group;
+  bool shuffle, wide, wide2;
+  unsigned mask;
+  float slope;
+  int col[CPL], head[CPL];
+  bool live[CPL], first[CPL];
+  float abar[CPL][V], sbar[CPL], adst[CPL], m[CPL], dadst[CPL];
+
+  __device__ __forceinline__ void load_run(float (&v)[V], const float* p) const {
+    if constexpr (V == 4) {
+      if (wide) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+        return;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < V; ++u) v[u] = __ldg(p + u);
+  }
+
+  __device__ __forceinline__ void begin(int row) {
+    const size_t base = (row0 + row) * width;
+    float part[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      part[k] = 0.f;
+      dadst[k] = 0.f;
+      if (!live[k]) continue;
+      adst[k] = __ldg(payload + base + hc + h + head[k]);
+      m[k] = __ldg(out_k + base + hc + head[k]);
+      sbar[k] = __ldg(gbar + base + hc + h + head[k]);
+      load_run(abar[k], gbar + base + col[k]);
+      if (normalized) {
+        float val[V];
+        load_run(val, out_k + base + col[k]);
+#pragma unroll
+        for (int u = 0; u < V; ++u) part[k] += abar[k][u] * val[u];
+      }
+    }
+    if (normalized) {
+      head_sums<CPL>(part, shuffle, runs, n_runs, c, group, mask, red);
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        if (!live[k]) continue;
+        const float inv_s = 1.f / fmaxf(__ldg(out_k + base + hc + h + head[k]), 1e-16f);
+#pragma unroll
+        for (int u = 0; u < V; ++u) abar[k][u] *= inv_s;
+        sbar[k] -= part[k] * inv_s;
+      }
+    }
+    // the row's G2: A by runs, the head's first run its three scalars
+    float* o = g2_rows + (size_t)row * width2;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      if (!live[k]) continue;
+      if constexpr (V == 4) {
+        if (wide2) {
+          *reinterpret_cast<float4*>(o + col[k]) =
+              make_float4(abar[k][0], abar[k][1], abar[k][2], abar[k][3]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < V; ++u) o[col[k] + u] = abar[k][u];
+        }
+      } else {
+        o[col[k]] = abar[k][0];
+      }
+      if (first[k]) {
+        o[hc + head[k]] = sbar[k];
+        o[hc + h + head[k]] = adst[k];
+        o[hc + 2 * h + head[k]] = m[k];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void edges(int lo, int hi) {
+    for (int e = lo; e < hi; ++e) {
+      const float* p = seg + (size_t)(e - e0) * stride_f;
+      const float mu = static_cast<float>(edge[e] >> 24);
+      float ev[CPL], q[CPL];
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        ev[k] = q[k] = 0.f;
+        if (!live[k]) continue;
+        const float t = adst[k] + p[hc + head[k]];
+        // the forward's m makes the exponent <= 0; the clamp matches the
+        // plain closed form
+        ev[k] = mu * expf(fminf(lrelu(t, slope) - m[k], 0.f)) * (t >= 0.f ? 1.f : slope);
+        if constexpr (V == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(p + col[k]);
+          q[k] = x.x * abar[k][0] + x.y * abar[k][1] + x.z * abar[k][2] + x.w * abar[k][3];
+        } else {
+          q[k] = p[col[k]] * abar[k][0];
+        }
+      }
+      head_sums<CPL>(q, shuffle, runs, n_runs, c, group, mask, red);
+#pragma unroll
+      for (int k = 0; k < CPL; ++k)
+        if (live[k]) dadst[k] += ev[k] * (q[k] + sbar[k]);
+    }
+  }
+
+  __device__ __forceinline__ void end(int row) {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      if (first[k]) ct[(row0 + row) * width + hc + h + head[k]] = dadst[k];
+  }
+};
+
+template <int CPL, int V>
+__global__ void __launch_bounds__(kThreads, (CPL == 1 ? kMinBlocks : 1))
 gat_bwd_dst_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
                    const int32_t* __restrict__ src_chunk,  // [B, depth]
                    const int32_t* __restrict__ occ,        // [B] or null
-                   const float* __restrict__ g2,           // [B*C, W2]
+                   const float* __restrict__ gbar,         // [B*C, W]
                    const float* __restrict__ payload,      // [B*C, W]
+                   const float* __restrict__ out_k,        // [B*C, W]
                    float* __restrict__ ct,                 // [B*C, W]
-                   int depth, int planes, int pack, int h, int ch, float slope) {
-  extern __shared__ __align__(16) uint32_t planes_sm[];  // n_planes * 16 KB
-  __shared__ int32_t src_sm[kMaxDepth];
-  __shared__ float red_sm[kWarps][CPL * 32];
+                   float* __restrict__ g2,                 // [B*C, W2]
+                   const Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [2 gather buffers, under them the list's items | the groups' scratch
+  // rows | edge list]
+  const size_t buf_bytes = (size_t)pl.batch * pl.stride;
+  unsigned char* bufs = smem;
+  float* red_sm = reinterpret_cast<float*>(smem + pl.area);
+  const EdgeList ed = make_list(smem + pl.area + pl.red, smem, pl.list_cap);
 
   const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int hc = h * ch;
-  const int width = hc + 2 * h;
-  const int width2 = hc + 3 * h;
-  const int n_planes = planes_needed(occ, b, depth, pack);
-  stage_tables(planes_sm, src_sm, a, src_chunk, b, depth, planes, n_planes);
-  float* red = red_sm[warp];
+  const int hc = pl.h * pl.ch;
+  const int width = hc + 2 * pl.h;
+  const int width2 = hc + 3 * pl.h;
+  // slots at and beyond occ[b] are all zero: their planes are not read
+  const int slots = occ != nullptr ? min(occ[b], pl.depth) : pl.depth;
+  const int n_planes = (slots + pl.pack - 1) / pl.pack;
+  const uint32_t* planes_b = reinterpret_cast<const uint32_t*>(
+      a + (size_t)b * pl.planes * (size_t)kPlaneBytes);
+  const ChunkCounts cc = count_rows(planes_b, n_planes, pl.pack,
+                                    src_chunk + (size_t)b * pl.depth, pl.depth, ed);
+  const bool whole = cc.edges <= pl.list_cap;  // the rule: one list for the chunk
+  if (!whole) __syncthreads();                 // a hub chunk: the offsets, for group_end
 
-  int head[CPL];
-  bool live[CPL], first[CPL];
+  const int gid = threadIdx.x / pl.group;
+  const int c = threadIdx.x % pl.group;
+  const int row_step = kThreads / pl.group;
+  const int n_rows = gridDim.x * kChunk;
+
+  RowDstVjp<CPL, V> op;
+  op.edge = ed.edge;
+  op.gbar = gbar;
+  op.payload = payload;
+  op.out_k = out_k;
+  op.ct = ct;
+  op.g2_rows = g2 + (size_t)b * kChunk * width2;
+  op.red = red_sm + gid * CPL * pl.group;
+  op.row0 = (size_t)b * kChunk;
+  op.stride_f = pl.stride / 4;
+  op.hc = hc;
+  op.h = pl.h;
+  op.width = width;
+  op.width2 = width2;
+  op.normalized = pl.normalized;
+  op.runs = pl.runs;
+  op.n_runs = hc / V;
+  op.c = c;
+  op.group = pl.group;
+  op.shuffle = pl.shuffle != 0;
+  op.wide = pl.wide != 0;
+  op.wide2 = pl.wide2 != 0;
+  op.mask = group_mask(pl.group);
+  op.slope = pl.slope;
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
-    const int c = lane + 32 * k;
-    live[k] = c < hc;
-    head[k] = live[k] ? c / ch : 0;
-    first[k] = live[k] && c == head[k] * ch;  // carries the head's scalars
+    op.col[k] = V * (c + pl.group * k);
+    op.live[k] = op.col[k] < hc;
+    op.head[k] = op.live[k] ? op.col[k] / pl.ch : 0;
+    op.first[k] = op.live[k] && op.col[k] == op.head[k] * pl.ch;  // the head's scalars
   }
 
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = warp * kRowsPerWarp + r;
-    const size_t row = (size_t)b * kChunk + i;
-    const float* own = g2 + row * width2;
-    float abar[CPL], sbar[CPL], adst[CPL], m[CPL], dadst[CPL];
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      abar[k] = live[k] ? __ldg(own + lane + 32 * k) : 0.f;
-      sbar[k] = live[k] ? __ldg(own + hc + head[k]) : 0.f;
-      adst[k] = live[k] ? __ldg(own + hc + h + head[k]) : 0.f;
-      m[k] = live[k] ? __ldg(own + hc + 2 * h + head[k]) : 0.f;
-      dadst[k] = 0.f;
+  for (int r0 = 0, r1; r0 < kChunk; r0 = r1) {
+    r1 = whole ? kChunk : group_end(ed.edge_off, r0, pl.list_cap);
+    fill_items(planes_b, n_planes, ed, r0, r1,
+               cc.item_start - (whole ? 0 : ed.item_off[r0]));
+    __syncthreads();
+    const int list0 = ed.edge_off[r0];
+    const int n_edges = ed.edge_off[r1] - list0;
+    expand_items(ed, ed.item_off[r1] - ed.item_off[r0], pl.pack, r0);
+    // edges that fit the two buffers together: one batch in both
+    const int batch = n_edges <= 2 * pl.batch ? 2 * pl.batch : pl.batch;
+    const int n_batches = n_edges > 0 ? (n_edges + batch - 1) / batch : 1;
+
+    auto fetch = [&](int k) {
+      const int e0 = k * batch;
+      gather(pl.vec, bufs + (k & 1) * buf_bytes, pl.stride, payload,
+             (size_t)width * 4, 0, (hc + pl.h) * 4, ed.edge + e0,
+             min(batch, n_edges - e0), n_rows);
+      cp_async_commit();
+    };
+
+    fetch(0);
+    int row = r0 + gid;
+    bool open = row < r1;  // the group's first row is begun while batch 0 flies
+    if (open) op.begin(row);
+    for (int k = 0; k < n_batches; ++k) {
+      cp_async_wait_all();
+      __syncthreads();  // batch k has landed; batch k - 1's buffer is free
+      if (k + 1 < n_batches) fetch(k + 1);
+      op.e0 = k * batch;
+      op.seg = reinterpret_cast<const float*>(bufs + (k & 1) * buf_bytes);
+      walk_rows(op, row, open, row_step, r1, ed.edge_off, list0, op.e0,
+                min(op.e0 + batch, n_edges), k == n_batches - 1);
     }
-    for_each_edge(
-        planes_sm, src_sm, n_planes, pack, i, lane,
-        [&](int src_row, float mult) {
-          const float* p = payload + (size_t)src_row * width;
-          float e_sig[CPL], part[CPL], q[CPL];
-#pragma unroll
-          for (int k = 0; k < CPL; ++k) {
-            e_sig[k] = part[k] = 0.f;
-            if (!live[k]) continue;
-            const float t = adst[k] + __ldg(p + hc + head[k]);
-            // the forward's m makes the exponent <= 0; the clamp matches
-            // the plain closed form
-            e_sig[k] = mult * expf(fminf(lrelu(t, slope) - m[k], 0.f)) *
-                       (t >= 0.f ? 1.f : slope);
-            part[k] = __ldg(p + lane + 32 * k) * abar[k];
-          }
-          head_sum<CPL>(red, part, q, head, live, lane, ch);
-#pragma unroll
-          for (int k = 0; k < CPL; ++k)
-            if (live[k]) dadst[k] += e_sig[k] * (q[k] + sbar[k]);
-        });
-#pragma unroll
-    for (int k = 0; k < CPL; ++k)
-      if (first[k]) ct[row * width + hc + h + head[k]] = dadst[k];
+    __syncthreads();  // the list and the buffers are free for the next group
   }
 }
 
-template <int CPL>
+template <int CPL, int V>
 cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* occ,
-                   const float* g2, const float* payload, float* ct,
-                   int num_chunks, int depth, int planes, int pack, int h, int ch,
-                   float slope, cudaStream_t stream) {
-  const size_t smem = (size_t)planes * kPlaneBytes;
+                   const float* gbar, const float* payload, const float* out_k,
+                   float* ct, float* g2, int num_chunks, Plan pl, cudaStream_t stream) {
+  pl.red = pl.shuffle ? 0 : round_up(kThreads * CPL * 4, 16);
+  const size_t smem = (size_t)pl.area + pl.red + list_bytes(pl.list_cap, pl.depth);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gat_bwd_dst_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gat_bwd_dst_kernel<CPL, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  gat_bwd_dst_kernel<CPL><<<num_chunks, kThreads, smem, stream>>>(
-      a, src_chunk, occ, g2, payload, ct, depth, planes, pack, h, ch, slope);
+  gat_bwd_dst_kernel<CPL, V><<<num_chunks, kThreads, smem, stream>>>(
+      a, src_chunk, occ, gbar, payload, out_k, ct, g2, pl);
   return cudaGetLastError();
 }
 
@@ -140,31 +344,62 @@ extern "C" {
 
 // Returns the cudaError_t of the launch. occ may be null.
 int gat_bwd_dst_launch(const void* a, const void* src_chunk, const void* occ,
-                       const void* g2, const void* payload, void* ct,
-                       int num_chunks, int depth, int planes, int pack, int h,
-                       int ch, float slope, void* stream) {
+                       const void* gbar, const void* payload, const void* out_k,
+                       void* ct, void* g2, int num_chunks, int depth, int planes,
+                       int pack, int h, int ch, float slope, int normalized,
+                       void* stream) {
   const int hc = h * ch;
-  if (num_chunks <= 0 || depth <= 0 || depth > kMaxDepth || h <= 0 || ch <= 0 ||
+  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || depth <= 0 ||
+      depth > kMaxDepth || h <= 0 || ch <= 0 ||
       hc + 2 * h > kMaxCols || (pack != 1 && pack != 2 && pack != 4) ||
       planes * pack < depth)
     return static_cast<int>(cudaErrorInvalidValue);
   const uint8_t* a8 = static_cast<const uint8_t*>(a);
   const int32_t* sc = static_cast<const int32_t*>(src_chunk);
   const int32_t* oc = static_cast<const int32_t*>(occ);
-  const float* g = static_cast<const float*>(g2);
+  const float* gb = static_cast<const float*>(gbar);
   const float* pay = static_cast<const float*>(payload);
+  const float* ok = static_cast<const float*>(out_k);
   float* o = static_cast<float*>(ct);
+  float* g = static_cast<float*>(g2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cpl = (hc + 31) / 32;
+  Plan pl = {};
+  pl.depth = depth;
+  pl.planes = planes;
+  pl.pack = pack;
+  pl.h = h;
+  pl.ch = ch;
+  pl.normalized = normalized;
+  pl.slope = slope;
+  const size_t row_bytes = (size_t)(hc + 2 * h) * 4;
+  pl.vec = copy_width(payload, row_bytes, 16);
+  // whole pieces of the copy width: the last may take in a_dst columns
+  pl.stride = round_up((hc + h) * 4, 16);
+  pl.list_cap = list_cap_for(depth);
+  pl.batch = batch_for(pl.stride);
+  pl.area = buffer_area(pl.batch, pl.stride, pl.list_cap);
+  const int v = ch % 4 == 0 ? 4 : 1;  // adjacent columns a thread holds
+  pl.group = group_size(hc / v);
+  pl.runs = ch / v;
+  pl.shuffle = head_shuffle(pl.runs, pl.group);
+  // 16-byte vector loads of gbar and out_k
+  pl.wide = row_bytes % 16 == 0 && copy_width(gbar, row_bytes, 16) == 16 &&
+            copy_width(out_k, row_bytes, 16) == 16;
+  const size_t row2_bytes = (size_t)(hc + 3 * h) * 4;
+  pl.wide2 = row2_bytes % 16 == 0 && copy_width(g2, 0, 16) == 16;
+  const int cpl = (hc / v + 31) / 32;
   cudaError_t err;
-#define GAT_BWD_DST_CASE(N)                                                     \
-  err = launch<N>(a8, sc, oc, g, pay, o, num_chunks, depth, planes, pack, h, ch, \
-                  slope, s)
-  if (cpl <= 1) GAT_BWD_DST_CASE(1);
-  else if (cpl <= 2) GAT_BWD_DST_CASE(2);
-  else if (cpl <= 4) GAT_BWD_DST_CASE(4);
-  else if (cpl <= 8) GAT_BWD_DST_CASE(8);
-  else GAT_BWD_DST_CASE(16);
+#define GAT_BWD_DST_CASE(N, V) \
+  err = launch<N, V>(a8, sc, oc, gb, pay, ok, o, g, num_chunks, pl, s)
+  if (v == 4) {
+    if (cpl <= 1) GAT_BWD_DST_CASE(1, 4);
+    else if (cpl <= 2) GAT_BWD_DST_CASE(2, 4);
+    else GAT_BWD_DST_CASE(4, 4);
+  } else if (cpl <= 1) GAT_BWD_DST_CASE(1, 1);
+  else if (cpl <= 2) GAT_BWD_DST_CASE(2, 1);
+  else if (cpl <= 4) GAT_BWD_DST_CASE(4, 1);
+  else if (cpl <= 8) GAT_BWD_DST_CASE(8, 1);
+  else GAT_BWD_DST_CASE(16, 1);
 #undef GAT_BWD_DST_CASE
   return static_cast<int>(err);
 }

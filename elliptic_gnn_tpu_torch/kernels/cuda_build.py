@@ -26,7 +26,7 @@ SOURCES: Dict[str, Sequence[str]] = {
     "bsda_spmm": ("bsda_edges.cuh",),
     "gat_fwd": ("bsda_edges.cuh",),
     "gat_bwd": ("bsda_edges.cuh",),
-    "gat_bwd_dst": ("gat_common.cuh",),
+    "gat_bwd_dst": ("bsda_edges.cuh",),
     "gat_bwd_src": ("bsda_edges.cuh",),
 }
 

@@ -17,20 +17,26 @@ is merged outside (kernels/packed_gat.py).
 
 Two backwards compute the same cotangent. `gat_bwd` is one sweep over the
 forward tables that sums the per-source columns with f32 atomics, so their
-last bits vary from run to run. `gat_bwd_two_sweep` builds G2
-(kernels/gat_bwd.py::grad_payload) and runs a destination sweep over the
-forward tables and a source sweep over g.transpose
-(kernels/bsda.py::gat_block_transpose, planes stored transposed): every
-output is summed by the one warp or thread group that owns its row, in a
-fixed order, so two runs give the same bits.
+last bits vary from run to run. `gat_bwd_two_sweep` runs a destination
+sweep over the forward tables, which also writes G2 (the cotangents in the
+raw gauge, kernels/gat_bwd.py::grad_payload), and a source sweep over
+g.transpose (kernels/bsda.py::gat_block_transpose, planes stored
+transposed) that reads it: every output is summed by the one thread group
+that owns its row, in a fixed order, so two runs give the same bits.
 
-gat_fwd.cu, gat_bwd.cu and gat_bwd_src.cu walk per-chunk edge lists
-(csrc/bsda_edges.cuh); each launch fixes its plan (copy width, list size,
-gather batch and stride, thread group) in the C launch function, and the
-wrappers raise where a list cannot fit a block: depth above 256, or more
-shared memory than a block has, or more than 2^24 rows. gat_bwd_dst.cu
-stages the planes in shared memory (csrc/gat_common.cuh): depth 64 at
-most.
+The four kernels walk per-chunk edge lists (csrc/bsda_edges.cuh); each
+launch fixes its plan (copy width, list size, gather batch and stride,
+thread group) in the C launch function, and the wrappers raise where a list
+cannot fit a block: depth above 256, or more shared memory than a block
+has, or more than 2^24 rows. A launch takes packed rows of at most
+MAX_WIDTH columns; wider (h, ch) are split into launches by `width_tiles`
+(heads are independent): groups of whole heads, or for a head with ch + 2
+> MAX_WIDTH, column tiles of it, which share its a_src and a_dst. The
+backwards run column tiles in the raw gauge, A_bar and S_bar taken once
+from the whole row (grad_payload), with S_bar on a head's first tile only,
+and add the tiles' d a_src and d a_dst in tile order (the head dot
+xp_j . A_i spans the tiles). The `*_tiled` functions take the launch
+as an argument, so that the plain versions can drive them too.
 
 `gat_fwd`, `gat_bwd` and `gat_bwd_two_sweep` launch the kernels for CUDA
 tensors and use the plain PyTorch versions for CPU tensors, and for
@@ -49,7 +55,7 @@ an upper bound): compare acc / s and m + log s, never m or s alone.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -60,15 +66,11 @@ from .bsda_spmm_cuda import MAX_ROWS, kernel_table
 from .gat_bwd import dense_bwd_head, grad_payload, sweep_dst_head, sweep_src_head
 
 SOURCES = ("gat_fwd", "gat_bwd", "gat_bwd_dst", "gat_bwd_src")  # csrc/<name>.cu
-MAX_WIDTH = 512   # h*ch + 2h, as the TPU package's flash_eligible
+MAX_WIDTH = 512   # h*ch + 2h of one launch, as the TPU package's flash_eligible
 MAX_SMEM = 232448  # a block's shared memory on sm_90
-# gat_bwd_dst.cu (csrc/gat_common.cuh): the src_chunk row and the planes
-# staged, beside at most 20 KB of static shared memory
-STAGED_MAX_DEPTH = 64
-PLANE_BYTES = 128 * 128
-# the edge-list kernels (csrc/bsda_edges.cuh): an item keeps its plane in 8
-# bits; a list holds max(128 * depth, 2048) edges of 4 bytes and as many
-# 8-byte items, beside two 20 KB gather buffers, the offsets and src_chunk
+# an item keeps its plane in 8 bits; a list holds max(128 * depth, 2048)
+# edges of 4 bytes and as many 8-byte items, beside two 20 KB gather
+# buffers, the offsets and src_chunk (csrc/bsda_edges.cuh)
 LIST_MAX_DEPTH = 256
 HEAD_SUM_BYTES = 256 * 16 * 4  # the backwards' head-sum rows, at most
 
@@ -97,7 +99,7 @@ def _load(name: str) -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # tables and tensors; six sizes; slope; (normalize;) stream
         tensors, flag = {"gat_fwd": (5, [i]), "gat_bwd": (7, [i]),
-                         "gat_bwd_dst": (6, []), "gat_bwd_src": (6, [])}[name]
+                         "gat_bwd_dst": (8, [i]), "gat_bwd_src": (6, [])}[name]
         launch = getattr(lib, f"{name}_launch")
         launch.argtypes = [p] * tensors + [i] * 6 + [f] + flag + [p]
         launch.restype = ctypes.c_int
@@ -116,28 +118,21 @@ def _edge_list_smem(depth: int, extra: int) -> int:
     return max(2 * 20480, 8 * cap) + extra + 4 * cap + 4 * (2 * 129 + 18 + depth + 3)
 
 
-def _check(g: BsdaGraph, h: int, ch: int, staged: bool = False, extra: int = 0,
-           **tensors: torch.Tensor):
-    """Validate what the kernels read; returns (A bytes, planes, pack).
+def _check(g: BsdaGraph, h: int, ch: int, extra: int = 0, **tensors: torch.Tensor):
+    """Validate what one launch reads; returns (A bytes, planes, pack).
     Every tensor is [N_pad, W] but the one named g2, [N_pad, h*ch + 3h].
-    `staged`: gat_bwd_dst.cu's limits (planes staged in shared memory),
-    else the edge list's, with `extra` bytes of shared memory of the
-    kernel's own."""
+    `extra`: bytes of shared memory of the kernel's own, beside the edge
+    list's."""
     width = payload_width(h, ch)
     if h < 1 or ch < 1 or width > MAX_WIDTH:
-        raise ValueError(f"(h, ch) = ({h}, {ch}): need h*ch + 2h <= {MAX_WIDTH}")
+        raise ValueError(f"(h, ch) = ({h}, {ch}): a launch takes h*ch + 2h <= {MAX_WIDTH}")
     if g.chunk != 128:
         raise ValueError(f"the kernels are built for 128-row chunks, not {g.chunk}")
     a, planes, pack = kernel_table(g)
     if g.num_chunks * g.chunk > MAX_ROWS:
         raise ValueError(f"{g.num_chunks * g.chunk} rows: the kernels' edge "
                          f"lists take {MAX_ROWS}")
-    if staged and (g.depth > STAGED_MAX_DEPTH
-                   or planes * PLANE_BYTES > MAX_SMEM - 20 * 1024):
-        raise ValueError(f"depth {g.depth} in {planes} planes does not fit a "
-                         "block's shared memory")
-    if not staged and (g.depth > LIST_MAX_DEPTH
-                       or _edge_list_smem(g.depth, extra) > MAX_SMEM):
+    if g.depth > LIST_MAX_DEPTH or _edge_list_smem(g.depth, extra) > MAX_SMEM:
         raise ValueError(f"depth {g.depth}: one row's edge list does not fit a "
                          "block's shared memory")
     first = next(iter(tensors.values()))
@@ -164,22 +159,74 @@ def _check(g: BsdaGraph, h: int, ch: int, staged: bool = False, extra: int = 0,
     return a, planes, pack
 
 
-def _launch_sweep(name: str, g: BsdaGraph, first: torch.Tensor,
-                  second: torch.Tensor, ct: torch.Tensor, tables, h: int,
-                  ch: int, negative_slope: float) -> None:
-    """Launch one of the two sweeps over g's tables (a, planes, pack)."""
-    a, planes, pack = tables
+def _run(name: str, device: torch.device, *args, counted: Optional[str] = None) -> None:
+    """Calls csrc/<name>.cu's <name>_launch(*args, stream) on `device`'s
+    current stream and counts the launch under `counted` (default `name`)."""
     lib = _load(name)
-    with torch.cuda.device(ct.device):
+    with torch.cuda.device(device):
         rc = getattr(lib, f"{name}_launch")(
-            a.data_ptr(), g.src_chunk.data_ptr(), g.slot_occ.data_ptr(),
-            first.data_ptr(), second.data_ptr(), ct.data_ptr(), g.num_chunks,
-            g.depth, planes, pack, h, ch, float(negative_slope),
-            torch.cuda.current_stream(ct.device).cuda_stream)
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         err = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} launch failed: {err}")
-    launches[name] += 1
+    launches[counted or name] += 1
+
+
+def _tables(g: BsdaGraph, planes: int, pack: int, h: int, ch: int):
+    return (g.num_chunks, g.depth, planes, pack, h, ch)
+
+
+def _fwd_launch(g: BsdaGraph, payload: torch.Tensor, h: int, ch: int,
+                negative_slope: float, normalize: bool, gated: bool) -> torch.Tensor:
+    a, planes, pack = _check(g, h, ch, extra=128 * 4 * h, payload=payload)
+    out = torch.empty_like(payload)
+    _run("gat_fwd", payload.device,
+         a.data_ptr(), g.src_chunk.data_ptr(), g.slot_occ.data_ptr() if gated else None,
+         payload.data_ptr(), out.data_ptr(), *_tables(g, planes, pack, h, ch),
+         float(negative_slope), int(bool(normalize)),
+         counted="gat_fwd_gated" if gated else "gat_fwd")
+    return out
+
+
+def _bwd_launch(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
+                out_k: torch.Tensor, h: int, ch: int, negative_slope: float,
+                normalized: bool) -> torch.Tensor:
+    a, planes, pack = _check(g, h, ch, extra=HEAD_SUM_BYTES, gbar=gbar,
+                             payload=payload, out_k=out_k)
+    ct = torch.zeros_like(payload)
+    _run("gat_bwd", payload.device,
+         a.data_ptr(), g.src_chunk.data_ptr(), g.slot_occ.data_ptr(),
+         gbar.data_ptr(), payload.data_ptr(), out_k.data_ptr(), ct.data_ptr(),
+         *_tables(g, planes, pack, h, ch), float(negative_slope), int(bool(normalized)))
+    return ct
+
+
+def _dst_launch(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
+                out_k: torch.Tensor, h: int, ch: int, negative_slope: float,
+                normalized: bool, ct: Optional[torch.Tensor] = None):
+    ct = torch.zeros_like(payload) if ct is None else ct
+    g2 = payload.new_empty((payload.shape[0], g2_width(h, ch)))
+    a, planes, pack = _check(g, h, ch, extra=HEAD_SUM_BYTES, gbar=gbar, payload=payload,
+                             out_k=out_k, ct=ct, g2=g2)
+    _run("gat_bwd_dst", payload.device,
+         a.data_ptr(), g.src_chunk.data_ptr(), g.slot_occ.data_ptr(),
+         gbar.data_ptr(), payload.data_ptr(), out_k.data_ptr(), ct.data_ptr(),
+         g2.data_ptr(), *_tables(g, planes, pack, h, ch), float(negative_slope),
+         int(bool(normalized)))
+    return ct, g2
+
+
+def _src_launch(g_t: BsdaGraph, payload: torch.Tensor, g2: torch.Tensor, h: int,
+                ch: int, negative_slope: float,
+                ct: Optional[torch.Tensor] = None) -> torch.Tensor:
+    ct = torch.zeros_like(payload) if ct is None else ct
+    a, planes, pack = _check(g_t, h, ch, extra=HEAD_SUM_BYTES, payload=payload,
+                             g2=g2, ct=ct)
+    _run("gat_bwd_src", payload.device,
+         a.data_ptr(), g_t.src_chunk.data_ptr(), g_t.slot_occ.data_ptr(),
+         payload.data_ptr(), g2.data_ptr(), ct.data_ptr(),
+         *_tables(g_t, planes, pack, h, ch), float(negative_slope))
+    return ct
 
 
 def gat_fwd_cuda(g: BsdaGraph, payload: torch.Tensor, h: int, ch: int,
@@ -188,22 +235,10 @@ def gat_fwd_cuda(g: BsdaGraph, payload: torch.Tensor, h: int, ch: int,
     """The forward kernel: payload [N_pad, W] -> [ acc | m | s ] (acc / s
     in the acc columns with `normalize`). `gated` passes the slot cover
     occ; None means the TPU package's rule, heads >= 2."""
-    a, planes, pack = _check(g, h, ch, extra=128 * 4 * h, payload=payload)
     gated = h >= 2 if gated is None else gated
-    out = torch.empty_like(payload)
-    lib = _load("gat_fwd")
-    with torch.cuda.device(payload.device):
-        rc = lib.gat_fwd_launch(
-            a.data_ptr(), g.src_chunk.data_ptr(),
-            g.slot_occ.data_ptr() if gated else None, payload.data_ptr(),
-            out.data_ptr(), g.num_chunks, g.depth, planes, pack, h, ch,
-            float(negative_slope), int(bool(normalize)),
-            torch.cuda.current_stream(payload.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"gat_fwd launch failed: {lib.gat_fwd_error_string(rc).decode()}")
-    launches["gat_fwd_gated" if gated else "gat_fwd"] += 1
-    return out
+    return gat_fwd_tiled(
+        lambda p, hh, cc, nm: _fwd_launch(g, p, hh, cc, negative_slope, nm, gated),
+        payload, h, ch, normalize)
 
 
 def gat_bwd_cuda(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
@@ -213,35 +248,23 @@ def gat_bwd_cuda(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
     `out_k` = gat_fwd(payload, normalize=normalized) -> cotangent of the
     payload [ d xp | d a_src | d a_dst ]. The per-source columns are summed
     with f32 atomics: their last bits vary from run to run."""
-    a, planes, pack = _check(g, h, ch, extra=HEAD_SUM_BYTES, gbar=gbar,
-                             payload=payload, out_k=out_k)
-    ct = torch.zeros_like(payload)
-    lib = _load("gat_bwd")
-    with torch.cuda.device(payload.device):
-        rc = lib.gat_bwd_launch(
-            a.data_ptr(), g.src_chunk.data_ptr(), g.slot_occ.data_ptr(),
-            gbar.data_ptr(), payload.data_ptr(), out_k.data_ptr(), ct.data_ptr(),
-            g.num_chunks, g.depth, planes, pack, h, ch, float(negative_slope),
-            int(bool(normalized)),
-            torch.cuda.current_stream(payload.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"gat_bwd launch failed: {lib.gat_bwd_error_string(rc).decode()}")
-    launches["gat_bwd"] += 1
-    return ct
+    return gat_bwd_tiled(
+        lambda gb, p, o, hh, cc, nm: _bwd_launch(g, gb, p, o, hh, cc, negative_slope, nm),
+        gbar, payload, out_k, h, ch, normalized)
 
 
-def gat_bwd_dst_cuda(g: BsdaGraph, g2: torch.Tensor, payload: torch.Tensor,
-                     h: int, ch: int, negative_slope: float,
-                     ct: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The destination sweep over the forward tables `g`: grad payload `g2`
-    (own rows) and the forward's `payload` (streamed rows) -> the d a_dst
-    columns of the payload's cotangent, written into `ct` [N_pad, W] (a
-    zeroed one when None; its other columns are left as they are)."""
-    ct = torch.zeros_like(payload) if ct is None else ct
-    tables = _check(g, h, ch, staged=True, g2=g2, payload=payload, ct=ct)
-    _launch_sweep("gat_bwd_dst", g, g2, payload, ct, tables, h, ch, negative_slope)
-    return ct
+def gat_bwd_dst_cuda(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
+                     out_k: torch.Tensor, h: int, ch: int, negative_slope: float,
+                     normalized: bool, ct: Optional[torch.Tensor] = None):
+    """The destination sweep over the forward tables `g`, grad payload
+    included: the forward's `payload` and output `out_k`, and the cotangent
+    `gbar` of that output -> (ct, g2): the d a_dst columns of the payload's
+    cotangent written into `ct` [N_pad, W] (a zeroed one when None; its
+    other columns are left as they are), and G2 [N_pad, h*ch + 3h]."""
+    return gat_bwd_dst_tiled(
+        lambda gb, p, o, hh, cc, nm, c: _dst_launch(g, gb, p, o, hh, cc,
+                                                    negative_slope, nm, c),
+        gbar, payload, out_k, h, ch, normalized, ct)
 
 
 def gat_bwd_src_cuda(g_t: BsdaGraph, payload: torch.Tensor, g2: torch.Tensor,
@@ -252,9 +275,169 @@ def gat_bwd_src_cuda(g_t: BsdaGraph, payload: torch.Tensor, g2: torch.Tensor,
     and d a_src columns of the payload's cotangent, written into `ct`
     [N_pad, W] (a zeroed one when None; its d a_dst columns are left as
     they are)."""
+    return gat_bwd_src_tiled(
+        lambda p, g2_, hh, cc, c: _src_launch(g_t, p, g2_, hh, cc, negative_slope, c),
+        payload, g2, h, ch, ct)
+
+
+# ---------------- launches of packed rows wider than MAX_WIDTH ----------------
+
+Tile = Tuple[int, int, int, int]  # (first head, heads, first column in a head, columns)
+
+
+def width_tiles(h: int, ch: int, max_width: int = MAX_WIDTH) -> List[Tile]:
+    """The launches that cover (h, ch) in packed rows of at most
+    `max_width` columns: all heads at once where they fit; else groups of
+    whole heads, as even as they go; else, for a head with ch + 2 >
+    max_width, column tiles of every head, as even as they go and in whole
+    runs of 4 columns where ch allows (the kernels' 16-byte path)."""
+    if payload_width(h, ch) <= max_width:
+        return [(0, h, 0, ch)]
+    per = max_width // (ch + 2)
+    if per >= 1:
+        n = -(-h // per)
+        size = -(-h // n)
+        return [(k0, min(size, h - k0), 0, ch) for k0 in range(0, h, size)]
+    cap = max_width - 2
+    if cap < 1:
+        raise ValueError(f"no tile of one column fits {max_width} columns")
+    runs4 = ch % 4 == 0 and cap >= 4
+    if runs4:
+        cap -= cap % 4
+    n = -(-ch // cap)
+    size = -(-ch // n)
+    if runs4:
+        size = -(-size // 4) * 4
+    return [(k, 1, c0, min(size, ch - c0)) for k in range(h) for c0 in range(0, ch, size)]
+
+
+def _tile_index(h: int, ch: int, tile: Tile, blocks: int, device) -> torch.Tensor:
+    """Columns of packed rows [ h*ch | `blocks` blocks of h ] that a tile's
+    packed rows [ K*C | `blocks` blocks of K ] take, in their order."""
+    k0, k, c0, c = tile
+    heads = torch.arange(k0, k0 + k, device=device)
+    cols = (heads[:, None] * ch + c0 + torch.arange(c, device=device)[None, :]).reshape(-1)
+    return torch.cat([cols] + [h * ch + j * h + heads for j in range(blocks)])
+
+
+def _check_width(h: int, ch: int, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        width = g2_width(h, ch) if name == "g2" else payload_width(h, ch)
+        if t.dim() != 2 or t.shape[1] != width:
+            raise ValueError(f"{name} must be [N_pad, {width}] at (h, ch) = ({h}, {ch}), "
+                             f"got {tuple(t.shape)}")
+
+
+def _raw_gauge(tiles: List[Tile], gbar, payload, out_k, h, ch, normalized):
+    """Column tiles of a head need the head's (A_bar, S_bar) from the whole
+    row: for them a cotangent in the raw gauge [ A_bar | 0 | S_bar ], and
+    normalized False; whole heads keep theirs."""
+    if tiles[0][3] == ch:
+        return gbar, normalized
+    hc = h * ch
+    g2 = grad_payload(gbar, payload, out_k, h, ch, normalized)
+    return torch.cat([g2[:, :hc], torch.zeros_like(g2[:, hc: hc + h]),
+                      g2[:, hc: hc + h]], dim=1), False
+
+
+def _first_tile_only(sub: torch.Tensor, tile: Tile, column: int) -> torch.Tensor:
+    """S_bar (the K columns from `column` on) to a head's first column tile
+    only: the term S_i of q + S_i is the head's, not the tile's."""
+    if tile[2] > 0:
+        sub[:, column: column + tile[1]] = 0.0
+    return sub
+
+
+def gat_fwd_tiled(launch: Callable, payload: torch.Tensor, h: int, ch: int,
+                  normalize: bool, max_width: int = MAX_WIDTH) -> torch.Tensor:
+    """The forward in launches of at most `max_width` columns;
+    launch(payload, h, ch, normalize) runs one. Column tiles of a head give
+    the same m and s (they depend on a_src and a_dst only)."""
+    tiles = width_tiles(h, ch, max_width)
+    if len(tiles) == 1:
+        return launch(payload, h, ch, normalize)
+    _check_width(h, ch, payload=payload)
+    out = torch.empty_like(payload)
+    for tile in tiles:
+        idx = _tile_index(h, ch, tile, 2, payload.device)
+        out[:, idx] = launch(payload[:, idx], tile[1], tile[3], normalize)
+    return out
+
+
+def gat_bwd_tiled(launch: Callable, gbar: torch.Tensor, payload: torch.Tensor,
+                  out_k: torch.Tensor, h: int, ch: int, normalized: bool,
+                  max_width: int = MAX_WIDTH) -> torch.Tensor:
+    """The one-sweep backward in launches of at most `max_width` columns;
+    launch(gbar, payload, out_k, h, ch, normalized) runs one. d a_src and
+    d a_dst of a head's column tiles are added in tile order."""
+    tiles = width_tiles(h, ch, max_width)
+    if len(tiles) == 1:
+        return launch(gbar, payload, out_k, h, ch, normalized)
+    _check_width(h, ch, gbar=gbar, payload=payload, out_k=out_k)
+    gbar, normalized = _raw_gauge(tiles, gbar, payload, out_k, h, ch, normalized)
+    ct = torch.zeros_like(payload)
+    for tile in tiles:
+        idx = _tile_index(h, ch, tile, 2, payload.device)
+        kc = tile[1] * tile[3]
+        part = launch(_first_tile_only(gbar[:, idx], tile, kc + tile[1]), payload[:, idx],
+                      out_k[:, idx], tile[1], tile[3], normalized)
+        ct[:, idx[:kc]] = part[:, :kc]
+        ct[:, idx[kc:]] += part[:, kc:]
+    return ct
+
+
+def gat_bwd_dst_tiled(launch: Callable, gbar: torch.Tensor, payload: torch.Tensor,
+                      out_k: torch.Tensor, h: int, ch: int, normalized: bool,
+                      ct: Optional[torch.Tensor] = None, max_width: int = MAX_WIDTH):
+    """The destination sweep in launches of at most `max_width` columns;
+    launch(gbar, payload, out_k, h, ch, normalized, ct) runs one and
+    returns (ct, g2). A head's column tiles add their d a_dst in tile order;
+    G2 takes S_bar from the head's first tile."""
+    tiles = width_tiles(h, ch, max_width)
+    if len(tiles) == 1:
+        return launch(gbar, payload, out_k, h, ch, normalized, ct)
+    _check_width(h, ch, gbar=gbar, payload=payload, out_k=out_k)
     ct = torch.zeros_like(payload) if ct is None else ct
-    tables = _check(g_t, h, ch, extra=HEAD_SUM_BYTES, payload=payload, g2=g2, ct=ct)
-    _launch_sweep("gat_bwd_src", g_t, payload, g2, ct, tables, h, ch, negative_slope)
+    gbar, normalized = _raw_gauge(tiles, gbar, payload, out_k, h, ch, normalized)
+    hc = h * ch
+    dadst = payload.new_zeros((payload.shape[0], h))
+    g2 = payload.new_zeros((payload.shape[0], g2_width(h, ch)))
+    for tile in tiles:
+        k0, k, _, c = tile
+        idx = _tile_index(h, ch, tile, 2, payload.device)
+        part, g2_t = launch(_first_tile_only(gbar[:, idx], tile, k * c + k),
+                            payload[:, idx], out_k[:, idx], k, c, normalized, None)
+        dadst[:, k0: k0 + k] += part[:, k * c + k:]
+        idx2 = _tile_index(h, ch, tile, 3, payload.device)
+        g2[:, idx2[: k * c]] = g2_t[:, : k * c]
+        g2[:, idx2[k * c: k * c + k]] += g2_t[:, k * c: k * c + k]
+        g2[:, idx2[k * c + k:]] = g2_t[:, k * c + k:]
+    ct[:, hc + h:] = dadst
+    return ct, g2
+
+
+def gat_bwd_src_tiled(launch: Callable, payload: torch.Tensor, g2: torch.Tensor,
+                      h: int, ch: int, ct: Optional[torch.Tensor] = None,
+                      max_width: int = MAX_WIDTH) -> torch.Tensor:
+    """The source sweep in launches of at most `max_width` columns;
+    launch(payload, g2, h, ch, ct) runs one. A head's column tiles see its
+    S_bar in the first tile only and add their d a_src in tile order."""
+    tiles = width_tiles(h, ch, max_width)
+    if len(tiles) == 1:
+        return launch(payload, g2, h, ch, ct)
+    _check_width(h, ch, payload=payload, g2=g2)
+    ct = torch.zeros_like(payload) if ct is None else ct
+    hc = h * ch
+    dasrc = payload.new_zeros((payload.shape[0], h))
+    for tile in tiles:
+        k0, k, _, c = tile
+        idx = _tile_index(h, ch, tile, 2, payload.device)
+        idx2 = _tile_index(h, ch, tile, 3, payload.device)
+        part = launch(payload[:, idx], _first_tile_only(g2[:, idx2], tile, k * c),
+                      k, c, None)
+        ct[:, idx[: k * c]] = part[:, : k * c]
+        dasrc[:, k0: k0 + k] += part[:, k * c: k * c + k]
+    ct[:, hc: hc + h] = dasrc
     return ct
 
 
@@ -324,6 +507,15 @@ def gat_bwd_dst_plain(g: BsdaGraph, g2: torch.Tensor, payload: torch.Tensor,
     return ct
 
 
+def gat_bwd_dst_fused_plain(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
+                            out_k: torch.Tensor, h: int, ch: int, negative_slope: float,
+                            normalized: bool):
+    """Plain version of the destination-sweep kernel, grad payload
+    included: (gat_bwd_dst_plain over grad_payload's G2, that G2)."""
+    g2 = grad_payload(gbar, payload, out_k, h, ch, normalized)
+    return gat_bwd_dst_plain(g, g2, payload, h, ch, negative_slope), g2
+
+
 def gat_bwd_src_plain(g_t: BsdaGraph, payload: torch.Tensor, g2: torch.Tensor,
                       h: int, ch: int, negative_slope: float) -> torch.Tensor:
     """Plain version of the source sweep: kernels/gat_bwd.py's
@@ -363,20 +555,20 @@ def gat_bwd(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
 def gat_bwd_two_sweep(g: BsdaGraph, gbar: torch.Tensor, payload: torch.Tensor,
                       out_k: torch.Tensor, h: int, ch: int, negative_slope: float,
                       normalized: bool) -> torch.Tensor:
-    """The same cotangent as gat_bwd, bit-reproducible: G2 from
-    grad_payload, then the destination sweep over g and the source sweep
-    over g.transpose, each writing its own columns. The kernels for CUDA
-    tensors, the plain versions for CPU ones; without transpose tables it
-    raises."""
+    """The same cotangent as gat_bwd, bit-reproducible: the destination
+    sweep over g, which writes G2, then the source sweep over g.transpose,
+    each writing its own columns. The kernels for CUDA tensors, the plain
+    versions (grad_payload and the two sweeps) for CPU ones; without
+    transpose tables it raises."""
     if g.transpose is None:
         raise ValueError(
             "the two-sweep GAT backward needs the transpose tables: build the "
             "graph with build_bsda_for_kind(..., 'gat', transpose=True)")
-    g2 = grad_payload(gbar, payload, out_k, h, ch, normalized)
     if payload.is_cuda:
         ct = torch.empty_like(payload)  # the sweeps write every column
-        gat_bwd_dst_cuda(g, g2, payload, h, ch, negative_slope, ct=ct)
-        return gat_bwd_src_cuda(g.transpose, payload, g2, h, ch, negative_slope,
-                                ct=ct)
-    return (gat_bwd_dst_plain(g, g2, payload, h, ch, negative_slope)
-            + gat_bwd_src_plain(g.transpose, payload, g2, h, ch, negative_slope))
+        ct, g2 = gat_bwd_dst_cuda(g, gbar, payload, out_k, h, ch, negative_slope,
+                                  normalized, ct=ct)
+        return gat_bwd_src_cuda(g.transpose, payload, g2, h, ch, negative_slope, ct=ct)
+    ct, g2 = gat_bwd_dst_fused_plain(g, gbar, payload, out_k, h, ch, negative_slope,
+                                     normalized)
+    return ct + gat_bwd_src_plain(g.transpose, payload, g2, h, ch, negative_slope)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """A/B of the port's edge-list kernels (bsda_spmm, gat_fwd, gat_bwd,
-gat_bwd_src) on one NVIDIA GPU: the sources in this checkout against those
-of another checkout, in one process, at the launch shapes of the configs
-(chip_smoke.py's tables).
+gat_bwd_src) and of the two-sweep GAT backward as one unit (gat_two_sweep:
+the destination and the source sweep) on one NVIDIA GPU: the sources in
+this checkout against those of another checkout, in one process, at the
+launch shapes of the configs (chip_smoke.py's tables).
 
     python3 -m elliptic_gnn_tpu_torch.kernels.kernel_ab --parent DIR \
         [--only NAME,...] [--shares] [--set NAME:CONSTANT=VALUE,... ...]
@@ -18,7 +19,12 @@ to the named kernels.
 
 The GAT source sweep reads the transpose tables; a source that walks them
 by columns (the design before csrc/bsda_edges.cuh) is given the planes
-untransposed, as it was built for.
+untransposed, as it was built for. A destination sweep that reads a G2
+built beforehand (the design before it wrote G2 itself) is run as it was:
+kernels/gat_bwd.py::grad_payload in plain torch, then that sweep, then the
+source sweep; the unit compares the whole backward of one layer, and also
+times each side's destination sweep alone (the two compute different
+things: the older one without G2).
 
 --shares also times copies of both checkouts' sources with parts taken out
 (text substitutions, below, chosen by each source's design), to show where
@@ -46,6 +52,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OUT = os.path.join(HERE, "build", "torch_ab")
 KERNELS = ("bsda_spmm", "gat_fwd", "gat_bwd", "gat_bwd_src")
+UNITS = {"gat_two_sweep": ("gat_bwd_dst", "gat_bwd_src")}  # unit: the libraries it runs
 
 # parts taken out of a kernel: (source, variant, [(old, new)]); STAGED_CUTS
 # for the sources that stage the planes in shared memory and walk them by
@@ -97,6 +104,8 @@ EDGE_LIST_CUTS = [
      [("      if (len > kLongRow)", "      if (pl.h < 0 && len > kLongRow)")]),
     ("gat_bwd_src", "long_16", [("constexpr int kLongRow = 32;", "constexpr int kLongRow = 16;")]),
     ("gat_bwd_src", "long_64", [("constexpr int kLongRow = 32;", "constexpr int kLongRow = 64;")]),
+    ("gat_bwd_dst", "list_only", _GAT_LIST_ONLY),
+    ("gat_bwd_dst", "no_walk", _GAT_NO_WALK),
 ]
 
 
@@ -104,6 +113,37 @@ def on_edge_list(path: str) -> bool:
     """Whether the source at `path` walks bsda_edges.cuh's edge lists."""
     with open(path) as fh:
         return '#include "bsda_edges.cuh"' in fh.read()
+
+
+def writes_g2(path: str) -> bool:
+    """Whether the destination sweep at `path` builds G2 itself (it reads
+    gbar) or reads one built beforehand."""
+    with open(path) as fh:
+        return "gbar" in fh.read()
+
+
+def g2_reading_dst(lib_path: str):
+    """The launch of a destination sweep that reads a prebuilt G2:
+    (g, g2, payload, ct, h, ch) -> None, d a_dst written into ct."""
+    import torch
+
+    from .bsda_spmm_cuda import kernel_table
+
+    lib = ctypes.CDLL(lib_path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gat_bwd_dst_launch.argtypes = [p] * 6 + [i] * 6 + [ctypes.c_float, p]
+    lib.gat_bwd_dst_launch.restype = i
+
+    def run(g, g2, payload, ct, h, ch):
+        a, planes, pack = kernel_table(g)
+        rc = lib.gat_bwd_dst_launch(
+            a.data_ptr(), g.src_chunk.data_ptr(), g.slot_occ.data_ptr(), g2.data_ptr(),
+            payload.data_ptr(), ct.data_ptr(), g.num_chunks, g.depth, planes, pack, h,
+            ch, 0.2, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            sys.exit(f"gat_bwd_dst ({lib_path}) launch failed: {rc}")
+
+    return run
 
 
 def nvcc(src: str, lib: str, include: str, flags=()) -> subprocess.Popen:
@@ -184,11 +224,14 @@ def build_all(parent: str, names, shares: bool, defines) -> tuple:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
-    ap.add_argument("--only", default=",".join(KERNELS))
+    ap.add_argument("--only", default=",".join(KERNELS + tuple(UNITS)))
     ap.add_argument("--shares", action="store_true")
     ap.add_argument("--set", nargs="*", default=[], dest="retuned")
     args = ap.parse_args()
-    names = [n for n in KERNELS if n in args.only.split(",")]
+    only = args.only.split(",")
+    units = [u for u in UNITS if u in only]
+    names = [n for n in KERNELS + ("gat_bwd_dst",)
+             if n in only or any(n in UNITS[u] for u in units)]
 
     import torch
 
@@ -228,23 +271,32 @@ def main() -> None:
     variants = {n: [v for (m, v) in paths if m == n and v not in ("this", "parent")]
                 for n in names}
 
+    def timed(label, setup, call, same, extra=()):
+        """setup(variant) puts a side's libraries behind the wrappers, then
+        call(variant) runs it; prints the CUDA-event medians in the order
+        parent, this, this, parent, `same` of the two results, and the times
+        of the `extra` (label, setup, fn) triples. No library is swapped
+        inside a timed call."""
+        outs, ms = {}, {}
+        for v in ("parent", "this", "this", "parent"):
+            setup(v)
+            outs[v] = call(v)
+            ms.setdefault(v, []).append(cs.cuda_ms(lambda: call(v), flush))
+        times = []
+        for k, set_k, fn in extra:
+            set_k()
+            times.append((k, cs.cuda_ms(fn, flush)))
+        print(f"{label}: parent {ms['parent'][0]:.4f} {ms['parent'][1]:.4f} ms | this "
+              f"{ms['this'][0]:.4f} {ms['this'][1]:.4f} ms | {same(outs['parent'], outs['this'])}"
+              + "".join(f" | {k} {t:.4f}" for k, t in times), flush=True)
+
     def compare(name, label, call, same):
         """call(edge_list) runs the wrapper with the library in use, given
         whether its source is on the edge list."""
-        outs, ms = {}, {}
-        for v in ("parent", "this", "this", "parent"):
-            use(name, v)
-            outs[v] = call(design[(name, v)])
-            ms.setdefault(v, []).append(
-                cs.cuda_ms(lambda: call(design[(name, v)]), flush))
-        extra = {}
-        for v in variants[name]:
-            use(name, v)
-            extra[v] = cs.cuda_ms(lambda: call(design[(name, v)]), flush)
+        timed(label, lambda v: use(name, v), lambda v: call(design[(name, v)]), same,
+              [(v, lambda v=v: use(name, v), lambda v=v: call(design[(name, v)]))
+               for v in variants[name]])
         use(name, "this")
-        print(f"{label}: parent {ms['parent'][0]:.4f} {ms['parent'][1]:.4f} ms | this "
-              f"{ms['this'][0]:.4f} {ms['this'][1]:.4f} ms | {same(outs['parent'], outs['this'])}"
-              + "".join(f" | {v} {t:.4f}" for v, t in extra.items()), flush=True)
 
     def max_diff(a, b):
         return f"max diff {float((a.float() - b.float()).abs().max()):.3e}"
@@ -295,12 +347,52 @@ def main() -> None:
             compare("gat_bwd", f"gat_bwd h={h} ch={ch} normalized",
                     lambda _e: gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, True),
                     max_diff)
-        if "gat_bwd_src" in names:
+        if "gat_bwd_src" in only:
             g2 = grad_payload(gbar, pay, out_k, h, ch, True)
             compare("gat_bwd_src", f"gat_bwd_src h={h} ch={ch}",
                     lambda edge_list: gat_cuda.gat_bwd_src_cuda(
                         t_rows if edge_list else t_cols, pay, g2, h, ch, 0.2),
                     max_diff)
+        if "gat_two_sweep" in units:
+            fused = {v: writes_g2(os.path.join(base, "gat_bwd_dst.cu"))
+                     for v, base in (("parent", args.parent), ("this", CSRC))}
+            old_dst = {v: g2_reading_dst(paths[("gat_bwd_dst", v)])
+                       for v in fused if not fused[v]}
+
+            def setup(v):
+                use("gat_bwd_src", v)
+                if fused[v]:
+                    use("gat_bwd_dst", v)
+
+            def dst_alone(v, g2_pre=None):
+                """(ct, g2) of side v's destination sweep (its library in
+                use); one that reads a prebuilt G2 gets g2_pre, or
+                grad_payload's."""
+                if fused[v]:
+                    return gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2, True)
+                g2 = grad_payload(gbar, pay, out_k, h, ch, True) if g2_pre is None else g2_pre
+                ct = torch.empty_like(pay)
+                old_dst[v](g, g2, pay, ct, h, ch)
+                return ct, g2
+
+            def two_sweep(v):
+                ct, g2 = dst_alone(v)
+                t = t_rows if design[("gat_bwd_src", v)] else t_cols
+                return gat_cuda.gat_bwd_src_cuda(t, pay, g2, h, ch, 0.2, ct=ct)
+
+            g2_pre = grad_payload(gbar, pay, out_k, h, ch, True)
+            extra = [("grad_payload", lambda: None,
+                      lambda: grad_payload(gbar, pay, out_k, h, ch, True))]
+            extra += [(f"dst alone {v} ({'G2 built in' if fused[v] else 'G2 given'})",
+                       lambda v=v: setup(v), lambda v=v: dst_alone(v, g2_pre))
+                      for v in ("parent", "this")]
+            extra += [(f"dst {v}", lambda v=v: use("gat_bwd_dst", v),
+                       lambda: gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2, True))
+                      for v in variants["gat_bwd_dst"]]
+            timed(f"two-sweep backward of one layer h={h} ch={ch}", setup, two_sweep,
+                  max_diff, extra)
+            use("gat_bwd_dst", "this")
+            use("gat_bwd_src", "this")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
-"""Load parameters of a JAX model into the port's module.
+"""Parameters of a JAX model in and out of the port's module.
 
-The JAX pytrees, already converted to numpy arrays. SAGE-ResBN:
+`params_from_jax` loads them into a module, `params_to_jax` gives a
+module's back as the JAX pytrees. The JAX pytrees, as numpy arrays.
+SAGE-ResBN:
 
     params = {"layers": [{"w_l", "b_l", "w_r"}], "bns": [{"scale", "bias"}],
               "res_projs": [None | {"w"}], "time_emb" (learned embedding)}
@@ -68,3 +70,43 @@ def params_from_jax(params_np: dict, state_np: dict, model: nn.Module) -> nn.Mod
         if model.time_emb is not None:
             _copy(model.time_emb, params_np["time_emb"])
     return model
+
+
+def _np(t: torch.Tensor, transpose: bool = False) -> np.ndarray:
+    v = t.detach().cpu().float().numpy()
+    return np.array(v.T if transpose else v, order="C")  # 0-d stays 0-d
+
+
+def params_to_jax(model: nn.Module):
+    """The inverse of params_from_jax: (params_np, state_np), the JAX
+    model's pytrees as numpy arrays. Dense weights go back to [d_in,
+    d_out]; an identity residual projection is None, as in the JAX
+    params; the BN count is a 0-d array."""
+    if isinstance(model, GAT):
+        return {"layers": [{name: _np(getattr(layer, name))
+                            for name in ("w", "a_src", "a_dst", "b")}
+                           for layer in model.layers]}, {}
+    if isinstance(model, GCN):
+        return {"layers": [{"w": _np(layer.lin.weight, True), "b": _np(layer.bias)}
+                           for layer in model.layers]}, {}
+    if not isinstance(model, (SAGE, SageResBN)):
+        raise TypeError(f"no JAX counterpart known for {type(model).__name__}")
+    params = {"layers": [{"w_l": _np(layer.lin_l.weight, True),
+                          "b_l": _np(layer.lin_l.bias),
+                          "w_r": _np(layer.lin_r.weight, True)}
+                         for layer in model.layers]}
+    state: dict = {}
+    if isinstance(model, SAGE):
+        return params, state
+    if model.bns is not None:
+        params["bns"] = [{"scale": _np(bn.scale), "bias": _np(bn.bias)}
+                         for bn in model.bns]
+        state["bns"] = [{"mean": _np(bn.mean), "var": _np(bn.var),
+                         "count": _np(bn.count)} for bn in model.bns]
+    if model.res_projs is not None:
+        params["res_projs"] = [None if isinstance(proj, nn.Identity)
+                               else {"w": _np(proj.weight, True)}
+                               for proj in model.res_projs]
+    if model.time_emb is not None:
+        params["time_emb"] = _np(model.time_emb)
+    return params, state

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (BSDA SpMM, flash-GAT forward, one-sweep backward
-and the two-sweep backward pair) against their plain PyTorch versions, on
-the card. Every test here needs
+and the two-sweep backward pair, whose destination sweep writes the grad
+payload G2) against their plain PyTorch versions, on the card, at the
+widths one launch takes and wider (split into launches). Every test here needs
 an NVIDIA GPU and skips without one; this file imports nothing of JAX so
 that it runs on a machine without it:
 
@@ -250,7 +251,7 @@ def test_gat_kernels_reject_what_they_do_not_take(cuda):
         gat_cuda.gat_fwd_cuda(g, pay.to(cuda), 4, 8)
     with pytest.raises(ValueError, match="contiguous float32"):
         gat_cuda.gat_fwd_cuda(g.to(cuda), pay.to(cuda)[:, :36], 4, 8)
-    with pytest.raises(ValueError, match="<= 512"):
+    with pytest.raises(ValueError, match=r"\[N_pad, 640\]"):
         gat_cuda.gat_fwd_cuda(g.to(cuda), pay.to(cuda), 64, 8)
 
 
@@ -273,20 +274,22 @@ def _two_sweep_inputs(cuda, h, ch, normalized, pack4=True):
 @pytest.mark.parametrize("normalized", [False, True])
 @pytest.mark.parametrize("pack4", [True, False])
 def test_gat_sweep_kernels_match_plain(cuda, h, ch, normalized, pack4):
-    """Each sweep against its plain version on the same G2, each writing
-    only its own columns; their sum against the one-sweep kernel."""
-    from elliptic_gnn_tpu_torch.kernels.gat_bwd import grad_payload
-
+    """Each sweep against its plain version: the destination sweep's d a_dst
+    and G2 against grad_payload and gat_bwd_dst_plain, two launches bit for
+    bit; the source sweep on the kernel's G2; each writing only its own
+    columns; their sum against the one-sweep kernel."""
     g, pay, gbar, out_k = _two_sweep_inputs(cuda, h, ch, normalized, pack4)
-    g2 = grad_payload(gbar, pay, out_k, h, ch, normalized)
     hc = h * ch
-    d_dst = gat_cuda.gat_bwd_dst_cuda(g, g2, pay, h, ch, 0.2)
+    d_dst, g2 = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    again, g2_again = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
     d_src = gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch, 0.2)
     torch.cuda.synchronize()
+    assert torch.equal(d_dst, again) and torch.equal(g2, g2_again)
     assert not d_dst[:, : hc + h].any() and not d_src[:, hc + h:].any()
-    np.testing.assert_allclose(
-        d_dst.cpu().numpy(),
-        gat_cuda.gat_bwd_dst_plain(g, g2, pay, h, ch, 0.2).cpu().numpy(), **GAT_BWD)
+    want_dst, want_g2 = gat_cuda.gat_bwd_dst_fused_plain(g, gbar, pay, out_k, h, ch, 0.2,
+                                                         normalized)
+    np.testing.assert_allclose(d_dst.cpu().numpy(), want_dst.cpu().numpy(), **GAT_BWD)
+    np.testing.assert_allclose(g2.cpu().numpy(), want_g2.cpu().numpy(), **GAT_BWD)
     np.testing.assert_allclose(
         d_src.cpu().numpy(),
         gat_cuda.gat_bwd_src_plain(g.transpose, pay, g2, h, ch, 0.2).cpu().numpy(),
@@ -346,6 +349,111 @@ def test_gat_model_two_sweep_on_cuda(cuda, monkeypatch):
         np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), **GAT_BWD)
     with pytest.raises(ValueError, match="transpose tables"):
         step(g.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [96, 120])
+def test_gat_dst_sweep_above_depth_64(cuda, depth):
+    """The destination sweep takes the edge list's depths (it took 64 at most
+    while it staged the planes): tables of `depth` slots, against the plain
+    version, two launches bit for bit. 2,000 random far edges fill up to 36
+    slots of a chunk."""
+    n = 6000
+    data = synthetic.generate(num_nodes=n, num_features=4, num_timesteps=8, seed=2)
+    data = data.renumber(bsda.bfs_order(data.edge_index, n, data.timestep))
+    ei = np.concatenate([data.edge_index,
+                         np.random.default_rng(2).integers(0, n, (2, 2000))], axis=1)
+    g = bsda.build_bsda_for_kind(ei, n, "gat", depth=depth, transpose=False).to(cuda)
+    assert g.depth == depth > 64 and int(g.slot_occ.max()) > 16
+    shape = (g.num_chunks * 128, gat_cuda.payload_width(4, 8))
+    pay, gbar = _randn(shape, 4, cuda), _randn(shape, 5, cuda)
+    out_k = gat_cuda.gat_fwd_cuda(g, pay, 4, 8, 0.2, True)
+    d_dst, g2 = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, 4, 8, 0.2, True)
+    again, _ = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, 4, 8, 0.2, True)
+    torch.cuda.synchronize()
+    assert torch.equal(d_dst, again)
+    want_dst, want_g2 = gat_cuda.gat_bwd_dst_fused_plain(g, gbar, pay, out_k, 4, 8, 0.2, True)
+    np.testing.assert_allclose(d_dst.cpu().numpy(), want_dst.cpu().numpy(), **GAT_BWD)
+    np.testing.assert_allclose(g2.cpu().numpy(), want_g2.cpu().numpy(), **GAT_BWD)
+
+
+# ---------------- GAT wider than one launch ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,ch,n_launches", [(4, 128, 2), (1, 600, 2)])
+@pytest.mark.parametrize("normalized", [False, True])
+def test_gat_wide_kernels_match_plain(cuda, h, ch, n_launches, normalized):
+    """h*ch + 2h > 512: each of the four kernels in launches of at most 512
+    columns (two groups of two heads; two column tiles of one head) against
+    its plain version; the two sweeps bit for bit on a repeat."""
+    g = _gat_graph(6000, seed=4)
+    g = dataclasses.replace(g, transpose=bsda.gat_block_transpose(g)).to(cuda)
+    hc = h * ch
+    assert gat_cuda.payload_width(h, ch) > gat_cuda.MAX_WIDTH
+    shape = (g.num_chunks * 128, gat_cuda.payload_width(h, ch))
+    pay, gbar = _randn(shape, 6, cuda), _randn(shape, 7, cuda)
+    gat_cuda.reset_launches()
+    out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
+    one = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    two = gat_cuda.gat_bwd_two_sweep(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    d_dst, g2 = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    torch.cuda.synchronize()
+    assert gat_cuda.launches == {
+        "gat_fwd": n_launches * int(h == 1), "gat_fwd_gated": n_launches * int(h > 1),
+        "gat_bwd": n_launches, "gat_bwd_dst": 2 * n_launches, "gat_bwd_src": n_launches}
+    assert torch.equal(two, gat_cuda.gat_bwd_two_sweep(g, gbar, pay, out_k, h, ch, 0.2,
+                                                       normalized))
+    want = gat_cuda.gat_fwd_plain(g, pay, h, ch, 0.2, normalized)
+    for a, b in zip(_gauge_free(out_k, h, ch, normalized),
+                    _gauge_free(want, h, ch, normalized)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **GAT_FWD)
+    want = gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, normalized).cpu().numpy()
+    np.testing.assert_allclose(one.cpu().numpy(), want, **GAT_BWD)
+    np.testing.assert_allclose(two.cpu().numpy(), want, **GAT_BWD)
+    want_dst, want_g2 = gat_cuda.gat_bwd_dst_fused_plain(g, gbar, pay, out_k, h, ch, 0.2,
+                                                         normalized)
+    np.testing.assert_allclose(d_dst.cpu().numpy(), want_dst.cpu().numpy(), **GAT_BWD)
+    np.testing.assert_allclose(g2.cpu().numpy(), want_g2.cpu().numpy(), **GAT_BWD)
+    src = gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch, 0.2)
+    np.testing.assert_allclose(
+        src[:, : hc + h].cpu().numpy(),
+        gat_cuda.gat_bwd_src_plain(g.transpose, pay, g2, h, ch, 0.2)[:, : hc + h].cpu().numpy(),
+        **GAT_BWD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,heads", [(512, 4), (600, 1)])
+def test_wide_gat_model_on_cuda_matches_cpu(cuda, monkeypatch, hidden, heads):
+    """A GAT whose hidden layer is wider than one launch trains and scores
+    on the card through the kernels (launch counts), with both backwards:
+    logits and parameter gradients against the same weights on the CPU."""
+    g = _gat_graph(6000, seed=4)
+    g_t = dataclasses.replace(g, transpose=bsda.gat_block_transpose(g))
+    cfg = {"hidden_dim": hidden, "layers": 2, "heads": heads, "dropout": 0.0}
+    x = _randn((g.num_nodes, 30), 5, "cpu")
+    y = torch.from_numpy(np.random.default_rng(6).integers(0, 2, g.num_nodes))
+    results = []
+    for device, one_sweep in (("cpu", "1"), (cuda, "1"), (cuda, "0")):
+        monkeypatch.setenv("EGNN_GAT_ONE_SWEEP", one_sweep)
+        model = build_model("gat", 30, cfg,
+                            generator=torch.Generator().manual_seed(0)).to(device).train()
+        gat_cuda.reset_launches()
+        logits = model(x.to(device), g_t.to(device))
+        torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
+        if device != "cpu":
+            bwd = ("gat_bwd",) if one_sweep == "1" else ("gat_bwd_dst", "gat_bwd_src")
+            assert all(gat_cuda.launches[k] >= 3 for k in bwd)  # 2 tiles + final layer
+            assert gat_cuda.launches["gat_fwd"] + gat_cuda.launches["gat_fwd_gated"] >= 3
+        model.eval()
+        with torch.no_grad():
+            ev = model(x.to(device), g_t.to(device))
+        results.append((logits.detach().cpu().numpy(), ev.cpu().numpy(),
+                        [p.grad.cpu().numpy() for p in model.parameters()]))
+    for got in results[1:]:
+        np.testing.assert_allclose(got[0], results[0][0], **GAT_FWD)
+        np.testing.assert_allclose(got[1], results[0][1], **GAT_FWD)
+        for a, b in zip(got[2], results[0][2]):
+            np.testing.assert_allclose(a, b, **GAT_BWD)
 
 
 # ---------------- GCN and SAGE through the BSDA kernel ----------------
@@ -500,17 +608,16 @@ def test_gat_forward_kernel_hub_graph(cuda, h, ch, normalize, packed):
 @pytest.mark.parametrize("normalized", [False, True])
 @pytest.mark.parametrize("packed", [True, False])
 def test_gat_backward_kernels_out_hub_graph(cuda, h, ch, normalized, packed):
-    """The one-sweep backward and the source sweep on the out-hub graph:
+    """The one-sweep backward and the two sweeps on the out-hub graph:
     hub rows and the out-hub source straddle gather batches, the transpose
     chunk 1 takes several edge lists; heads whose runs take xor shuffles
     ((1, 2), (4, 8), (2, 16)), none ((1, 1)) or the scratch row ((3, 5),
     (8, 62), (1, 256)); rows of 16-byte vector atomics and of scalar ones
     ((3, 8): 30 columns); G2 rows that are not 16-byte aligned, gathered
     by the 16-byte blocks that cover them (all but (4, 8), (8, 62) and
-    (1, 256)). Against the plain versions; the source sweep and the
-    one-sweep d a_dst bit for bit on a repeat."""
-    from elliptic_gnn_tpu_torch.kernels.gat_bwd import grad_payload
-
+    (1, 256)); G2 rows stored 16 bytes a run (ch and h*ch + 3h multiples
+    of 4: (4, 8)) or a float at a time. Against the plain versions;
+    the two sweeps and the one-sweep d a_dst bit for bit on a repeat."""
     g = _hub_graph("gat", 4, packed, out_hub=True)
     assert int((g.transpose.a[1] != 0).sum()) > 2048
     g = g.to(cuda)
@@ -520,12 +627,19 @@ def test_gat_backward_kernels_out_hub_graph(cuda, h, ch, normalized, packed):
     out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
     got = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
     again = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
-    g2 = grad_payload(gbar, pay, out_k, h, ch, normalized)
+    dst, g2 = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
+    dst_again, g2_again = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2,
+                                                    normalized)
     src = gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch, 0.2)
     src_again = gat_cuda.gat_bwd_src_cuda(g.transpose, pay, g2, h, ch, 0.2)
     torch.cuda.synchronize()
     assert torch.equal(got[:, hc + h:], again[:, hc + h:])
+    assert torch.equal(dst, dst_again) and torch.equal(g2, g2_again)
     assert torch.equal(src, src_again) and not src[:, hc + h:].any()
+    want_dst, want_g2 = gat_cuda.gat_bwd_dst_fused_plain(g, gbar, pay, out_k, h, ch, 0.2,
+                                                         normalized)
+    np.testing.assert_allclose(dst.cpu().numpy(), want_dst.cpu().numpy(), **GAT_BWD)
+    np.testing.assert_allclose(g2.cpu().numpy(), want_g2.cpu().numpy(), **GAT_BWD)
     np.testing.assert_allclose(
         got.cpu().numpy(),
         gat_cuda.gat_bwd_plain(g, gbar, pay, out_k, h, ch, 0.2, normalized).cpu().numpy(),

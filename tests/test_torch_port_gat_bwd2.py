@@ -164,6 +164,26 @@ def test_two_sweep_matches_one_sweep_plain(graphs, h, ch, normalized):
         np.testing.assert_array_equal(g2[:, hc: hc + h].numpy(), gbar[:, hc + h:].numpy())
 
 
+@pytest.mark.parametrize("h,ch", HEADS)
+@pytest.mark.parametrize("normalized", [False, True])
+def test_fused_dst_plain_is_grad_payload_then_dst(graphs, h, ch, normalized):
+    """(c') the plain version of the destination-sweep kernel, which now
+    writes G2 itself: grad_payload's G2 bit for bit, and the d a_dst
+    columns of gat_bwd_dst_plain over that G2, zeros elsewhere."""
+    _, gp = graphs
+    rng = np.random.default_rng(31)
+    w = gat_cuda.payload_width(h, ch)
+    pay = torch.from_numpy((0.5 * rng.standard_normal((N, w))).astype(np.float32))
+    gbar = torch.from_numpy(rng.standard_normal((N, w)).astype(np.float32))
+    out_k = gat_cuda.gat_fwd(gp, pay, h, ch, SLOPE, normalized)
+    ct, g2 = gat_cuda.gat_bwd_dst_fused_plain(gp, gbar, pay, out_k, h, ch, SLOPE,
+                                              normalized)
+    want_g2 = gat_bwd.grad_payload(gbar, pay, out_k, h, ch, normalized)
+    assert torch.equal(g2, want_g2)
+    assert torch.equal(ct, gat_cuda.gat_bwd_dst_plain(gp, want_g2, pay, h, ch, SLOPE))
+    assert not ct[:, : h * ch + h].any() and ct[:, h * ch + h:].abs().max() > 0
+
+
 def _gat_setup(gp, seed=1, f_in=24):
     cfg = {"hidden_dim": 32, "layers": 2, "heads": 4, "dropout": 0.0}
     mj = jax_build_model("gat", f_in, cfg)

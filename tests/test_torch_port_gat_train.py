@@ -1,12 +1,16 @@
 """Port parity for the GAT slice as a whole: the torch trainer's
 train_gnn.main on a tiny synthetic processed graph (device cpu, 3 epochs,
 dropout 0, the JAX model's init parameters injected) against the JAX
-trainer on the same config, epoch by epoch; then best.ckpt round trip and
-train.predict against the run's own scores.
+trainer on the same config, epoch by epoch; then best.ckpt round trip, in
+the JAX npz layout both ways (the JAX checkpoint.load_best reads the port's
+file, the port's predict scores the JAX run), and train.predict against
+the run's own scores.
 
 Tolerances as tests/test_torch_port_train.py: loss rtol 1e-4, PR-AUC and
 test metrics atol 2e-3, test scores atol 2e-3; predict against
-scores_test.npy atol 1e-6 (the same forward on the same tables)."""
+scores_test.npy atol 1e-6 (the same forward on the same tables); the
+port's predict against the JAX predict on the JAX run atol 1e-4 (the same
+weights, two implementations of the forward)."""
 import csv
 import os
 
@@ -17,9 +21,12 @@ import torch
 
 from elliptic_gnn_tpu.graph import build_graph as jax_build_graph
 from elliptic_gnn_tpu.models import build_model as jax_build_model
+from elliptic_gnn_tpu.train import checkpoint as jax_checkpoint
+from elliptic_gnn_tpu.train import predict as jax_predict
 from elliptic_gnn_tpu.train import train_gnn as jax_train
 from elliptic_gnn_tpu_torch.analysis import common
 from elliptic_gnn_tpu_torch.models import build_model
+from elliptic_gnn_tpu_torch.models.convert import params_to_jax
 from elliptic_gnn_tpu_torch.train import checkpoint, predict, train_gnn
 
 GAT_CFG = {
@@ -107,8 +114,66 @@ def test_best_ckpt_round_trip(runs):
     for a, b in zip(fresh.state_dict().values(), again.state_dict().values()):
         assert torch.equal(a, b)
     wrong = build_model("gat", data.num_features, dict(cfg_p, hidden_dim=32))
-    with pytest.raises(RuntimeError, match="size mismatch"):
+    with pytest.raises(ValueError, match="shape mismatch"):
         checkpoint.load_best(out_p, wrong)
+    deeper = build_model("gat", data.num_features, dict(cfg_p, layers=3))
+    with pytest.raises(ValueError, match="shape mismatch for params/layers/1/w"):
+        checkpoint.load_best(out_p, deeper)
+
+
+def test_best_ckpt_is_the_jax_npz_layout(runs):
+    """The JAX package's checkpoint.load_best reads the port's best.ckpt,
+    and what it reads equals params_to_jax of the port model loaded from
+    it, key for key and bit for bit."""
+    cfg_j, cfg_p, out_p = runs[0], runs[1], runs[5]
+    data = jax_train.prepare_data(cfg_j)
+    p0, s0 = jax_build_model("gat", data.num_features, cfg_j).init(jax.random.key(1))
+    params, state = jax_checkpoint.load_best(out_p, p0, s0)
+    got = checkpoint.flatten({"params": jax.tree.map(np.asarray, params),
+                              "state": jax.tree.map(np.asarray, state)})
+    model = checkpoint.load_best(out_p, build_model("gat", data.num_features, cfg_p))
+    want_p, want_s = params_to_jax(model)
+    want = checkpoint.flatten({"params": want_p, "state": want_s})
+    assert sorted(got) == sorted(want) == [
+        f"params/layers/{i}/{n}" for i in range(2) for n in ("a_dst", "a_src", "b", "w")]
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with np.load(os.path.join(out_p, "best.ckpt")) as z:
+        assert sorted(z.files) == sorted(want)
+
+
+def test_port_predict_scores_a_jax_run(runs):
+    """The port's predict on the JAX run dir (its best.ckpt, its
+    config_used.yaml) gives the JAX predict's probabilities."""
+    out_j = runs[4]
+    node_j, probs_j, flags_j, thr_j, _ = jax_predict.predict(out_j)
+    node_p, probs_p, flags_p, thr_p, _ = predict.predict(out_j, device="cpu")
+    np.testing.assert_array_equal(node_p, node_j)
+    assert thr_p == thr_j and probs_p.std() > 1e-3
+    np.testing.assert_allclose(probs_p, probs_j, atol=1e-4)
+    near = np.abs(probs_j - thr_j) < 1e-4  # a flag may flip only at the threshold
+    np.testing.assert_array_equal(flags_p[~near], flags_j[~near])
+
+
+def test_best_ckpt_refuses_other_files(runs, tmp_path):
+    """A torch.save file (the format of earlier port runs), a file that is
+    no npz and an npz that lacks an entry raise with a message, and nothing
+    falls back to torch.load."""
+    cfg_p, out_p = runs[1], runs[5]
+    data = train_gnn.prepare_data(cfg_p)
+    model = build_model("gat", data.num_features, cfg_p)
+    with np.load(os.path.join(out_p, "best.ckpt")) as z:
+        flat = {k: z[k] for k in z.files if k != "params/layers/1/a_src"}
+    np.savez(str(tmp_path / "best.npz"), **flat)
+    os.replace(str(tmp_path / "best.npz"), str(tmp_path / "best.ckpt"))
+    with pytest.raises(KeyError, match="params/layers/1/a_src"):
+        checkpoint.load_best(str(tmp_path), model)
+    torch.save(model.state_dict(), str(tmp_path / "best.ckpt"))
+    with pytest.raises(ValueError, match="JAX npz layout"):
+        checkpoint.load_best(str(tmp_path), model)
+    (tmp_path / "best.ckpt").write_text("not a checkpoint")
+    with pytest.raises(ValueError, match="not an npz checkpoint"):
+        checkpoint.load_best(str(tmp_path), model)
 
 
 def test_predict_reproduces_test_scores(runs):
