@@ -47,21 +47,36 @@ Phases (any failure exits non-zero before the result line):
      plain formulation;
   5. small-graph references: SAGE-ResBN, GCN, SAGE and GAT logits on the
      card (kernels) against the same weights on the CPU (plain versions);
-  6. slices: builds the same graph with the port's build_graph, then runs
-     train_gnn.main on the values of configs/rec_k8.yaml, gat.yaml, gcn.yaml
-     and sage.yaml at full width for a few epochs each, with the launch
-     counts set to 0 just before and read just after: every epoch must have
-     gone through the kernels, losses and scores must be finite, the
-     artifacts present and best.ckpt an npz in the JAX package's key layout
-     (read with numpy alone); predict.predict on the GAT run dir
-     must reproduce its scores_test.npy; gat.yaml again, twice, with the
-     two-sweep backward chosen (EGNN_GAT_ONE_SWEEP=0): only the two sweeps
-     may run the backward, the two runs' scores_test.npy must be equal bit
-     for bit, and loss and val PR-AUC per epoch must agree with the
-     one-sweep run (loss rtol 1e-4, PR-AUC atol 2e-3);
-  7. profile: the runs for 3 epochs under torch.profiler, device time by
-     kernel name;
-  8. prints the table of TPU kernels, the kernel line, the card line, and
+  6. CSV round trip: the same synthetic graph written as the three Elliptic
+     CSVs and built again through the port's CSV branch with the native
+     parser; graph.npz must equal the synthetic build's; write and parse
+     seconds printed. The slices train from this CSV build;
+  7. slices: train_gnn.main on the values of configs/rec_k8.yaml, gat.yaml,
+     gcn.yaml and sage.yaml at full width, with the launch counts set to 0
+     just before and read just after: every epoch must have gone through
+     the kernels (the K-epoch loop's replays counted as the launches
+     captured in its graph times its replays), losses and scores finite,
+     the artifacts present and best.ckpt an npz in the JAX package's key
+     layout (read with numpy alone). rec_k8 and gat.yaml run 16 epochs with
+     `epochs_per_sync: auto` (K = 8, the epoch a replayed CUDA graph) and,
+     interleaved, with 1 (serial): loss and val PR-AUC per epoch within 1e-4;
+     then both loops with the patience at which the stop falls inside a
+     block: the same stop epoch and rows. rec_k8 also writes checkpoints
+     (every 8 epochs) and the hub ablation (`ablate_hubs_frac: 0.05`): a
+     run stopped at its checkpoint after 8 epochs and resumed to 16 ends
+     with the uninterrupted run's rows and best_val; the hub-ablation and
+     robustness CLIs score its run dir through the kernel. predict.predict
+     on the GAT run dir must reproduce its scores_test.npy; gat.yaml again,
+     twice, K loop, with the two-sweep backward chosen
+     (EGNN_GAT_ONE_SWEEP=0): only the two sweeps may run the backward, the
+     two runs' scores_test.npy must be equal bit for bit, and loss and val
+     PR-AUC per epoch must agree with the one-sweep run (loss rtol 1e-4,
+     PR-AUC atol 2e-3); gcn.yaml and sage.yaml 5 epochs, K loop. Epoch
+     walls of K and serial runs and the device time of one replayed epoch
+     are printed;
+  8. profile: the runs for 3 epochs under torch.profiler, device time by
+     kernel name (rec_k8 in both loops);
+  9. prints the table of TPU kernels, the kernel line, the card line, and
      the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -82,6 +97,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_NODES = 203769
 N_EDGES = 234355
 EPOCHS = 5
+KLOOP_EPOCHS = 16                   # two blocks of K = 8
+KLOOP_TOL = 1e-4                    # K loop against serial, per epoch
 PROFILE_EPOCHS = 3
 TIMING_ITERS = 20
 SPIN_CYCLES = 200_000               # device spin before a timed call, ~0.1 ms
@@ -1018,11 +1035,90 @@ def build_processed(tmp) -> str:
     return processed
 
 
-def slice_phase(tmp, processed, config_name, run_name=None):
-    """train_gnn.main on one config's values at full width for EPOCHS
-    epochs, launch counts set to 0 just before and read just after.
-    `run_name` replaces the config's, for a second run of one config.
-    Returns a dict: launches, cfg, outdir, losses, val_pr_auc, scores."""
+def csv_phase(tmp, synthetic_dir) -> str:
+    """The synthetic Elliptic-scale graph written as the three Elliptic CSVs
+    (header-less features: txId, timestep, 166 features at 9 significant
+    digits; classes with header and 1 / 2 / unknown; edge list with header;
+    txIds a shuffled range of 9-digit ids), built again through the port's
+    CSV branch with the native parser: graph.npz must equal the synthetic
+    build's, array for array. Returns the CSV build's processed dir, which
+    the slices then train from."""
+    import numpy as np
+
+    from elliptic_gnn_tpu_torch import native
+    from elliptic_gnn_tpu_torch.graph import build_graph
+
+    if not native.is_available():
+        fail("the native CSV parser (native/libegnn_native.so) did not build or load")
+    with np.load(os.path.join(synthetic_dir, "graph.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    raw = os.path.join(tmp, "raw")
+    os.makedirs(raw)
+    n = want["x"].shape[0]
+    ids = 230_000_000 + np.random.default_rng(0).permutation(n).astype(np.int64)
+    labels = np.array(["unknown", "2", "1"])[want["y"] + 1]
+    t0 = time.time()
+    with open(os.path.join(raw, "elliptic_txs_features.csv"), "w") as fh:
+        np.savetxt(fh, np.column_stack([ids, want["timestep"], want["x"]]).astype(np.float64),
+                   fmt="%.9g", delimiter=",")
+    with open(os.path.join(raw, "elliptic_txs_classes.csv"), "w") as fh:
+        fh.write("txId,class\n")
+        fh.write("\n".join(f"{i},{c}" for i, c in zip(ids.tolist(), labels.tolist())) + "\n")
+    src, dst = ids[want["edge_index"][0]], ids[want["edge_index"][1]]
+    with open(os.path.join(raw, "elliptic_txs_edgelist.csv"), "w") as fh:
+        fh.write("txId1,txId2\n")
+        fh.write("\n".join(f"{a},{b}" for a, b in zip(src.tolist(), dst.tolist())) + "\n")
+    write_s = time.time() - t0
+    sizes = {name: os.path.getsize(os.path.join(raw, name)) for name in sorted(os.listdir(raw))}
+    t0 = time.time()
+    parsed = native.parse_numeric_csv(os.path.join(raw, "elliptic_txs_features.csv"))
+    parse_s = time.time() - t0
+    if parsed is None or parsed.shape != (n, 168):
+        fail("the native parser refused the features CSV")
+    del parsed
+    processed = os.path.join(tmp, "processed_csv")
+    t0 = time.time()
+    build_graph.main({"seed": 0, "t_max": 49, "t_train_end": 34, "t_val_end": 43,
+                      "data_dir": raw, "processed_dir": processed})
+    build_s = time.time() - t0
+    with np.load(os.path.join(processed, "graph.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    same = sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want)
+    log(f"CSV round trip: {n} nodes, {want['edge_index'].shape[1]} edges, 166 features; "
+        f"wrote {sizes} in {write_s:.1f} s; native parse of the features {parse_s:.2f} s; "
+        f"build_graph from the CSVs {build_s:.1f} s; graph.npz "
+        f"{'equal to' if same else 'DIFFERS from'} the synthetic build's")
+    if not same:
+        fail("the graph built from the CSVs differs from the synthetic graph written")
+    return processed
+
+
+def true_launches(counted, metrics) -> dict:
+    """A run's kernel launches: the counters count a captured epoch once,
+    at its capture, which runs nothing; each replay of the graph launches
+    every kernel recorded in it (captured launches x replays)."""
+    out = dict(counted)
+    for name, n in metrics.get("graph_launches", {}).items():
+        out[name] += n * (metrics["graph_replays"] - 1)
+    return out
+
+
+def device_epochs(metrics) -> int:
+    """Epochs the device ran: the K loop's eager epoch and every replay
+    (those after a stop inside a block too); the serial loop's epochs."""
+    if "graph_replays" in metrics:
+        return 1 + metrics["graph_replays"]
+    return metrics["epochs_run"]
+
+
+def slice_phase(tmp, processed, config_name, run_name=None, epochs=EPOCHS,
+                expect_epochs=True, **overrides):
+    """train_gnn.main on one config's values at full width for `epochs`
+    epochs, launch counts set to 0 just before and read just after (the K
+    loop's replays counted as true_launches counts them). `run_name`
+    replaces the config's; `overrides` replace other values. Returns a
+    dict: launches, metrics, cfg, outdir, losses, val_pr_auc, scores."""
     import numpy as np
     import yaml
 
@@ -1032,7 +1128,7 @@ def slice_phase(tmp, processed, config_name, run_name=None):
     with open(os.path.join(HERE, "configs", config_name)) as fh:
         cfg = yaml.safe_load(fh)
     cfg.update(processed_dir=processed, output_root=os.path.join(tmp, "out"),
-               max_epochs=EPOCHS)
+               max_epochs=epochs, **overrides)
     if run_name is not None:
         cfg["run_name"] = run_name
     bsda_spmm_cuda.reset_launches()
@@ -1040,19 +1136,24 @@ def slice_phase(tmp, processed, config_name, run_name=None):
     t0 = time.time()
     metrics = train_gnn.main(cfg)
     wall = time.time() - t0
-    launches = {**bsda_spmm_cuda.launches, **gat_cuda.launches}
+    launches = true_launches({**bsda_spmm_cuda.launches, **gat_cuda.launches}, metrics)
 
     outdir = os.path.join(cfg["output_root"], "gnn", cfg["run_name"])
-    epochs = int(metrics["epochs_run"])
+    n_run = int(metrics["epochs_run"])
+    k = metrics.get("epochs_per_sync", 1)
     log(f"slice: {config_name} as {cfg['run_name']} ({cfg['arch']}, hidden {cfg['hidden_dim']}, "
-        f"{cfg['layers']} layers, heads {cfg.get('heads', '-')}, amp {cfg['amp']}) "
-        f"ran {epochs} epochs, main() wall {wall:.1f} s, "
+        f"{cfg['layers']} layers, heads {cfg.get('heads', '-')}, amp {cfg['amp']}, "
+        f"epochs_per_sync {cfg.get('epochs_per_sync', 'auto')} -> K={k}) ran {n_run} epochs "
+        f"({device_epochs(metrics)} on the device), main() wall {wall:.1f} s, "
         f"train {metrics['train_seconds']:.3f} s")
-    log("epoch wall times (s): " + ", ".join(
-        f"{s:.4f}" for s in metrics["epoch_seconds"]))
+    log("epoch wall times (s): " + ", ".join(f"{v:.4f}" for v in metrics["epoch_seconds"]))
+    if "graph_replays" in metrics:
+        log(f"K loop: {metrics['graph_replays']} replays of the captured epoch; launches "
+            f"captured in it {metrics['graph_launches']}; device ms of one replayed epoch "
+            f"per block {[round(v, 4) for v in metrics['replay_ms']]}")
     log(f"kernel launches in the run: {launches}")
-    if epochs != EPOCHS:
-        fail(f"{config_name} ran {epochs} epochs, not {EPOCHS}")
+    if expect_epochs and n_run != epochs:
+        fail(f"{config_name} ran {n_run} epochs, not {epochs}")
     for name in ("metrics.json", "scores_val.npy", "scores_test.npy", "y_test.npy",
                  "node_idx_test.npy", "training_log.csv", "config_used.yaml",
                  "best.ckpt"):
@@ -1064,17 +1165,159 @@ def slice_phase(tmp, processed, config_name, run_name=None):
     val_pr_auc = [float(r[2]) for r in rows]
     scores = np.load(os.path.join(outdir, "scores_test.npy"))
     y_test = np.load(os.path.join(outdir, "y_test.npy"))
-    if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
+    if not all(math.isfinite(v) for v in losses):
         fail(f"losses not finite: {losses}")
     if scores.shape != y_test.shape or not np.isfinite(scores).all() or \
             scores.min() < 0 or scores.max() > 1:
         fail("test scores are not finite probabilities of the expected shape")
     log(f"losses {losses}; val PR-AUC {val_pr_auc}; test PR-AUC "
         f"{metrics['pr_auc_illicit']:.4f}, ROC-AUC {metrics['roc_auc']:.4f} "
-        f"(random weights, {epochs} epochs)")
+        f"(random weights, {n_run} epochs)")
     check_jax_ckpt(outdir, cfg)
-    return dict(launches=launches, cfg=cfg, outdir=outdir, losses=losses,
-                val_pr_auc=val_pr_auc, scores=scores)
+    return dict(launches=launches, metrics=metrics, cfg=cfg, outdir=outdir,
+                losses=losses, val_pr_auc=val_pr_auc, scores=scores)
+
+
+def compare_runs(name, a, b, n=None) -> None:
+    """Per-epoch loss and val PR-AUC of run a against run b (the first n
+    epochs) within KLOOP_TOL."""
+    n = len(b["losses"]) if n is None else n
+    if len(a["losses"]) < n:
+        fail(f"{name}: {len(a['losses'])} epochs logged, want {n}")
+    loss = max(abs(x - y) for x, y in zip(a["losses"][:n], b["losses"][:n]))
+    pr = max(abs(x - y) for x, y in zip(a["val_pr_auc"][:n], b["val_pr_auc"][:n]))
+    log(f"{name}: {n} epochs, loss max abs {loss:.3e}, val PR-AUC max abs {pr:.3e} "
+        f"(tol {KLOOP_TOL:.0e})")
+    if loss > KLOOP_TOL or pr > KLOOP_TOL:
+        fail(f"{name}: the runs disagree per epoch")
+
+
+def stop_patience(prs, k=8):
+    """The smallest patience at which the early stop on `prs` (val PR-AUC
+    per epoch, no stop in them) falls inside a block of k epochs: (patience,
+    stop epoch), or None."""
+    for patience in range(1, len(prs)):
+        best, bad = -1.0, 0
+        for ep, pr in enumerate(prs, 1):
+            best, bad = (pr, 0) if pr > best else (best, bad + 1)
+            if bad >= patience:
+                if ep % k:
+                    return patience, ep
+                break
+    return None
+
+
+def kloop_phase(tmp, processed, config_name, k_run, serial_run) -> bool:
+    """The K = 8 run (k_run, KLOOP_EPOCHS, no stop) against the serial run
+    of the same epochs per epoch; then both loops again with the patience at
+    which the stop falls inside a block, chosen from k_run's log or, where
+    val PR-AUC rose in every epoch, from a run at a 10 or 100 times larger
+    step: the same stop epoch and the same rows. Returns whether a stop
+    inside a block was found."""
+    compare_runs(f"{config_name} K=8 against serial", k_run, serial_run)
+    name, extra = k_run["cfg"]["run_name"], {}
+    found = stop_patience(k_run["val_pr_auc"])
+    for factor in (10, 100):
+        if found is not None:
+            break
+        extra = {"lr": factor * float(k_run["cfg"]["lr"])}
+        log(f"{config_name}: val PR-AUC rose in every epoch; a run at lr {extra['lr']}")
+        probe = slice_phase(tmp, processed, config_name, f"{name}_lr{factor}",
+                            epochs=KLOOP_EPOCHS, **extra)
+        found = stop_patience(probe["val_pr_auc"])
+    if found is None:
+        log(f"{config_name}: no patience stops the {KLOOP_EPOCHS} epochs inside a block")
+        return False
+    patience, stop = found
+    log(f"{config_name}: patience {patience} stops at epoch {stop}, inside block "
+        f"{(stop - 1) // 8 + 1}" + (f", at lr {extra['lr']}" if extra else ""))
+    runs = [slice_phase(tmp, processed, config_name, f"{name}_stop{k}",
+                        epochs=KLOOP_EPOCHS, expect_epochs=False, patience=patience,
+                        epochs_per_sync=k, **extra) for k in ("auto", 1)]
+    got = [r["metrics"]["epochs_run"] for r in runs]
+    if got != [stop, stop]:
+        fail(f"{config_name} with patience {patience}: K loop stopped after {got[0]} "
+             f"epochs, serial after {got[1]}, predicted {stop}")
+    compare_runs(f"{config_name} K=8 stopped inside a block against serial", *runs)
+    return True
+
+
+def resume_phase(tmp, processed, uninterrupted) -> None:
+    """rec_k8 stopped at its checkpoint after 8 epochs, then resumed to
+    KLOOP_EPOCHS: the same rows and best_val as the uninterrupted run (which
+    wrote checkpoint_every 8 too)."""
+    import numpy as np
+
+    name = "rec_k8_resumed"
+    slice_phase(tmp, processed, "rec_k8.yaml", name, epochs=8, checkpoint_every=8)
+    with np.load(os.path.join(tmp, "out", "gnn", name, "resume.ckpt")) as z:
+        saved = int(z["__scalar__/epoch"])
+    resumed = slice_phase(tmp, processed, "rec_k8.yaml", name, epochs=KLOOP_EPOCHS,
+                          expect_epochs=False, checkpoint_every=8, resume=True)
+    if saved != 8 or resumed["metrics"]["epochs_run"] != KLOOP_EPOCHS - 8:
+        fail(f"resume: checkpoint of epoch {saved}, {resumed['metrics']['epochs_run']} "
+             "epochs after it")
+    compare_runs("rec_k8 stopped at epoch 8 and resumed, against one run", resumed,
+                 uninterrupted)
+    a = resumed["metrics"]["best_val_pr_auc"]
+    b = uninterrupted["metrics"]["best_val_pr_auc"]
+    log(f"resume: best_val {a:.6f}, uninterrupted {b:.6f}")
+    if abs(a - b) > KLOOP_TOL:
+        fail("the resumed run ends with another best_val than the uninterrupted one")
+
+
+def analysis_phase(run) -> None:
+    """The inline hub ablation of `run` (ablate_hubs_frac 0.05) and the
+    robustness and hub-ablation CLIs on its run dir, through the kernels at
+    Elliptic scale: finite metrics, kernels launched."""
+    import json
+
+    import numpy as np
+
+    from elliptic_gnn_tpu_torch.analysis import hub_ablation, robustness
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
+
+    outdir = run["outdir"]
+    with open(os.path.join(outdir, "metrics_hub_removed.json")) as fh:
+        inline = json.load(fh)
+    results = {"inline": inline}
+    for name, fn, argv in (
+            ("hub_ablation", hub_ablation.main, ["--frac", "0.05"]),
+            ("robustness", robustness.main, ["--drop_frac", "0.1", "--noise_std", "0.1"])):
+        bsda_spmm_cuda.reset_launches()
+        t0 = time.time()
+        results[name] = fn(["--run_dir", outdir] + argv)
+        launched = dict(bsda_spmm_cuda.launches)
+        log(f"{name} CLI on {run['cfg']['run_name']}: {time.time() - t0:.1f} s, "
+            f"launches {launched}")
+        if not launched["ring"] or not launched["banded"]:
+            fail(f"the {name} CLI did not score through the BSDA kernel")
+    for name, r in results.items():
+        vals = [v for v in r.values() if isinstance(v, float)]
+        log(f"{name}: " + ", ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                                    for k, v in r.items()))
+        if not all(np.isfinite(vals)):
+            fail(f"{name} metrics are not finite")
+    want_hubs = int(0.05 * N_NODES)
+    if inline["n_hubs"] != want_hubs or results["hub_ablation"]["n_hubs"] != want_hubs:
+        fail(f"hub ablation removed {inline['n_hubs']} / "
+             f"{results['hub_ablation']['n_hubs']} hubs, want {want_hubs}")
+
+
+def report_walls(name, runs) -> None:
+    """Epoch walls of runs of one config in the order run: the median of
+    each run's epochs after the first block (K) or the first epoch
+    (serial), and the device time of one replayed epoch."""
+    import numpy as np
+
+    for r in runs:
+        m = r["metrics"]
+        k = m.get("epochs_per_sync", 1)
+        walls = m["epoch_seconds"][k if k > 1 else 1:]
+        log(f"walls [{name} {r['cfg']['run_name']}, K={k}]: median "
+            f"{1e3 * float(np.median(walls)):.3f} ms over {len(walls)} epochs"
+            + (f", one replayed epoch {m['replay_ms'][-1]:.3f} ms on the device"
+               if m.get("replay_ms") else ""))
 
 
 def check_jax_ckpt(outdir, cfg) -> None:
@@ -1109,37 +1352,44 @@ def check_jax_ckpt(outdir, cfg) -> None:
         fail(f"best.ckpt of {cfg['run_name']} is not in the JAX npz layout: {shapes}")
 
 
-def check_rec_k8_launches(launches) -> None:
-    gat = {k: v for k, v in launches.items() if k.startswith("gat")}
-    if launches["ring"] + launches["banded"] < 8 * EPOCHS or \
-            min(launches["ring"], launches["banded"]) == 0 or any(gat.values()):
+def check_rec_k8_launches(run) -> None:
+    """Per epoch on the device: ring 6, banded 2 (three layers forward, two
+    on the transpose tables, three in the val eval); the scoring pass adds
+    one forward (ring 2, banded 1), the hub ablation's scoring another."""
+    launches, epochs = run["launches"], device_epochs(run["metrics"])
+    scoring = 1 + (float(run["cfg"].get("ablate_hubs_frac", 0) or 0) > 0)
+    want = {"ring": 6 * epochs + 2 * scoring, "banded": 2 * epochs + scoring}
+    if {k: launches[k] for k in want} != want or \
+            any(v for k, v in launches.items() if k.startswith("gat")):
         fail(f"rec_k8 did not run every epoch through the BSDA kernel alone: "
-             f"{launches} for {EPOCHS} epochs (want >= 8 per epoch, both variants)")
+             f"{launches} for {epochs} epochs on the device, want {want}")
 
 
-def check_gat_launches(launches, two_sweep=False) -> None:
+def check_gat_launches(run, two_sweep=False) -> None:
     """Per epoch: the training step launches the forward twice (hidden
     layer with the slot cover, final layer without) and the backward twice
     (one a layer: the one-sweep kernel, or with `two_sweep` each of the two
     sweeps and the one-sweep kernel never), the val eval the forward
     twice; the final scoring pass adds one forward of each variant."""
-    want = {"gat_fwd_gated": 2 * EPOCHS + 1, "gat_fwd": 2 * EPOCHS + 1,
-            "gat_bwd": 0 if two_sweep else 2 * EPOCHS,
-            "gat_bwd_dst": 2 * EPOCHS if two_sweep else 0,
-            "gat_bwd_src": 2 * EPOCHS if two_sweep else 0, "ring": 0, "banded": 0}
-    if launches != want:
+    epochs = device_epochs(run["metrics"])
+    want = {"gat_fwd_gated": 2 * epochs + 1, "gat_fwd": 2 * epochs + 1,
+            "gat_bwd": 0 if two_sweep else 2 * epochs,
+            "gat_bwd_dst": 2 * epochs if two_sweep else 0,
+            "gat_bwd_src": 2 * epochs if two_sweep else 0, "ring": 0, "banded": 0}
+    if run["launches"] != want:
         fail(f"gat.yaml did not run every epoch through the GAT kernels: "
-             f"{launches}, want {want}")
+             f"{run['launches']}, want {want}")
 
 
-def check_conv_launches(name, launches, per_epoch, scoring) -> None:
+def check_conv_launches(name, run, per_epoch, scoring) -> None:
     """gcn.yaml: three aggregations a forward, all of one 128-lane tile (F =
     128, 128 and the 2 logits): per epoch 3 forward + 3 on the transpose
     tables + 3 val eval as `ring`, none as `banded`. sage.yaml: layer 1
     aggregates the 167 input features (`banded`, no gradient: forward + val
     eval), layer 2 F = 128 (`ring`: forward, transpose, val eval). The
     scoring pass adds one forward."""
-    want = {k: per_epoch[k] * EPOCHS + scoring[k] for k in ("ring", "banded")}
+    launches, epochs = run["launches"], device_epochs(run["metrics"])
+    want = {k: per_epoch[k] * epochs + scoring[k] for k in ("ring", "banded")}
     got = {k: launches[k] for k in want}
     if got != want or any(v for k, v in launches.items() if k.startswith("gat")):
         fail(f"{name} did not run every epoch through the BSDA kernel alone: "
@@ -1159,7 +1409,7 @@ def check_two_sweep_runs(one, two_a, two_b) -> None:
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(two_a["losses"], one["losses"]))
     pr_abs = max(abs(a - b) for a, b in zip(two_a["val_pr_auc"], one["val_pr_auc"]))
     score_abs = float(np.abs(two_a["scores"] - one["scores"]).max())
-    log(f"gat.yaml two-sweep: {EPOCHS} epochs twice, scores_test.npy and losses "
+    log(f"gat.yaml two-sweep: {len(two_a['losses'])} epochs twice, scores_test.npy and losses "
         f"bit-equal; against the one-sweep run: loss max rel {loss_rel:.3e} (tol "
         f"{TWO_SWEEP_LOSS_RTOL:.0e}), val PR-AUC max abs {pr_abs:.3e} (tol "
         f"{TWO_SWEEP_PR_ATOL:.0e}), test scores max abs {score_abs:.3e}")
@@ -1203,7 +1453,7 @@ def profile_phase(cfg, kernel_names) -> None:
 
     from elliptic_gnn_tpu_torch.train import train_gnn
 
-    cfg = dict(cfg, max_epochs=PROFILE_EPOCHS,
+    cfg = dict(cfg, max_epochs=PROFILE_EPOCHS, checkpoint_every=0, ablate_hubs_frac=0.0,
                output_root=cfg["output_root"] + "_profile")
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1249,27 +1499,47 @@ def drive(device) -> list:
     gat_autograd_check(device)
     small_reference_check(device)
     with tempfile.TemporaryDirectory() as tmp:
-        processed = build_processed(tmp)
-        rec = slice_phase(tmp, processed, "rec_k8.yaml")
-        check_rec_k8_launches(rec["launches"])
-        gat = slice_phase(tmp, processed, "gat.yaml")
-        check_gat_launches(gat["launches"])
+        processed = csv_phase(tmp, build_processed(tmp))
+        # rec_k8 as its config is written (epochs_per_sync auto: K = 8), with
+        # checkpoints and the hub ablation; then, interleaved, the serial loop
+        rec = slice_phase(tmp, processed, "rec_k8.yaml", epochs=KLOOP_EPOCHS,
+                          checkpoint_every=8, ablate_hubs_frac=0.05)
+        check_rec_k8_launches(rec)
+        rec_serial = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_serial",
+                                 epochs=KLOOP_EPOCHS, epochs_per_sync=1)
+        check_rec_k8_launches(rec_serial)
+        stopped = [kloop_phase(tmp, processed, "rec_k8.yaml", rec, rec_serial)]
+        resume_phase(tmp, processed, rec)
+        analysis_phase(rec)
+        report_walls("rec_k8", (rec, rec_serial))
+        gat = slice_phase(tmp, processed, "gat.yaml", epochs=KLOOP_EPOCHS)
+        check_gat_launches(gat)
         predict_check(gat["outdir"])
+        gat_serial = slice_phase(tmp, processed, "gat.yaml", "gat_serial",
+                                 epochs=KLOOP_EPOCHS, epochs_per_sync=1)
+        check_gat_launches(gat_serial)
+        stopped.append(kloop_phase(tmp, processed, "gat.yaml", gat, gat_serial))
+        if not any(stopped):
+            fail("no K-loop run stopped inside a block")
         with two_sweep_backward():
-            gat2 = slice_phase(tmp, processed, "gat.yaml", "gat_two_sweep_a")
-            gat2_again = slice_phase(tmp, processed, "gat.yaml", "gat_two_sweep_b")
-        check_gat_launches(gat2["launches"], two_sweep=True)
-        check_gat_launches(gat2_again["launches"], two_sweep=True)
+            gat2 = slice_phase(tmp, processed, "gat.yaml", "gat_two_sweep_a",
+                               epochs=KLOOP_EPOCHS)
+            gat2_again = slice_phase(tmp, processed, "gat.yaml", "gat_two_sweep_b",
+                                     epochs=KLOOP_EPOCHS)
+        check_gat_launches(gat2, two_sweep=True)
+        check_gat_launches(gat2_again, two_sweep=True)
         check_two_sweep_runs(gat, gat2, gat2_again)
+        report_walls("gat.yaml", (gat, gat_serial, gat2, gat2_again))
         gcn = slice_phase(tmp, processed, "gcn.yaml")
-        check_conv_launches("gcn.yaml", gcn["launches"],
+        check_conv_launches("gcn.yaml", gcn,
                             per_epoch={"ring": 9, "banded": 0},
                             scoring={"ring": 3, "banded": 0})
         sage = slice_phase(tmp, processed, "sage.yaml")
-        check_conv_launches("sage.yaml", sage["launches"],
+        check_conv_launches("sage.yaml", sage,
                             per_epoch={"ring": 3, "banded": 2},
                             scoring={"ring": 1, "banded": 1})
         profile_phase(rec["cfg"], ["bsda_spmm_kernel"])
+        profile_phase(rec_serial["cfg"], ["bsda_spmm_kernel"])
         profile_phase(gat["cfg"], ["gat_fwd_kernel", "gat_bwd_kernel"])
         with two_sweep_backward():
             profile_phase(gat2["cfg"], ["gat_fwd_kernel", "gat_bwd_dst_kernel",

@@ -1,10 +1,11 @@
-"""Graph-build CLI: synthetic graph -> processed graph.npz + meta.json.
+"""Graph-build CLI: raw CSVs (or synthetic) -> processed graph.npz + meta.json.
 
-Counterpart of elliptic_gnn_tpu/graph/build_graph.py, synthetic branch:
+Counterpart of elliptic_gnn_tpu/graph/build_graph.py:
     python -m elliptic_gnn_tpu_torch.graph.build_graph --config configs/split.yaml
-As in the JAX package, a missing raw CSV set (or git-lfs pointer stubs)
-selects the deterministic synthetic graph. Real CSV ingest is not ported
-yet: usable CSVs without `synthetic: true` raise.
+The three Elliptic CSVs under `data_dir` are read by graph/ingest.py. If
+they are missing (or are git-lfs pointer stubs), or the config sets
+`synthetic: true` (or --synthetic is passed), a deterministic Elliptic-like
+synthetic graph is built instead so the pipeline stays runnable end to end.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import yaml
 
 from ..utils.common import ensure_dir, save_json, set_seed
 from .data import save_processed
+from .ingest import load_elliptic_as_graph
 from .masks import make_temporal_masks
 from . import synthetic
 
@@ -39,22 +41,20 @@ def main(cfg: dict) -> None:
         cfg.get("classes_csv", "elliptic_txs_classes.csv"),
         cfg.get("edgelist_csv", "elliptic_txs_edgelist.csv"),
     )
-    if not bool(cfg.get("synthetic", False)) and _raw_csvs_usable(data_dir, names):
-        raise NotImplementedError(
-            f"raw Elliptic CSVs found in {data_dir}, but CSV ingest is not "
-            "ported to elliptic_gnn_tpu_torch yet: build the graph with "
-            "`python -m elliptic_gnn_tpu.graph.build_graph` (same on-disk "
-            "format) or set `synthetic: true`"
+    use_synth = bool(cfg.get("synthetic", False)) or not _raw_csvs_usable(data_dir, names)
+    if use_synth:
+        print("[BUILD] raw CSVs unavailable or synthetic requested -> synthetic graph")
+        data = synthetic.generate(
+            num_nodes=int(cfg.get("synthetic_nodes", 20000)),
+            num_features=int(cfg.get("synthetic_features", 166)),
+            num_timesteps=int(cfg.get("t_max", 49)),
+            seed=int(cfg.get("seed", 42)),
         )
-    print("[BUILD] raw CSVs unavailable or synthetic requested -> synthetic graph")
-    data = synthetic.generate(
-        num_nodes=int(cfg.get("synthetic_nodes", 20000)),
-        num_features=int(cfg.get("synthetic_features", 166)),
-        num_timesteps=int(cfg.get("t_max", 49)),
-        seed=int(cfg.get("seed", 42)),
-    )
-    meta = data.meta()
-    meta["source"] = "synthetic"
+        meta = data.meta()
+        meta["source"] = "synthetic"
+    else:
+        data, meta = load_elliptic_as_graph(data_dir, *names)
+        meta["source"] = "elliptic_csv"
 
     data = make_temporal_masks(
         data,

@@ -14,7 +14,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..utils.common import ensure_dir, save_json
+from ..utils.common import ensure_dir, load_json, save_json
 
 GRAPH_FILE = "graph.npz"
 META_FILE = "meta.json"
@@ -138,3 +138,6 @@ def load_processed(processed_dir: str) -> GraphData:
         kw = {k: z[k] for k in z.files}
     return GraphData(**kw)
 
+
+def load_meta(processed_dir: str) -> Dict:
+    return load_json(os.path.join(processed_dir, META_FILE))

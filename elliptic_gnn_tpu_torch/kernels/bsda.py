@@ -24,6 +24,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.common import upload
+
 from .ell import EllGraph, build_ell_graph, ell_weighted_sum, gcn_norm_weights
 
 CHUNK = 128
@@ -69,7 +71,7 @@ class BsdaGraph:
         """A copy with every table on `device`."""
 
         def mv(t):
-            return None if t is None else t.to(device)
+            return None if t is None else upload(t, device)
 
         return dataclasses.replace(
             self,

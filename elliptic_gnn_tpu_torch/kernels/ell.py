@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.common import upload
+
 
 @dataclasses.dataclass
 class EllGraph:
@@ -40,7 +42,7 @@ class EllGraph:
 
     def to(self, device) -> "EllGraph":
         def mv(t):
-            return None if t is None else t.to(device)
+            return None if t is None else upload(t, device)
 
         return dataclasses.replace(
             self,

@@ -12,6 +12,10 @@ JAX stores dense weights as [d_in, d_out]; nn.Linear holds [d_out, d_in].
 GAT: params = {"layers": [{"w" [F, H, Ch], "a_src", "a_dst" [H, Ch], "b"}]},
 no state; the port keeps the same shapes. GCN: {"layers": [{"w", "b"}]};
 SAGE: {"layers": [{"w_l", "b_l", "w_r"}]}; no state either.
+
+Both take an optional map from each of the module's tensors (parameter or
+BN buffer) to the tensor read or written in its place, so that the same
+layout carries a saved best model or Adam's moments (train/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from torch import nn
 from .modules import GAT, GCN, SAGE, SageResBN
 
 
-def _copy(dst: torch.Tensor, src, transpose: bool = False) -> None:
+def _copy_into(dst: torch.Tensor, src, transpose: bool = False) -> None:
     v = np.asarray(src, np.float32)
     if transpose:
         v = v.T
@@ -31,8 +35,16 @@ def _copy(dst: torch.Tensor, src, transpose: bool = False) -> None:
     dst.copy_(torch.from_numpy(np.array(v, copy=True)))
 
 
-def params_from_jax(params_np: dict, state_np: dict, model: nn.Module) -> nn.Module:
-    """Copy the JAX parameters and BN state into `model` in place; returns it."""
+def params_from_jax(params_np: dict, state_np, model: nn.Module,
+                    put=None) -> nn.Module:
+    """Copy the JAX parameters and BN state into `model` in place; returns
+    it. `put(t)` names the tensor written in place of the module's tensor t
+    (default t itself); `state_np` None leaves the BN state alone."""
+    if put is not None:
+        def _copy(dst, src, transpose=False):
+            _copy_into(put(dst), src, transpose)
+    else:
+        _copy = _copy_into
     with torch.no_grad():
         if len(params_np["layers"]) != len(model.layers):
             raise ValueError("layer count differs between JAX params and model")
@@ -55,9 +67,10 @@ def params_from_jax(params_np: dict, state_np: dict, model: nn.Module) -> nn.Mod
         if isinstance(model, SAGE):
             return model
         if model.bns is not None:
-            for bn, p, s in zip(model.bns, params_np["bns"], state_np["bns"]):
+            for bn, p in zip(model.bns, params_np["bns"]):
                 _copy(bn.scale, p["scale"])
                 _copy(bn.bias, p["bias"])
+            for bn, s in zip(model.bns, [] if state_np is None else state_np["bns"]):
                 _copy(bn.mean, s["mean"])
                 _copy(bn.var, s["var"])
                 _copy(bn.count, s["count"])
@@ -72,16 +85,22 @@ def params_from_jax(params_np: dict, state_np: dict, model: nn.Module) -> nn.Mod
     return model
 
 
-def _np(t: torch.Tensor, transpose: bool = False) -> np.ndarray:
+def _np_of(t: torch.Tensor, transpose: bool = False) -> np.ndarray:
     v = t.detach().cpu().float().numpy()
     return np.array(v.T if transpose else v, order="C")  # 0-d stays 0-d
 
 
-def params_to_jax(model: nn.Module):
+def params_to_jax(model: nn.Module, take=None):
     """The inverse of params_from_jax: (params_np, state_np), the JAX
     model's pytrees as numpy arrays. Dense weights go back to [d_in,
     d_out]; an identity residual projection is None, as in the JAX
-    params; the BN count is a 0-d array."""
+    params; the BN count is a 0-d array. `take(t)` names the tensor read in
+    place of the module's tensor t (default t itself)."""
+    if take is not None:
+        def _np(t, transpose=False):
+            return _np_of(take(t), transpose)
+    else:
+        _np = _np_of
     if isinstance(model, GAT):
         return {"layers": [{name: _np(getattr(layer, name))
                             for name in ("w", "a_src", "a_dst", "b")}

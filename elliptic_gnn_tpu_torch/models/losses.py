@@ -34,17 +34,20 @@ def cross_entropy_per_sample(logits, targets, weights=None):
     return ce
 
 
-def make_loss_parts(cfg: dict, cw: np.ndarray, t_min: int, t_max: int):
+def make_loss_parts(cfg: dict, cw: np.ndarray, t_min: int, t_max: int,
+                    device=None):
     """The loss factory split into composable parts:
 
       loss_vec_fn(logits, targets, t_idx) -> per-sample loss vector
       penalty_fn(model)                   -> scalar parameter penalty
-    """
+
+    The class weights are put on `device` once, here: a call makes no
+    host-to-device copy (none may happen inside a captured CUDA graph)."""
     use_focal = bool(cfg.get("focal_loss", False))
     gamma = float(cfg.get("focal_gamma", 2.0))
     scheme = str(cfg.get("time_loss_weighting", "none"))
     embed_l2 = float(cfg.get("time_embed_l2", 0.0))
-    cw_t = torch.as_tensor(np.asarray(cw, np.float32))
+    cw_t = torch.as_tensor(np.asarray(cw, np.float32), device=device)
     denom_t = max(float(t_max - t_min), 1.0)
     if scheme not in ("none", "linear", "sqrt"):
         raise ValueError(f"unknown time_loss_weighting={scheme}")
@@ -76,11 +79,11 @@ def make_loss_parts(cfg: dict, cw: np.ndarray, t_min: int, t_max: int):
     return loss_vec_fn, penalty_fn
 
 
-def make_loss_fn(cfg: dict, cw: np.ndarray, t_min: int, t_max: int):
+def make_loss_fn(cfg: dict, cw: np.ndarray, t_min: int, t_max: int, device=None):
     """Returns loss(model, logits, targets, t_idx, sample_mask) -> scalar:
     the mean over the mask count of the per-sample losses, plus the
     penalty."""
-    loss_vec_fn, penalty_fn = make_loss_parts(cfg, cw, t_min, t_max)
+    loss_vec_fn, penalty_fn = make_loss_parts(cfg, cw, t_min, t_max, device)
 
     def loss_fn(model, logits, targets, t_idx=None, sample_mask=None):
         loss_vec = loss_vec_fn(logits, targets, t_idx)

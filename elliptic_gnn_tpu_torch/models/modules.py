@@ -82,7 +82,9 @@ class BatchNorm(nn.Module):
                 s = (h * m).sum(dim=0)
                 sq = (h * h * m).sum(dim=0)
             else:
-                n = torch.tensor(float(h.shape[0]), dtype=h.dtype, device=h.device)
+                # a fill on the device, no host-to-device copy (the epoch
+                # runs inside a captured CUDA graph)
+                n = h.new_full((), float(h.shape[0]))
                 s = h.sum(dim=0)
                 sq = (h * h).sum(dim=0)
             mean = s / n

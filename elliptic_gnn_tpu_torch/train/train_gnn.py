@@ -4,24 +4,35 @@
 
 Same YAML keys and the same `outputs/gnn/<run>` artifacts (metrics.json,
 scores_*.npy, y_*.npy, node_idx_*.npy, timestep_*.npy, config_used.yaml,
-training_log.csv, best.ckpt) as the JAX trainer. Each epoch: forward over
-the full graph through the BSDA tables (the CUDA kernels on the GPU: the
-SpMM for GCN, SAGE and the SAGE-ResBN family, the flash attention for GAT),
-masked loss on train nodes, backward (the SpMM on the transpose tables; for
-GAT the one-sweep backward kernel on the forward tables or, with
-EGNN_GAT_ONE_SWEEP=0 or torch.use_deterministic_algorithms(True), the
-bit-reproducible two-sweep pair), grad clip, Adam with L2, then an
-eval forward whose val probabilities and the loss come back to the host in
-one copy. The host processes epoch e while
-epoch e+1 runs on the device, so early stopping lags one epoch, as in the
-JAX serial loop.
+training_log.csv, best.ckpt, resume.ckpt with `checkpoint_every`,
+metrics_hub_removed.json with `ablate_hubs_frac`) as the JAX trainer. Each
+epoch: forward over the full graph through the BSDA tables (the CUDA
+kernels on the GPU: the SpMM for GCN, SAGE and the SAGE-ResBN family, the
+flash attention for GAT), masked loss on train nodes, backward (the SpMM on
+the transpose tables; for GAT the one-sweep backward kernel on the forward
+tables or, with EGNN_GAT_ONE_SWEEP=0 or
+torch.use_deterministic_algorithms(True), the bit-reproducible two-sweep
+pair), grad clip, Adam with L2, then an eval forward for the val
+probabilities.
+
+Two loops make the same per-epoch decisions (early stop on val PR-AUC with
+`patience`, best-model tracking):
+  - serial (`epochs_per_sync: 1`): the val probabilities and the loss come
+    back to the host in one copy per epoch; the host processes epoch e
+    while epoch e+1 runs on the device, so early stopping lags one epoch;
+  - K-epoch (`epochs_per_sync: K > 1`; `auto` is K = 8 on CUDA and 1 on the
+    CPU): val PR-AUC (tie-exact, utils/metrics.py pr_auc_illicit_device),
+    best tracking and patience run on the device, and the host reads one
+    [3, K] report per block of K epochs. On CUDA the first epoch runs
+    eagerly (it also builds the kernels), then one epoch is captured as a
+    CUDA graph and replayed; a capture that fails raises. On the CPU the
+    same epoch body runs eagerly.
 
 Runs on CUDA (`device: auto` or `cuda`) and raises when there is no GPU,
 unless the config says `device: cpu`.
 
-Not ported yet (raise): mini-batch training, multi-device meshes, resume
-and periodic checkpoints, hub ablation, profiling.
-`epochs_per_sync > 1` runs the serial loop.
+Not ported yet (raise): mini-batch training, multi-device meshes,
+`aggregation: ell`, profiling.
 """
 from __future__ import annotations
 
@@ -36,7 +47,8 @@ import torch
 import yaml
 
 from ..graph import load_processed, make_temporal_masks
-from ..graph.transform import append_scalar_time, symmetrize_edges
+from ..graph.transform import append_scalar_time, remove_hub_edges, symmetrize_edges
+from ..kernels import bsda_spmm_cuda, gat_cuda
 from ..kernels.bsda import bfs_order, build_bsda_for_kind
 from ..kernels.packed_gat import use_two_sweep_backward
 from ..models import MODEL_GRAPH_KIND, build_model
@@ -44,7 +56,7 @@ from ..models.convert import params_from_jax
 from ..models.losses import class_weights, make_loss_fn
 from ..utils import metrics as M
 from ..utils.common import (
-    ensure_dir, log_device_info, resolve_device, save_json, set_seed,
+    ensure_dir, log_device_info, resolve_device, save_json, set_seed, upload,
 )
 from ..utils.logger import RunLogger
 from . import calibrate, checkpoint
@@ -54,9 +66,6 @@ def _reject_unported(cfg: dict) -> None:
     unported = {
         "mini_batch": bool(cfg.get("mini_batch", False)),
         "mesh_devices": (cfg.get("mesh_devices", 1) or 1) not in (1, "1"),
-        "resume": bool(cfg.get("resume", False)),
-        "checkpoint_every": int(cfg.get("checkpoint_every", 0) or 0) > 0,
-        "ablate_hubs_frac": float(cfg.get("ablate_hubs_frac", 0.0) or 0.0) > 0,
         "profile_dir": bool(cfg.get("profile_dir")),
         "aggregation": str(cfg.get("aggregation", "auto")) not in (
             "auto", "bsda", "bsda_pallas"),
@@ -65,17 +74,29 @@ def _reject_unported(cfg: dict) -> None:
     if bad:
         raise NotImplementedError(
             f"config option(s) {bad} are not ported to elliptic_gnn_tpu_torch "
-            "yet (ROADMAP Queue A #5 resume/checkpoint_every/ablate_hubs_frac/"
-            "profile_dir, #9 mini_batch, #10 mesh_devices and aggregation); "
-            "use the JAX trainer (elliptic_gnn_tpu.train.train_gnn)")
+            "yet (ROADMAP Queue A #4 aggregation and profile_dir, #5 mini_batch, "
+            "#7 mesh_devices); use the JAX trainer (elliptic_gnn_tpu.train.train_gnn)")
 
 
-def make_optimizer(model: torch.nn.Module, cfg: dict) -> torch.optim.Adam:
+def make_optimizer(model: torch.nn.Module, cfg: dict,
+                   capturable: bool = False) -> torch.optim.Adam:
     """torch.optim.Adam with L2 weight decay added to the gradient before
-    the moments (not AdamW); the epoch step clips the grad norm first."""
+    the moments (not AdamW); the epoch step clips the grad norm first.
+    `capturable` keeps the step count on the device (CUDA), as a captured
+    epoch needs; the trainer sets it for both of its loops on CUDA."""
     return torch.optim.Adam(
         model.parameters(), lr=float(cfg["lr"]), betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=float(cfg.get("weight_decay", 0.0)))
+        weight_decay=float(cfg.get("weight_decay", 0.0)), capturable=capturable)
+
+
+def epochs_per_sync(cfg: dict, device: torch.device) -> int:
+    """K of the K-epoch loop: `auto` is 8 on CUDA and 1 (serial) on the CPU,
+    as the JAX trainer takes 8 on its accelerator; an integer pins K and 1
+    forces the serial loop."""
+    k_cfg = cfg.get("epochs_per_sync", "auto")
+    if k_cfg in (None, "auto"):
+        return 8 if device.type == "cuda" else 1
+    return int(k_cfg) or 1
 
 
 def prepare_data(cfg: dict):
@@ -108,14 +129,26 @@ def prepare_data(cfg: dict):
     return data
 
 
+def build_tables(cfg: dict, edge_index: np.ndarray, num_nodes: int,
+                 device: torch.device, transpose: bool):
+    """The int8 BSDA tables of the arch's graph kind on `device`: depth 3
+    for sage/gcn, 4 for gat (`bsda_depth` overrides)."""
+    kind = MODEL_GRAPH_KIND[cfg["arch"]]
+    return build_bsda_for_kind(
+        edge_index, num_nodes, kind,
+        depth=int(cfg.get("bsda_depth", 4 if kind == "gat" else 3)),
+        a_dtype="int8", transpose=transpose,
+    ).to(device)
+
+
 def build_graph_ops(cfg: dict, data, device: torch.device,
                     training: bool = True):
     """(data, gops): the graph BFS-renumbered (artifacts translate back via
     data.orig_index) and its int8 BSDA tables on `device`, as the JAX
-    trainer builds them for its kernel paths: depth 3 with transpose tables
-    for sage/gcn (gradients run the SpMM on A^T), depth 4 for gat, whose
-    one-sweep backward walks the forward tables; its transpose tables are
-    built only for `training` with the two-sweep backward chosen
+    trainer builds them for its kernel paths: with transpose tables for
+    sage/gcn (gradients run the SpMM on A^T); gat's one-sweep backward walks
+    the forward tables, its transpose tables are built only for `training`
+    with the two-sweep backward chosen
     (kernels/packed_gat.py::use_two_sweep_backward)."""
     arch = cfg["arch"]
     if arch not in MODEL_GRAPH_KIND:
@@ -125,12 +158,9 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
     kind = MODEL_GRAPH_KIND[arch]
     rank = bfs_order(data.edge_index, data.num_nodes, data.timestep)
     data = data.renumber(rank)
-    gops = build_bsda_for_kind(
-        data.edge_index, data.num_nodes, kind,
-        depth=int(cfg.get("bsda_depth", 4 if kind == "gat" else 3)),
-        a_dtype="int8",
-        transpose=kind != "gat" or (training and use_two_sweep_backward()),
-    ).to(device)
+    gops = build_tables(
+        cfg, data.edge_index, data.num_nodes, device,
+        transpose=kind != "gat" or (training and use_two_sweep_backward()))
     return data, gops
 
 
@@ -145,14 +175,14 @@ def build_train_state(cfg: dict, data, seed: int, device: torch.device,
     if init_params is not None:
         params_from_jax(init_params[0], init_params[1], model)
     model = model.to(device)
-    opt = make_optimizer(model, cfg)
+    opt = make_optimizer(model, cfg, capturable=device.type == "cuda")
 
     if cfg.get("class_weight_pos", "auto") == "auto":
         cw = class_weights(data.y[data.train_mask])
     else:
         cw = np.array([1.0, float(cfg["class_weight_pos"])], dtype=np.float32)
     t_train = data.timestep[data.train_mask]
-    loss_fn = make_loss_fn(cfg, cw, int(t_train.min()), int(t_train.max()))
+    loss_fn = make_loss_fn(cfg, cw, int(t_train.min()), int(t_train.max()), device)
     return data, model, gops, opt, loss_fn
 
 
@@ -168,79 +198,124 @@ def main(cfg: dict, init_params=None) -> dict:
     data = prepare_data(cfg)
     data, model, gops, opt, loss_fn = build_train_state(
         cfg, data, cfg.get("seed", 42), device, init_params)
+    inputs = _Inputs(data, device)
 
     t_start = time.time()
-    best_state, best_val, epochs_run, epoch_seconds = _train_loop_fullbatch(
-        cfg, data, model, gops, opt, loss_fn, logger, device)
+    best, best_val, epochs_run, epoch_seconds, loop_info = _train_loop_fullbatch(
+        cfg, outdir, inputs, model, gops, opt, loss_fn, logger, device)
     train_seconds = time.time() - t_start
-    model.load_state_dict(best_state)
+    model.load_state_dict(best)
     checkpoint.save_best(outdir, model)
 
-    return _finalize(cfg, outdir, data, model, gops, best_val, logger,
-                     train_seconds, epochs_run, epoch_seconds, device)
+    return _finalize(cfg, outdir, data, inputs, model, gops, best_val, logger,
+                     train_seconds, epochs_run, epoch_seconds, loop_info)
+
+
+class _Inputs:
+    """The graph's node arrays on the device, uploaded once through pinned
+    memory; they keep their addresses for the run (a captured epoch reads
+    them there)."""
+
+    def __init__(self, data, device: torch.device):
+        self.x = upload(data.x, device, torch.float32)
+        self.y = upload(np.maximum(data.y, 0).astype(np.int64), device)
+        self.t = upload(data.timestep.astype(np.int32), device)
+        self.train_mask = upload(data.train_mask.astype(np.float32), device)
+        self.val_idx = upload(np.where(data.val_mask)[0], device)
+        self.y_val = upload((data.y[data.val_mask] == 1).astype(np.int32), device)
 
 
 def _snapshot(model: torch.nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def _train_loop_fullbatch(cfg, data, model, gops, opt, loss_fn, logger, device):
-    k_cfg = cfg.get("epochs_per_sync", "auto")
-    if k_cfg not in (None, "auto") and int(k_cfg) > 1:
-        print(f"[TRAIN] epochs_per_sync={k_cfg}: the K-epoch device loop is "
-              "not ported yet; running the serial loop (same decisions)")
-
-    x = torch.as_tensor(data.x, dtype=torch.float32, device=device)
-    y_all = torch.as_tensor(np.maximum(data.y, 0).astype(np.int64), device=device)
-    t_all = torch.as_tensor(data.timestep.astype(np.int32), device=device)
-    train_mask_f = torch.as_tensor(data.train_mask.astype(np.float32), device=device)
-    val_idx = torch.as_tensor(np.where(data.val_mask)[0], device=device)
-    t_idx_arg = t_all if model.uses_time_embed else None
+def _train_loop_fullbatch(cfg, outdir, inputs, model, gops, opt, loss_fn,
+                          logger, device):
+    """Returns (best state_dict, best_val, epochs_run, epoch_seconds,
+    loop_info): epoch_seconds holds each epoch's host wall time (the serial
+    loop: one iteration; the K loop: its block's wall over the epochs the
+    block ran, the first block's eager epoch and capture included);
+    loop_info the K and, on CUDA, the replays of the captured epoch, the
+    kernel launches captured in it (each replay launches them again) and
+    replay_ms, per block the device time of one replayed epoch (CUDA events
+    around the block's replays)."""
+    t_idx_arg = inputs.t if model.uses_time_embed else None
     use_time_loss = str(cfg.get("time_loss_weighting", "none")) != "none"
     gen = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 42)) + 1)
-
     grad_clip = float(cfg.get("grad_clip", 0) or 0)
 
-    def epoch_step():
+    def train_step():
+        """One epoch on the device: training step, then the eval forward.
+        Returns (loss, val probabilities), both on the device."""
         model.train()
         opt.zero_grad(set_to_none=True)
-        logits = model(x, gops, t_idx_arg, generator=gen)
-        loss = loss_fn(model, logits, y_all, t_all if use_time_loss else None,
-                       train_mask_f)
+        logits = model(inputs.x, gops, t_idx_arg, generator=gen)
+        loss = loss_fn(model, logits, inputs.y, inputs.t if use_time_loss else None,
+                       inputs.train_mask)
         loss.backward()
         if grad_clip > 0:
             torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
         opt.step()
         model.eval()
         with torch.no_grad():
-            logits = model(x, gops, t_idx_arg)
-            probs_val = torch.softmax(logits, dim=1)[:, 1][val_idx]
-            fused = torch.cat([probs_val, loss.detach()[None]])
-        return fused, _snapshot(model)
+            logits = model(inputs.x, gops, t_idx_arg)
+            probs_val = torch.softmax(logits, dim=1)[:, 1][inputs.val_idx]
+        return loss.detach(), probs_val
 
-    y_val_bin = (data.y[data.val_mask] == 1).astype(int)
-    best_val, bad = -1.0, 0
-    best_state = _snapshot(model)
+    best = _snapshot(model)
+    best_val, bad, start_epoch = -1.0, 0, 1
+    if cfg.get("resume", False) and checkpoint.has_resume(outdir):
+        epoch, best_val, bad, rng = checkpoint.load_resume(outdir, model, opt, cfg, best)
+        # a file of the JAX package, or of a run on another device type,
+        # holds no state of this generator: it restarts from the seed
+        if rng is not None and rng.numel() == gen.get_state().numel():
+            gen.set_state(rng)
+        start_epoch = epoch + 1
+        print(f"[RESUME] from epoch {start_epoch} (best_val={best_val:.4f})")
+
+    k = epochs_per_sync(cfg, device)
+    run = _k_loop if k > 1 else _serial_loop
+    return run(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
+               best, best_val, bad, start_epoch, k)
+
+
+def _serial_loop(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
+                 best, best_val, bad, start_epoch, k):
+    y_val_bin = inputs.y_val.cpu().numpy()
     patience = int(cfg.get("patience", 20))
+    ckpt_every = int(cfg.get("checkpoint_every", 0) or 0)
     epochs_run = 0
-    epoch_seconds = []  # host wall time of each loop iteration
+    epoch_seconds = []
 
-    def process(ep, fused_dev, state_e) -> bool:
+    def epoch_step(ep):
+        loss, probs_val = train_step()
+        fused = torch.cat([probs_val, loss[None]])
+        # a checkpoint epoch keeps the optimizer and generator too: the host
+        # saves it one epoch later, when the model has moved on
+        saved = None
+        if ckpt_every and ep % ckpt_every == 0:
+            saved = (_snapshot_opt(opt), gen.get_state())
+        return ep, fused, _snapshot(model), saved
+
+    def process(ep, fused_dev, state_e, saved) -> bool:
         """Host tail of one epoch: pull the fused vector (the one sync),
-        val PR-AUC, best tracking, early-stop decision."""
-        nonlocal best_val, bad, best_state, epochs_run
+        val PR-AUC, best tracking, checkpoint, early-stop decision."""
+        nonlocal best_val, bad, best, epochs_run
         fused_h = fused_dev.cpu().numpy()
         p_val, loss_f = fused_h[:-1], float(fused_h[-1])
         pr_val = 0.0 if p_val.size == 0 else M.pr_auc_illicit(y_val_bin, p_val)
         logger.log_epoch(ep, loss_f, pr_val)
         epochs_run += 1
         if pr_val > best_val:
-            best_val, best_state, bad = pr_val, state_e, 0
+            best_val, best, bad = pr_val, state_e, 0
         else:
             bad += 1
         if ep % 10 == 0 or ep == 1:
             print(f"Epoch {ep:4d} | loss {loss_f:.4f} | "
                   f"val PR-AUC(illicit) {pr_val:.4f} (best {best_val:.4f})")
+        if saved is not None:
+            checkpoint.save_resume(outdir, model, saved[0], cfg, ep, best_val, bad,
+                                   best=best, rng_state=saved[1], current=state_e)
         if bad >= patience:
             print("Early stopping.")
             return True
@@ -249,31 +324,176 @@ def _train_loop_fullbatch(cfg, data, model, gops, opt, loss_fn, logger, device):
     # process the PREVIOUS epoch while this one runs on the device: the
     # early-stop check lags one epoch (one discarded in-flight epoch at stop)
     pending = None
-    for epoch in range(1, int(cfg["max_epochs"]) + 1):
+    for epoch in range(start_epoch, int(cfg["max_epochs"]) + 1):
         t0 = time.time()
-        fused, state_e = epoch_step()
+        step = epoch_step(epoch)
         stop = pending is not None and process(*pending)
         epoch_seconds.append(time.time() - t0)
         if stop:
             pending = None
             break
-        pending = (epoch, fused, state_e)
+        pending = step
     if pending is not None:
         process(*pending)
-    return best_state, best_val, epochs_run, epoch_seconds
+    return best, best_val, epochs_run, epoch_seconds, {"epochs_per_sync": 1}
 
 
-def _finalize(cfg, outdir, data, model, gops, best_val, logger,
+def _snapshot_opt(opt: torch.optim.Adam) -> dict:
+    """A copy of torch Adam's per-parameter state."""
+    return {p: {k: v.detach().clone() for k, v in st.items()}
+            for p, st in opt.state.items()}
+
+
+class _DeviceLoop:
+    """The epoch body of the K-epoch loop: `train_step`, then the val
+    PR-AUC, best tracking and patience on the device, and the epoch's
+    report (loss, PR-AUC, ran) written into column `slot` of a [3, K]
+    buffer. Once patience is spent (`active` false) an epoch still trains,
+    but changes neither the best model, best_val, the patience count nor
+    the report (its column stays 0): the counterpart of the JAX loop's
+    lax.cond. Every tensor it touches keeps its address, so the body can be
+    captured as one CUDA graph and replayed."""
+
+    def __init__(self, model, train_step, y_val, patience: int, k: int,
+                 best: dict, best_val: float, bad: int, device):
+        self.train_step = train_step
+        self.y_val = y_val
+        self.patience = patience
+        state = model.state_dict()
+        self.pairs = [(state[name], best[name]) for name in best]
+        self.bval = torch.tensor(best_val, dtype=torch.float32, device=device)
+        self.bad = torch.tensor(bad, dtype=torch.int32, device=device)
+        self.report = torch.zeros((3, k), dtype=torch.float32, device=device)
+        self.slot = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def body(self) -> None:
+        active = self.bad < self.patience
+        loss, probs_val = self.train_step()
+        pr = M.pr_auc_illicit_device(self.y_val, probs_val)
+        improved = active & (pr > self.bval)
+        self.bval.copy_(torch.where(improved, pr, self.bval))
+        self.bad.copy_(torch.where(active, torch.where(improved, 0, self.bad + 1),
+                                   self.bad))
+        with torch.no_grad():
+            for cur, kept in self.pairs:
+                kept.copy_(torch.where(improved, cur, kept))
+        row = torch.stack([loss.float(), pr, torch.ones_like(pr)])
+        self.report.index_copy_(1, self.slot, torch.where(active, row, 0.0)[:, None])
+        self.slot.add_(1)
+
+
+def _count_launches() -> dict:
+    return {**bsda_spmm_cuda.launches, **gat_cuda.launches}
+
+
+def _capture(loop: _DeviceLoop, gen: torch.Generator):
+    """loop.body as one CUDA graph (the dropout generator registered with
+    it, so that each replay draws the next epoch's masks). Returns (graph,
+    kernel launches recorded in it); a failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    before = _count_launches()
+    try:
+        with torch.cuda.graph(graph):
+            loop.body()
+    except Exception as exc:
+        raise RuntimeError(
+            f"capturing the training epoch as a CUDA graph failed: {exc}; "
+            "epochs_per_sync: 1 runs the serial loop") from exc
+    after = _count_launches()
+    return graph, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _k_loop(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
+            best, best_val, bad, start_epoch, k):
+    """Blocks of K epochs with one host read each (see _DeviceLoop); the
+    host then logs, prints and decides as the serial loop does, with the
+    device-computed PR-AUC. Checkpoints land on the block boundaries that
+    cross a multiple of `checkpoint_every`, never after a stop."""
+    patience = int(cfg.get("patience", 20))
+    ckpt_every = int(cfg.get("checkpoint_every", 0) or 0)
+    max_ep = int(cfg["max_epochs"])
+    # the host repeats the device's decisions on the same f32 values
+    best_val = float(np.float32(best_val))
+    loop = _DeviceLoop(model, train_step, inputs.y_val, patience, k, best,
+                       best_val, bad, device)
+    graph, captured, replays, replay_ms = None, {}, 0, []
+    epochs_run, epoch_seconds = 0, []
+    ep, stopped = start_epoch, False
+    while ep <= max_ep and not stopped:
+        block_start = ep
+        n = min(k, max_ep - ep + 1)
+        t0 = time.time()
+        loop.slot.zero_()
+        loop.report.zero_()
+        if device.type != "cuda":
+            for _ in range(n):
+                loop.body()
+        else:
+            todo = n
+            if graph is None:
+                # the block's first epoch eagerly, on a side stream as the
+                # capture will run: a real epoch that also builds the
+                # kernels; then the capture, which runs nothing
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    loop.body()
+                torch.cuda.current_stream().wait_stream(side)
+                graph, captured = _capture(loop, gen)
+                todo -= 1
+            if todo:
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                events[0].record()
+                for _ in range(todo):
+                    graph.replay()
+                events[1].record()
+            replays += todo
+        rh = loop.report.cpu().numpy()  # the block's one host sync
+        wall = time.time() - t0
+        if device.type == "cuda" and todo:
+            replay_ms.append(events[0].elapsed_time(events[1]) / todo)
+        losses, prs, ran = rh[0], rh[1], rh[2] > 0.5
+        for i in range(n):
+            if not ran[i]:  # the device spent its patience: it ran no more
+                stopped = True
+                break
+            loss_f, pr_val = float(losses[i]), float(prs[i])
+            logger.log_epoch(ep, loss_f, pr_val)
+            epochs_run += 1
+            epoch_seconds.append(wall / n)
+            if pr_val > best_val:
+                best_val, bad = pr_val, 0
+            else:
+                bad += 1
+            if ep % 10 == 0 or ep == start_epoch:
+                print(f"Epoch {ep:4d} | loss {loss_f:.4f} | "
+                      f"val PR-AUC(illicit) {pr_val:.4f} (best {best_val:.4f})")
+            ep += 1
+            if bad >= patience:
+                print("Early stopping.")
+                stopped = True
+                break
+        if (ckpt_every and not stopped
+                and (ep - 1) // ckpt_every > (block_start - 1) // ckpt_every):
+            checkpoint.save_resume(outdir, model, opt.state, cfg, ep - 1, best_val,
+                                   bad, best=best, rng_state=gen.get_state())
+    info = {"epochs_per_sync": k}
+    if device.type == "cuda":
+        info.update(graph_replays=replays, graph_launches=captured,
+                    replay_ms=replay_ms)
+    return best, best_val, epochs_run, epoch_seconds, info
+
+
+def _finalize(cfg, outdir, data, inputs, model, gops, best_val, logger,
               train_seconds: float, epochs_run: int, epoch_seconds,
-              device) -> dict:
+              loop_info: dict) -> dict:
     """Full-graph eval with the best parameters, temperature scaling,
-    artifacts, threshold + metrics, config echo."""
-    x = torch.as_tensor(data.x, dtype=torch.float32, device=device)
-    t_all = torch.as_tensor(data.timestep.astype(np.int32), device=device)
+    artifacts, threshold + metrics, optional hub ablation, config echo."""
+    t_idx_arg = inputs.t if model.uses_time_embed else None
     model.eval()
     with torch.no_grad():
-        logits_full = model(x, gops, t_all if model.uses_time_embed else None)
-    logits_full = logits_full.cpu().numpy()
+        logits_full = model(inputs.x, gops, t_idx_arg).cpu().numpy()
     y_val_bin = (data.y[data.val_mask] == 1).astype(int)
 
     temp = 1.0
@@ -288,7 +508,26 @@ def _finalize(cfg, outdir, data, model, gops, best_val, logger,
         "epoch_seconds": [float(s) for s in epoch_seconds],
         "edges_per_s": float(data.num_edges) * epochs_run / max(train_seconds, 1e-9),
         "temperature": float(temp),
+        **loop_info,
     })
+
+    frac = float(cfg.get("ablate_hubs_frac", 0.0) or 0.0)
+    if frac > 0:
+        # the tables again on the (renumbered) graph without the hub edges,
+        # scored by the best model through the same kernels
+        ei_abl, num_hubs = remove_hub_edges(data.edge_index, data.num_nodes, frac)
+        gops_abl = build_tables(cfg, ei_abl, data.num_nodes, inputs.x.device,
+                                transpose=False)
+        with torch.no_grad():
+            logits_abl = model(inputs.x, gops_abl, t_idx_arg).cpu().numpy()
+        p_abl = calibrate.calibrated_probs(logits_abl, temp)
+        y_te = data.y[data.test_mask]
+        hub_metrics = test_metrics_at_threshold(
+            cfg, (y_te == 1).astype(int), p_abl[data.test_mask], metrics["threshold"])
+        hub_metrics.update(n_hubs=int(num_hubs), hub_fraction=frac,
+                           n_edges_remaining=int(ei_abl.shape[1]))
+        save_json(os.path.join(outdir, "metrics_hub_removed.json"), hub_metrics)
+
     with open(os.path.join(outdir, "config_used.yaml"), "w") as f:
         yaml.safe_dump(cfg, f)
     print(json.dumps(metrics, indent=2))

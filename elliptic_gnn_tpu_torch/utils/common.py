@@ -49,6 +49,11 @@ def save_json(path: str, obj: Any) -> None:
         json.dump(_to_jsonable(obj), f, indent=2)
 
 
+def load_json(path: str) -> Any:
+    with open(path, "r") as f:
+        return json.load(f)
+
+
 def dropout(h: torch.Tensor, rate: float, training: bool,
             generator=None) -> torch.Tensor:
     """Inverted dropout with the mask drawn from `generator` (on h's
@@ -58,6 +63,17 @@ def dropout(h: torch.Tensor, rate: float, training: bool,
     keep = 1.0 - rate
     mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
     return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+
+def upload(t, device, dtype=None) -> torch.Tensor:
+    """A host array or tensor on `device` (in `dtype`): through pinned
+    memory and an asynchronous copy where the target is a GPU, so that the
+    set-up uploads do not pay pageable host-to-device copies."""
+    t = torch.as_tensor(t, dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def resolve_device(name) -> torch.device:

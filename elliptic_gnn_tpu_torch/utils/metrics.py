@@ -8,13 +8,16 @@ without the sklearn dependency so the training hot loop has no heavyweight
 host-side imports. Unit tests assert exact agreement with sklearn on random
 and adversarial (tied-score) inputs.
 
-All functions take numpy arrays: ``y_true`` in {0,1} and continuous ``y_score``.
+All functions take numpy arrays: ``y_true`` in {0,1} and continuous
+``y_score``, except pr_auc_illicit_device, which takes tensors and runs on
+their device (inside a captured CUDA graph too).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def _binary_clf_curve(y_true: np.ndarray, y_score: np.ndarray):
@@ -58,6 +61,32 @@ def precision_recall_curve(
         np.hstack((recall[sl], 0)),
         thresholds[sl],
     )
+
+
+def pr_auc_illicit_device(y_true: torch.Tensor, y_score: torch.Tensor) -> torch.Tensor:
+    """Average precision as a 0-d f32 tensor on y_score's device, the same
+    semantics as pr_auc_illicit (tie groups at distinct thresholds,
+    step-wise AP): each positive contributes (1 / total positives) times the
+    precision at the END of its tie group. Only ops of static shape and no
+    host sync (stable sort, cumsum, a reversed cummin for each group's end,
+    where), so the K-epoch loop runs it inside its captured epoch."""
+    y = y_true.to(torch.int32)
+    n = y_score.shape[0]
+    if n == 0:
+        return y_score.new_zeros((), dtype=torch.float32)
+    order = torch.argsort(-y_score, stable=True)
+    ys = y[order]
+    ss = y_score[order]
+    tps = torch.cumsum(ys, dim=0)
+    total = tps[-1]
+    idx = torch.arange(n, device=y_score.device)
+    prec = tps.to(torch.float32) / (idx + 1).to(torch.float32)
+    is_end = torch.cat([ss[:-1] != ss[1:], torch.ones(1, dtype=torch.bool,
+                                                      device=y_score.device)])
+    ends = torch.where(is_end, idx, torch.full_like(idx, n - 1))
+    end_idx = torch.cummin(ends.flip(0), dim=0).values.flip(0)
+    ap = torch.where(ys > 0, prec[end_idx], 0.0).sum() / torch.clamp(total, min=1)
+    return torch.where(total > 0, ap, 0.0).to(torch.float32)
 
 
 def pr_auc_illicit(y_true: np.ndarray, y_score: np.ndarray) -> float:

@@ -131,7 +131,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
-        "for m in ('jax', 'jaxlib', 'optax', 'elliptic_gnn_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'optax', 'elliptic_gnn_tpu', 'pandas'):\n"
         "    sys.modules[m] = None\n"
         "import elliptic_gnn_tpu_torch.train.train_gnn\n"
         "import elliptic_gnn_tpu_torch.kernels.bsda_spmm_cuda\n"
@@ -140,8 +140,11 @@ def test_port_imports_without_jax():
         "import elliptic_gnn_tpu_torch.train.predict\n"
         "import elliptic_gnn_tpu_torch.analysis.common\n"
         "import elliptic_gnn_tpu_torch.graph.build_graph\n"
+        "import elliptic_gnn_tpu_torch.graph.ingest\n"
+        "import elliptic_gnn_tpu_torch.analysis.hub_ablation\n"
+        "import elliptic_gnn_tpu_torch.analysis.robustness\n"
         "import elliptic_gnn_tpu_torch.models.convert\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'elliptic_gnn_tpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'elliptic_gnn_tpu', 'pandas')\n"
         "       and sys.modules[m] is not None and m not in before]\n"
         "assert not bad, bad\n"
     )
