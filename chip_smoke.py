@@ -74,10 +74,24 @@ Phases (any failure exits non-zero before the result line):
      PR-AUC atol 2e-3); gcn.yaml and sage.yaml 5 epochs, K loop. Epoch
      walls of K and serial runs and the device time of one replayed epoch
      are printed;
-  8. profile: the runs for 3 epochs under torch.profiler, device time by
+  8. post-hoc: analysis.run_all on the rec_k8 and gat.yaml run dirs on the
+     card, every stage (eval_by_time, calibration, workload, robustness,
+     hub_ablation, explain, report), launch counts set to 0 just before
+     and read just after: robustness and hub_ablation must have scored
+     through bsda_spmm (rec_k8) and gat_fwd (gat.yaml); their CSV and JSON,
+     report.html and, where matplotlib imports, the figures are checked on
+     disk and no stage may have failed; explain_node on both run dirs on
+     the card and on the CPU from the same best.ckpt and node (the test
+     node with the most incoming edges), 20 steps:
+     the same subgraph and class, masks within 1e-4, no kernel launched
+     (the explainer's EllGraph goes to the ELL gather), walls printed with
+     the card; the host-only CLIs (eda, and train_baselines and explain xgb
+     where sklearn and matplotlib import);
+  9. profile: the runs for 3 epochs under torch.profiler, device time by
      kernel name (rec_k8 in both loops);
-  9. prints the table of TPU kernels, the kernel line, the card line, and
-     the result line {"ok": true, "device": {...}}.
+ 10. prints the table of TPU kernels, the kernel line (each entry with its
+     post-hoc launches), the card line, and the result line
+     {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -128,6 +142,13 @@ TPU_KERNELS = [
 # the two-sweep run against the one-sweep run of the same config, per epoch
 TWO_SWEEP_LOSS_RTOL = 1e-4
 TWO_SWEEP_PR_ATOL = 2e-3
+# the post-hoc phase: explain_node on the card against the CPU at the CPU
+# test's steps and mask tolerance (tests/test_torch_port_explain.py)
+EXPLAIN_STEPS = 20
+EXPLAIN_MASK_ATOL = 1e-4
+
+
+CARD = "unknown"  # nvidia-smi's name and power limit, set by main()
 
 
 def fail(msg: str) -> None:
@@ -1442,6 +1463,159 @@ def predict_check(outdir) -> None:
         fail("predict does not reproduce the trainer's test scores through the kernels")
 
 
+def run_all_phase(run, outputs) -> dict:
+    """analysis.run_all on a finished run dir on the card, every stage,
+    launch counts set to 0 just before and read just after: the robustness
+    and hub-ablation stages must have scored through the kernels (the
+    explainer's ELL gather and the host stages launch none). Its outputs
+    are checked directly: the CSV and JSON of every stage, report.html,
+    and the figures where matplotlib imports; no stage may have failed
+    (run_all returns the stages that printed FAILED). Returns the
+    launches."""
+    import importlib.util
+
+    import numpy as np
+
+    from elliptic_gnn_tpu_torch.analysis import run_all
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, gat_cuda
+
+    outdir, name = run["outdir"], run["cfg"]["run_name"]
+    bsda_spmm_cuda.reset_launches()
+    gat_cuda.reset_launches()
+    t0 = time.time()
+    failed = run_all.main(["--run_dir", outdir, "--outputs", outputs])
+    wall = time.time() - t0
+    launches = {**bsda_spmm_cuda.launches, **gat_cuda.launches}
+    log(f"run_all on {name}: {wall:.1f} s on {CARD}; kernel launches {launches}")
+    if failed:
+        fail(f"run_all on {name}: stage(s) {failed} failed")
+    explained = os.path.join(outdir, "gnn_explainer_importance.json")
+    if not os.path.exists(explained):
+        fail(f"run_all on {name} did not write gnn_explainer_importance.json")
+    with open(explained) as fh:
+        node = json.load(fh)["node_idx"]
+    want = ["by_time.csv", "workload_curve.csv", "robustness_drop0.1_noise0.0.json",
+            "metrics_hub_removed_0p01.json", "gnn_explainer_importance.json"]
+    figures = ["by_time_pr_auc.png", "calibration_curve.png", "workload_curve.png",
+               f"gnn_explainer_node_{node}.png"]
+    if importlib.util.find_spec("matplotlib") is not None:
+        want += figures
+    else:
+        log(f"run_all on {name}: matplotlib is not importable here, so the stages drew "
+            f"no figures ({', '.join(figures)}); their CSV and JSON are checked")
+    paths = [os.path.join(outdir, f) for f in want] + [os.path.join(outputs, "report.html")]
+    missing = [p for p in paths if not os.path.exists(p) or os.path.getsize(p) == 0]
+    if missing:
+        fail(f"run_all on {name} did not write {missing}")
+    for f in ("robustness_drop0.1_noise0.0.json", "metrics_hub_removed_0p01.json"):
+        with open(os.path.join(outdir, f)) as fh:
+            r = json.load(fh)
+        if not np.isfinite([v for v in r.values() if isinstance(v, float)]).all():
+            fail(f"{f} of {name} holds values that are not finite")
+        log(f"{name} {f}: pr_auc_illicit {r['pr_auc_illicit']:.4f}, "
+            f"n_edges_remaining {r['n_edges_remaining']}")
+    kernels = ("gat_fwd", "gat_fwd_gated") if run["cfg"]["arch"] == "gat" else ("ring", "banded")
+    if any(launches[k] <= 0 for k in kernels):
+        fail(f"run_all on {name}: robustness and hub_ablation did not score through "
+             f"the kernels {kernels}: {launches}")
+    return launches
+
+
+def explain_check(run) -> None:
+    """explain_node on the run dir, on the card and on the CPU, from the same
+    best.ckpt and node: the test node with the most incoming edges (run_all
+    explained its own pick, often a node of a few edges), so that the
+    k-hop subgraph is large. The same subgraph edges and class, the masks
+    within EXPLAIN_MASK_ATOL; no kernel launched (an EllGraph goes to the
+    ELL gather). Prints the explainer's walls, and that of the CLI's 300
+    steps on the card."""
+    import numpy as np
+
+    from elliptic_gnn_tpu_torch.analysis import explain
+    from elliptic_gnn_tpu_torch.analysis.common import load_run_arrays, load_run_data
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, gat_cuda
+
+    name = run["cfg"]["run_name"]
+    _, data = load_run_data(run["outdir"])
+    test_nodes = load_run_arrays(run["outdir"], "test")["node_idx"]
+    in_deg = np.bincount(data.edge_index[1], minlength=data.num_nodes)[test_nodes]
+    node = int(test_nodes[np.argmax(in_deg)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bsda_spmm_cuda.reset_launches()
+        gat_cuda.reset_launches()
+        t0 = time.time()
+        out[dev] = explain.explain_node(run["outdir"], node_idx=node, steps=EXPLAIN_STEPS,
+                                        device=dev)
+        out[dev + "_s"] = time.time() - t0
+        if dev == "cuda" and (any(bsda_spmm_cuda.launches.values())
+                              or any(gat_cuda.launches.values())):
+            fail("the explainer launched a BSDA or GAT kernel on an EllGraph")
+    a, b = out["cuda"], out["cpu"]
+    if not np.array_equal(a.edges, b.edges) or a.predicted_class != b.predicted_class or \
+            a.node_idx != b.node_idx:
+        fail(f"explain_node on {name}: the card and the CPU explain another subgraph")
+    err_e = float(np.abs(a.edge_mask.cpu().numpy() - b.edge_mask.numpy()).max())
+    err_f = float(np.abs(a.feat_mask.cpu().numpy() - b.feat_mask.numpy()).max())
+    t0 = time.time()
+    full = explain.explain_node(run["outdir"], node_idx=node, device="cuda")
+    full_s = time.time() - t0
+    log(f"explain_node on {name}: node {node} ({int(in_deg.max())} incoming edges), class "
+        f"{a.predicted_class}, {a.edges.shape[0]} subgraph edge slots, "
+        f"{a.feat_mask.numel()} features; {EXPLAIN_STEPS} steps: card {out['cuda_s']:.2f} s, "
+        f"CPU {out['cpu_s']:.2f} s (load and build included), masks card vs CPU "
+        f"edge max_abs={err_e:.3e} feature max_abs={err_f:.3e} (tol {EXPLAIN_MASK_ATOL:.0e}); "
+        f"300 steps on the card {full_s:.2f} s, loss {full.loss:.4f}; {CARD}")
+    if max(err_e, err_f) > EXPLAIN_MASK_ATOL:
+        fail(f"explain_node on {name}: the masks on the card disagree with the CPU's")
+
+
+def host_clis(tmp, processed) -> None:
+    """The host-only CLIs, which touch no device: eda (numpy) on the CSV
+    build; train_baselines on both baseline configs and explain xgb where
+    sklearn and matplotlib import."""
+    import importlib.util
+
+    from elliptic_gnn_tpu_torch.analysis import eda
+
+    ran, missing = ["eda"], [m for m in ("sklearn", "matplotlib")
+                            if importlib.util.find_spec(m) is None]
+    eda.main(["--processed_dir", processed, "--out_dir", os.path.join(tmp, "eda"),
+              "--assert_no_cross_time_edges"])
+    if not missing:
+        import yaml
+
+        from elliptic_gnn_tpu_torch.analysis import explain
+        from elliptic_gnn_tpu_torch.train import train_baselines
+
+        for config in ("baseline_lr.yaml", "baseline_xgb.yaml"):
+            with open(os.path.join(HERE, "configs", config)) as fh:
+                cfg = yaml.safe_load(fh)
+            cfg.update(processed_dir=processed, output_root=os.path.join(tmp, "out"),
+                       n_estimators=min(int(cfg.get("n_estimators", 50)), 50))
+            train_baselines.main(cfg)
+            explain.run_xgb(os.path.join(tmp, "out", "baselines", cfg["run_name"]),
+                            processed, n_samples=50)
+        ran += ["train_baselines (both configs)", "explain xgb"]
+    log(f"host-only CLIs run: {', '.join(ran)}"
+        + (f"; not run, {' and '.join(missing)} not importable here: train_baselines, "
+           "explain xgb" if missing else ""))
+
+
+def posthoc_phase(tmp, processed, rec, gat) -> dict:
+    """The post-hoc layer on the rec_k8 and gat.yaml run dirs: run_all on
+    each (all stages, on the card), explain_node card against CPU on each,
+    and the host-only CLIs. Returns the kernels' post-hoc launches."""
+    launches = {}
+    for run in (rec, gat):
+        t0 = time.time()
+        launches[run["cfg"]["arch"]] = run_all_phase(run, os.path.join(tmp, "out"))
+        explain_check(run)
+        log(f"post-hoc on {run['cfg']['run_name']}: {time.time() - t0:.1f} s")
+    host_clis(tmp, processed)
+    return launches
+
+
 def profile_phase(cfg, kernel_names) -> None:
     """Where the device time goes: the same run for PROFILE_EPOCHS epochs
     under torch.profiler, device time summed by kernel name (setup, the
@@ -1530,6 +1704,7 @@ def drive(device) -> list:
         check_gat_launches(gat2_again, two_sweep=True)
         check_two_sweep_runs(gat, gat2, gat2_again)
         report_walls("gat.yaml", (gat, gat_serial, gat2, gat2_again))
+        posthoc = posthoc_phase(tmp, processed, rec, gat)
         gcn = slice_phase(tmp, processed, "gcn.yaml")
         check_conv_launches("gcn.yaml", gcn,
                             per_epoch={"ring": 9, "banded": 0},
@@ -1547,12 +1722,16 @@ def drive(device) -> list:
         profile_phase(gcn["cfg"], ["bsda_spmm_kernel"])
         profile_phase(sage["cfg"], ["bsda_spmm_kernel"])
 
-    def kernel_row(name, row, count, e, library=True):
+    def kernel_row(name, row, count, e, library=True, posthoc_launches=None):
+        """`posthoc_launches`: the launches of this kernel in run_all on the
+        rec_k8 (BSDA rows) or gat.yaml (GAT rows) run dir; None for the rows
+        of the gcn.yaml and sage.yaml paths, whose run dirs it does not read."""
         return {"name": name, "route": "cuda", "source": row[2], "replaces": row[0],
                 "launches": count, "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                 "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                 "bound_by": e["bound_by"],
-                "library_ms": e["library_ms"] if library else None}
+                "library_ms": e["library_ms"] if library else None,
+                "posthoc_launches": posthoc_launches}
 
     def second_shape(suffix, e):
         """A kernel counted once but launched at two shapes a step: the
@@ -1563,9 +1742,11 @@ def drive(device) -> list:
     ring_row, banded_row = TPU_KERNELS[0], TPU_KERNELS[1]
     kernels = [
         kernel_row(f"bsda_spmm[ring: rec_k8 F={entries['ring']['f']} bf16]", ring_row,
-                   rec["launches"]["ring"], entries["ring"]),
+                   rec["launches"]["ring"], entries["ring"],
+                   posthoc_launches=posthoc["sage_resbn"]["ring"]),
         kernel_row(f"bsda_spmm[banded: rec_k8 F={entries['banded']['f']} bf16]",
-                   banded_row, rec["launches"]["banded"], entries["banded"]),
+                   banded_row, rec["launches"]["banded"], entries["banded"],
+                   posthoc_launches=posthoc["sage_resbn"]["banded"]),
         # gcn.yaml counts its F = 128 and F = 2 aggregations together
         kernel_row("bsda_spmm[ring: gcn F=128 bf16, dst and src scales]", ring_row,
                    gcn["launches"]["ring"], arch_entries[("gcn", 128)]),
@@ -1578,15 +1759,17 @@ def drive(device) -> list:
     kernels[2].update(second_shape("f2", f2), library_ms_f2=f2["library_ms"])
     # the backwards run once per layer under one count: an entry holds the
     # hidden layer's shape (h=4) and, under *_h1 keys, the final layer's
-    for name, row, count in (
-            ("gat_fwd[h=4 gated]", TPU_KERNELS[3], gat["launches"]["gat_fwd_gated"]),
-            ("gat_fwd[h=1]", TPU_KERNELS[2], gat["launches"]["gat_fwd"]),
-            ("gat_bwd", TPU_KERNELS[4], gat["launches"]["gat_bwd"]),
-            ("gat_bwd_dst", TPU_KERNELS[5], gat2["launches"]["gat_bwd_dst"]),
-            ("gat_bwd_src", TPU_KERNELS[6], gat2["launches"]["gat_bwd_src"])):
+    for name, row, count, counter in (
+            ("gat_fwd[h=4 gated]", TPU_KERNELS[3], gat["launches"]["gat_fwd_gated"],
+             "gat_fwd_gated"),
+            ("gat_fwd[h=1]", TPU_KERNELS[2], gat["launches"]["gat_fwd"], "gat_fwd"),
+            ("gat_bwd", TPU_KERNELS[4], gat["launches"]["gat_bwd"], "gat_bwd"),
+            ("gat_bwd_dst", TPU_KERNELS[5], gat2["launches"]["gat_bwd_dst"], "gat_bwd_dst"),
+            ("gat_bwd_src", TPU_KERNELS[6], gat2["launches"]["gat_bwd_src"], "gat_bwd_src")):
         per_layer = "[" not in name
         e = gat_entries[f"{name}[h=4]" if per_layer else name]
-        kernels.append(kernel_row(name, row, count, e, library=False))
+        kernels.append(kernel_row(name, row, count, e, library=False,
+                                  posthoc_launches=posthoc["gat"][counter]))
         if per_layer:
             kernels[-1].update(second_shape("h1", gat_entries[f"{name}[h=1]"]))
         if name == "gat_bwd_dst":  # the plain torch step the kernel took in
@@ -1619,6 +1802,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    global CARD
+    CARD = card
     log(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 

@@ -20,6 +20,22 @@ import yaml
 from ..utils.common import upload
 
 
+def pyplot(png: str, tag: str):
+    """matplotlib's pyplot on the Agg backend for drawing `png`, or None
+    where matplotlib does not import: the tool has then written its data
+    artifacts (CSV, JSON) already, says that the figure was not drawn, and
+    goes on."""
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"[{tag}] matplotlib is not importable: {os.path.basename(png)} not drawn")
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
 def load_run_config(run_dir: str) -> dict:
     with open(os.path.join(run_dir, "config_used.yaml")) as f:
         return yaml.safe_load(f)
@@ -47,21 +63,28 @@ def load_run_data(run_dir: str, processed_dir: Optional[str] = None) -> Tuple:
     return cfg, prepare_data(cfg)
 
 
+def load_model(cfg: dict, num_features: int, run_dir: str,
+               device: torch.device) -> torch.nn.Module:
+    """The run's model with its best.ckpt, on `device`, in eval mode."""
+    from ..models import build_model
+    from ..train import checkpoint
+
+    model = build_model(cfg["arch"], num_features, cfg)
+    checkpoint.load_best(run_dir, model)
+    return model.to(device).eval()
+
+
 def rebuild_on(cfg: dict, data, run_dir: str, device: Optional[str] = None) -> Tuple:
     """(data, gops, model) for prepared `data` (perturbed or not): data
     BFS-renumbered as in training (data.orig_index translates back), its
     tables and the model with the run's best.ckpt on the config's device
     (`device` overrides it)."""
-    from ..models import build_model
-    from ..train import checkpoint
     from ..train.train_gnn import build_graph_ops
     from ..utils.common import resolve_device
 
     dev = resolve_device(device or cfg.get("device", "auto"))
     data, gops = build_graph_ops(cfg, data, dev, training=False)
-    model = build_model(cfg["arch"], data.num_features, cfg)
-    checkpoint.load_best(run_dir, model)
-    return data, gops, model.to(dev).eval()
+    return data, gops, load_model(cfg, data.num_features, run_dir, dev)
 
 
 def rebuild_model_and_data(run_dir: str, edge_index_override: Optional[np.ndarray] = None,

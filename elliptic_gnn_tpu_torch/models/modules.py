@@ -21,11 +21,13 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..kernels import spmm
-from ..kernels.bsda_gat import bsda_gat_aggregate
+from ..graph.transform import add_self_loops
+from ..kernels import BsdaGraph, gat_aggregate, spmm
+from ..kernels.ell import build_ell_graph, gcn_norm_weights
 from ..kernels.packed_gat import packed_gat_forward, packed_gat_train_forward
 from ..utils.common import dropout as _dropout
 
@@ -38,6 +40,28 @@ MODEL_GRAPH_KIND = {
     "sage_res": "sage",
 }
 SAGE_RESBN_ARCHS = ("sage_resbn", "sage_bn", "sage_res")
+
+
+def prepare_graph_ops(edge_index: np.ndarray, num_nodes: int, kind: str):
+    """The model-specific ELL encoding (host-side, one-time), as the JAX
+    package's prepare_graph_ops builds it; the trainer builds the BSDA
+    tables itself (train_gnn.build_graph_ops).
+
+    'sage': mean aggregation over the raw (possibly symmetrized) edges.
+    'gcn':  self-loops + symmetric-norm edge weights, sum aggregation.
+    'gat':  self-loops, unit validity weights (attention computed in-model).
+    """
+    if kind == "sage":
+        return build_ell_graph(edge_index, num_nodes, mean=True)
+    if kind == "gcn":
+        ei = add_self_loops(edge_index, num_nodes)
+        w = gcn_norm_weights(ei, num_nodes)
+        return build_ell_graph(ei, num_nodes, edge_weights=w, mean=False)
+    if kind == "gat":
+        ei = add_self_loops(edge_index, num_nodes)
+        return build_ell_graph(ei, num_nodes, mean=False)
+    raise ValueError(f"unknown graph kind {kind}")
+
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -272,7 +296,7 @@ class GatLayer(nn.Module):
         xp = torch.einsum("nf,fhc->nhc", x, self.w)
         a_src = torch.einsum("nhc,hc->nh", xp, self.a_src)
         a_dst = torch.einsum("nhc,hc->nh", xp, self.a_dst)
-        out = bsda_gat_aggregate(g, xp, a_src, a_dst)
+        out = gat_aggregate(g, xp, a_src, a_dst)
         out = out.reshape(out.shape[0], -1) if self.concat else out.mean(dim=1)
         return out + self.b
 
@@ -282,12 +306,15 @@ class GAT(nn.Module):
     features, ELU and dropout between layers, a single-head final layer
     producing the logits.
 
-    On CUDA tensors the whole stack runs packed through the flash kernels
-    (kernels/packed_gat.py): eval through packed_gat_forward, training
-    through packed_gat_train_forward. On CPU tensors it runs layer by layer
-    through the plain formulation (forward_plain), differentiated by
-    autograd. There is no switch between the two: `gat_fused_vjp: false`,
-    the JAX package's autodiff comparator, is refused."""
+    On a BsdaGraph with CUDA tensors the whole stack runs packed through
+    the flash kernels (kernels/packed_gat.py): eval through
+    packed_gat_forward, training through packed_gat_train_forward. On CPU
+    tensors it runs layer by layer through the plain formulation
+    (forward_plain), differentiated by autograd; on an EllGraph (the
+    explainer's subgraph) layer by layer through the ELL masked softmax on
+    either device, as the JAX model does. There is no switch between the
+    kernels and the plain version: `gat_fused_vjp: false`, the JAX
+    package's autodiff comparator, is refused."""
 
     uses_time_embed = False
 
@@ -314,7 +341,7 @@ class GAT(nn.Module):
     def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if not x.is_cuda:
+        if not (x.is_cuda and isinstance(g, BsdaGraph)):
             return self.forward_plain(x, g, generator)
         params = [dict(w=l.w, a_src=l.a_src, a_dst=l.a_dst, b=l.b)
                   for l in self.layers]
@@ -324,9 +351,9 @@ class GAT(nn.Module):
 
     def forward_plain(self, x: torch.Tensor, g,
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The plain version of the stack, layer by layer through
-        bsda_gat_aggregate: what CPU tensors take, and what the kernels'
-        path is held against."""
+        """The stack layer by layer through kernels.gat_aggregate: on a
+        BsdaGraph the plain version that CPU tensors take and the kernels'
+        path is held against, on an EllGraph the ELL attention."""
         h = x
         for layer in self.layers[:-1]:
             h = torch.nn.functional.elu(layer(h, g))

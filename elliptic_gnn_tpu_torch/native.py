@@ -2,11 +2,11 @@
 
 The port's own copy of the loader in elliptic_gnn_tpu/native.py: the
 numeric CSV parser and the txId mapping of the ingest, the counting-sort
-CSR and the BFS renumbering. Builds
-the shared library with the in-tree Makefile on first use when a toolchain
-is available; every entry point has a numpy/Python fallback (the CSV parser's is the
-caller's csv-module reader: it returns None). `EGNN_NATIVE=0` forces the
-fallbacks.
+CSR and the BFS renumbering. Builds the shared library on first use when
+a toolchain is available (with the in-tree Makefile's flags, renamed into
+place whole); every entry point has a numpy/Python fallback (the CSV
+parser's is the caller's csv-module reader: it returns None).
+`EGNN_NATIVE=0` forces the fallbacks.
 """
 from __future__ import annotations
 
@@ -19,8 +19,27 @@ import numpy as np
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _LIB_PATH = os.path.join(_REPO_ROOT, "native", "libegnn_native.so")
+_SRC_PATH = os.path.join(_REPO_ROOT, "native", "egnn_native.cpp")
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+
+
+def _build() -> bool:
+    """Compile the library as native/Makefile does, into a file of this
+    process's own that is then renamed into place: another process that
+    loads the library meanwhile (a parallel test worker, or the JAX
+    package's loader, whose `make` writes the library in place) never
+    finds a half-written file of ours."""
+    tmp = os.path.join(_REPO_ROOT, "build", f"libegnn_native.{os.getpid()}.so")
+    cmd = [os.environ.get("CXX", "g++"), "-O3", "-march=native", "-fPIC",
+           "-std=c++17", "-shared", "-o", tmp, _SRC_PATH]
+    try:
+        os.makedirs(os.path.dirname(tmp), exist_ok=True)
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -30,18 +49,20 @@ def _load() -> Optional[ctypes.CDLL]:
     _tried = True
     if os.environ.get("EGNN_NATIVE", "1") == "0":
         return None
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.join(_REPO_ROOT, "native")],
-                check=True, capture_output=True, timeout=120,
-            )
-        except (OSError, subprocess.SubprocessError):
-            return None
+    if not os.path.exists(_LIB_PATH) and not _build():
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:
-        return None
+        # half-written by another process's `make`: a failure cached here
+        # would leave this process on the Python BFS, whose ranks differ
+        # from the native ones, for good
+        if not _build():
+            return None
+        try:
+            lib = ctypes.CDLL(_LIB_PATH)
+        except OSError:
+            return None
 
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)

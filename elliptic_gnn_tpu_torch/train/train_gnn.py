@@ -74,8 +74,8 @@ def _reject_unported(cfg: dict) -> None:
     if bad:
         raise NotImplementedError(
             f"config option(s) {bad} are not ported to elliptic_gnn_tpu_torch "
-            "yet (ROADMAP Queue A #4 aggregation and profile_dir, #5 mini_batch, "
-            "#7 mesh_devices); use the JAX trainer (elliptic_gnn_tpu.train.train_gnn)")
+            "yet (ROADMAP Queue A #1 aggregation and profile_dir, #2 mini_batch, "
+            "#4 mesh_devices); use the JAX trainer (elliptic_gnn_tpu.train.train_gnn)")
 
 
 def make_optimizer(model: torch.nn.Module, cfg: dict,

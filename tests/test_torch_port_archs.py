@@ -33,6 +33,7 @@ from elliptic_gnn_tpu_torch.models.convert import params_from_jax
 from elliptic_gnn_tpu_torch.models.losses import make_loss_fn
 from elliptic_gnn_tpu_torch.models.modules import GCN, SAGE
 from elliptic_gnn_tpu_torch.train import predict, train_gnn
+from tests.port_native_pin import same_native
 from tests.test_torch_port_tables import port_graph
 
 N, F_IN = 900, 20
@@ -47,6 +48,11 @@ LAYER_PARAMS = {
     "sage": {"w_l": lambda l: l.lin_l.weight.grad.T, "b_l": lambda l: l.lin_l.bias.grad,
              "w_r": lambda l: l.lin_r.weight.grad.T},
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_native():
+    same_native()
 
 
 def _setup(arch, amp, layers=3):

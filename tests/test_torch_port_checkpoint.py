@@ -22,6 +22,7 @@ from elliptic_gnn_tpu.train import train_gnn as jax_train
 from elliptic_gnn_tpu_torch.models import build_model
 from elliptic_gnn_tpu_torch.models.convert import params_from_jax, params_to_jax
 from elliptic_gnn_tpu_torch.train import checkpoint, predict, train_gnn
+from tests.port_native_pin import same_native
 
 RESBN_CFG = {
     "run_name": "resbn_ckpt", "seed": 0, "device": "cpu", "arch": "sage_resbn",
@@ -43,6 +44,11 @@ ARCH_CFGS = {
     "sage_bn": {"hidden_dim": 16, "layers": 3, "residual": False},
     "sage_res": {"hidden_dim": 12, "layers": 4, "use_bn": False},
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_native():
+    same_native()
 
 
 def _to_np(tree):

@@ -696,6 +696,64 @@ def _kloop_run(tmp_path, processed, arch, k, run_name, **kw):
             np.load(out / "scores_test.npy"))
 
 
+ELL_ARCH_CFG = {"hidden_dim": 32, "layers": 3, "heads": 4, "dropout": 0.0, "amp": True,
+                "time_embed_dim": 2, "time_embed_type": "sin"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["sage_resbn", "gcn", "sage", "gat"])
+def test_model_on_ell_graph_cuda_matches_cpu(cuda, arch):
+    """Each arch on an EllGraph (models.prepare_graph_ops, the explainer's
+    encoding): the ELL gather on the card against the CPU, in f32 whatever
+    `amp` says (rtol 1e-4, atol 1e-5 through three layers), and no
+    hand-written kernel launched: an EllGraph is not a BSDA table."""
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
+    from elliptic_gnn_tpu_torch.models import MODEL_GRAPH_KIND, prepare_graph_ops
+
+    data, _ = _graph(3000, seed=6)
+    g = prepare_graph_ops(data.edge_index, data.num_nodes, MODEL_GRAPH_KIND[arch])
+    x = _randn((data.num_nodes, 16), 7, "cpu")
+    t = torch.from_numpy(data.timestep.astype(np.int32))
+    model = build_model(arch, 16, ELL_ARCH_CFG,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    bsda_spmm_cuda.reset_launches()
+    gat_cuda.reset_launches()
+    with torch.no_grad():
+        want = model(x, g, t).numpy()
+        got = model.to(cuda)(x.to(cuda), g.to(cuda), t.to(cuda)).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert not any(bsda_spmm_cuda.launches.values()), bsda_spmm_cuda.launches
+    assert not any(gat_cuda.launches.values()), gat_cuda.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["sage_resbn", "gcn", "gat"])
+def test_bsda_graph_on_cuda_still_runs_the_kernels(cuda, arch):
+    """The dispatch by encoding leaves the main path alone: the trainer's
+    BSDA tables on the card go through the hand-written kernels (launch
+    counters > 0), with the CPU's plain version as reference (amp
+    tolerance)."""
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
+    from elliptic_gnn_tpu_torch.train.train_gnn import build_graph_ops
+
+    data, _ = _graph(3000, seed=6)
+    data, g = build_graph_ops({"arch": arch}, data, torch.device("cpu"), training=False)
+    x = _randn((data.num_nodes, 16), 7, "cpu")
+    t = torch.from_numpy(data.timestep.astype(np.int32))
+    model = build_model(arch, 16, ELL_ARCH_CFG,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        want = model(x, g, t).numpy()
+        bsda_spmm_cuda.reset_launches()
+        gat_cuda.reset_launches()
+        got = model.to(cuda)(x.to(cuda), g.to(cuda), t.to(cuda)).cpu().numpy()
+    np.testing.assert_allclose(got, want, **AMP)
+    if arch == "gat":
+        assert gat_cuda.launches["gat_fwd"] > 0 and gat_cuda.launches["gat_fwd_gated"] > 0
+    else:
+        assert sum(bsda_spmm_cuda.launches.values()) > 0, bsda_spmm_cuda.launches
+
+
 @pytest.fixture(scope="module")
 def kloop_graph(tmp_path_factory):
     from elliptic_gnn_tpu_torch.graph import build_graph

@@ -28,6 +28,7 @@ from elliptic_gnn_tpu_torch.analysis import common
 from elliptic_gnn_tpu_torch.models import build_model
 from elliptic_gnn_tpu_torch.models.convert import params_to_jax
 from elliptic_gnn_tpu_torch.train import checkpoint, predict, train_gnn
+from tests.port_native_pin import same_native
 
 GAT_CFG = {
     "run_name": "gat_parity", "seed": 0, "device": "cpu", "arch": "gat",
@@ -40,6 +41,11 @@ GAT_CFG = {
     # P = 0.5 everywhere (T ~ 1e11): keep the scores informative
     "calibrate_temperature": False,
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_native():
+    same_native()
 
 
 @pytest.fixture(scope="module")

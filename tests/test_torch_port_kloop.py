@@ -26,6 +26,12 @@ from elliptic_gnn_tpu.train import train_gnn as jax_train
 from elliptic_gnn_tpu.utils import metrics as jax_metrics
 from elliptic_gnn_tpu_torch.train import train_gnn
 from elliptic_gnn_tpu_torch.utils import metrics as M
+from tests.port_native_pin import same_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_native():
+    same_native()
 
 
 @pytest.fixture(scope="module")

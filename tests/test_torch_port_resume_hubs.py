@@ -35,6 +35,12 @@ from elliptic_gnn_tpu.train import train_gnn as jax_train
 from elliptic_gnn_tpu_torch.analysis import hub_ablation, robustness
 from elliptic_gnn_tpu_torch.models.convert import params_to_jax
 from elliptic_gnn_tpu_torch.train import checkpoint, train_gnn
+from tests.port_native_pin import same_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_native():
+    same_native()
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from elliptic_gnn_tpu.models import build_model as jax_build_model
 from elliptic_gnn_tpu.train import train_gnn as jax_train
 from elliptic_gnn_tpu_torch.graph import build_graph
 from elliptic_gnn_tpu_torch.train import train_gnn
+from tests.port_native_pin import same_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACTS = [
@@ -31,6 +32,11 @@ ARTIFACTS = [
     "timestep_val.npy", "scores_test.npy", "y_test.npy", "node_idx_test.npy",
     "timestep_test.npy", "config_used.yaml", "training_log.csv",
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_native():
+    same_native()
 
 
 @pytest.fixture(scope="module")
@@ -144,6 +150,13 @@ def test_port_imports_without_jax():
         "import elliptic_gnn_tpu_torch.analysis.hub_ablation\n"
         "import elliptic_gnn_tpu_torch.analysis.robustness\n"
         "import elliptic_gnn_tpu_torch.models.convert\n"
+        "import elliptic_gnn_tpu_torch.analysis.run_all\n"
+        "import elliptic_gnn_tpu_torch.analysis.bootstrap_compare\n"
+        "import elliptic_gnn_tpu_torch.analysis.evaluate_ensemble\n"
+        "import elliptic_gnn_tpu_torch.analysis.eda\n"
+        "import elliptic_gnn_tpu_torch.analysis.sweep\n"
+        "import elliptic_gnn_tpu_torch.analysis.treeshap\n"
+        "import elliptic_gnn_tpu_torch.train.train_baselines\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'elliptic_gnn_tpu', 'pandas')\n"
         "       and sys.modules[m] is not None and m not in before]\n"
         "assert not bad, bad\n"
