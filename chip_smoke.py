@@ -74,7 +74,18 @@ Phases (any failure exits non-zero before the result line):
      PR-AUC atol 2e-3); gcn.yaml and sage.yaml 5 epochs, K loop. Epoch
      walls of K and serial runs and the device time of one replayed epoch
      are printed;
-  8. post-hoc: analysis.run_all on the rec_k8 and gat.yaml run dirs on the
+  8. the trainer's other single-device paths, on the same CSV build:
+     rec_k8 with `aggregation: ell` (the ELL gather, renumber_for_ell) 16
+     epochs in the K loop and in the serial loop, per epoch within 1e-4, no
+     kernel launched, and predict reproducing its test scores; rec_k8 with
+     `mini_batch: true` at its fanout and batch size for 3 epochs, and one
+     sampled batch's forward, loss and gradients on the card against the
+     CPU; rec_k8 with `profile_dir` (auto K drops to the serial loop): the
+     Chrome trace of epochs 4-6 names bsda_spmm_kernel; sweep_gnn over two
+     learning rates of rec_k8, sequential and with two workers on the one
+     card: the same ranks and run names, metrics within 2e-3; walls,
+     sampling and step times printed;
+  9. post-hoc: analysis.run_all on the rec_k8 and gat.yaml run dirs on the
      card, every stage (eval_by_time, calibration, workload, robustness,
      hub_ablation, explain, report), launch counts set to 0 just before
      and read just after: robustness and hub_ablation must have scored
@@ -87,10 +98,12 @@ Phases (any failure exits non-zero before the result line):
      (the explainer's EllGraph goes to the ELL gather), walls printed with
      the card; the host-only CLIs (eda, and train_baselines and explain xgb
      where sklearn and matplotlib import);
-  9. profile: the runs for 3 epochs under torch.profiler, device time by
-     kernel name (rec_k8 in both loops);
- 10. prints the table of TPU kernels, the kernel line (each entry with its
-     post-hoc launches), the card line, and the result line
+ 10. profile: the runs for 3 epochs under torch.profiler, device time by
+     kernel name (rec_k8 in both loops, with `aggregation: ell` and with
+     `mini_batch: true`);
+ 11. prints the table of TPU kernels, the kernel line (each entry with its
+     post-hoc launches; the rec_k8 rows also with those of the profile_dir
+     run and of the sequential sweep), the card line, and the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -146,6 +159,17 @@ TWO_SWEEP_PR_ATOL = 2e-3
 # test's steps and mask tolerance (tests/test_torch_port_explain.py)
 EXPLAIN_STEPS = 20
 EXPLAIN_MASK_ATOL = 1e-4
+# the trainer's single-device options: sampled mini-batch training, one
+# sampled batch on the card against the CPU (logits within MB_RTOL of the
+# largest |logit|, the loss of itself, every gradient of the model's
+# largest gradient entry: f32 sums over 203,769 rows, BatchNorm's among
+# them, in another order), the profile_dir trace (epochs 4-6), and
+# the grid sweep, sequential against two workers (the BSDA spill's
+# index_add_ is not bit-stable)
+MB_EPOCHS = 3
+MB_RTOL = 1e-4
+PROFILE_DIR_EPOCHS = 6
+SWEEP_TOL = 2e-3
 
 
 CARD = "unknown"  # nvidia-smi's name and power limit, set by main()
@@ -1438,29 +1462,212 @@ def check_two_sweep_runs(one, two_a, two_b) -> None:
         fail("the two-sweep gat.yaml run disagrees with the one-sweep run")
 
 
-def predict_check(outdir) -> None:
-    """predict.predict on the finished GAT run dir reproduces the trainer's
-    own test scores."""
+def predict_check(outdir, want_launches) -> None:
+    """predict.predict on a finished run dir reproduces the trainer's own
+    test scores, launching exactly `want_launches` (every other kernel
+    count 0)."""
     import numpy as np
 
-    from elliptic_gnn_tpu_torch.kernels import gat_cuda
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, gat_cuda
     from elliptic_gnn_tpu_torch.train import predict
 
+    bsda_spmm_cuda.reset_launches()
     gat_cuda.reset_launches()
     t0 = time.time()
     node_idx, probs, flags, thr, data = predict.predict(outdir)
     wall = time.time() - t0
+    launches = {**bsda_spmm_cuda.launches, **gat_cuda.launches}
     idx = np.load(os.path.join(outdir, "node_idx_test.npy"))
     want = np.load(os.path.join(outdir, "scores_test.npy"))
     if not np.array_equal(node_idx, np.arange(data.num_nodes)):
         fail("predict did not report every node once, in on-disk order")
     err = float(np.abs(probs[idx] - want).max())
-    log(f"predict: scored {probs.size} nodes in {wall:.1f} s (threshold {thr:.4f}, "
-        f"{int(flags.sum())} flagged), launches {gat_cuda.launches}; test scores vs "
-        f"scores_test.npy max_abs={err:.3e} (tol 1e-6)")
-    if err > 1e-6 or gat_cuda.launches["gat_fwd"] != 1 or \
-            gat_cuda.launches["gat_fwd_gated"] != 1:
-        fail("predict does not reproduce the trainer's test scores through the kernels")
+    log(f"predict on {os.path.basename(outdir)}: scored {probs.size} nodes in {wall:.1f} s "
+        f"(threshold {thr:.4f}, {int(flags.sum())} flagged), launches {launches}; test "
+        f"scores vs scores_test.npy max_abs={err:.3e} (tol 1e-6)")
+    if err > 1e-6 or any(n != want_launches.get(k, 0) for k, n in launches.items()):
+        fail(f"predict does not reproduce the trainer's test scores through its path "
+             f"(want launches {want_launches})")
+
+
+def no_kernel_launched(run) -> None:
+    if any(run["launches"].values()):
+        fail(f"{run['cfg']['run_name']} launched a kernel of the BSDA or GAT path: "
+             f"{run['launches']}")
+
+
+def ell_phase(tmp, processed) -> dict:
+    """rec_k8 with `aggregation: ell` (the ELL gather, renumber_for_ell) for
+    KLOOP_EPOCHS epochs in the K loop, the epoch with its gathers and their
+    index backward captured as a CUDA graph, and, interleaved, the serial
+    loop: per epoch within KLOOP_TOL (the backward's atomics: not bit for
+    bit), no hand-written kernel launched; predict on the K run's dir
+    rebuilds the encoding and reproduces its test scores. Returns the K
+    run."""
+    runs = [slice_phase(tmp, processed, "rec_k8.yaml", f"rec_k8_ell{suffix}",
+                        epochs=KLOOP_EPOCHS, aggregation="ell", **extra)
+            for suffix, extra in (("", {}), ("_serial", {"epochs_per_sync": 1}))]
+    for run in runs:
+        no_kernel_launched(run)
+    compare_runs("rec_k8 aggregation: ell, K=8 against serial", *runs)
+    report_walls("rec_k8 aggregation: ell", runs)
+    predict_check(runs[0]["outdir"], {})
+    return runs[0]
+
+
+def minibatch_batch_check(cfg, device="cuda") -> None:
+    """One sampled batch of rec_k8 at its fanout and batch size (the
+    subgraph is the whole graph at this scale), dropout 0, the same weights
+    from the seed: forward, loss and gradients on the card against the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from elliptic_gnn_tpu_torch.models import MODEL_GRAPH_KIND, build_model
+    from elliptic_gnn_tpu_torch.models.losses import class_weights, make_loss_fn
+    from elliptic_gnn_tpu_torch.train import train_gnn
+    from elliptic_gnn_tpu_torch.train.sampler import NeighborSampler
+
+    cfg = dict(cfg, dropout=0.0)
+    data = train_gnn.prepare_data(cfg)
+    b = int(cfg["batch_size"])
+    sampler = NeighborSampler(data.edge_index, data.num_nodes, cfg["fanout"], b,
+                              MODEL_GRAPH_KIND[cfg["arch"]], int(cfg["seed"]))
+    t0 = time.time()
+    node_ids, ell, n_seed, seed_mask = sampler.sample_batch(np.where(data.train_mask)[0][:b])
+    sample_s = time.time() - t0
+    b = min(b, sampler.n_sub)
+    t_train = data.timestep[data.train_mask]
+    got = {}
+    for dev in (device, "cpu"):
+        model = build_model(cfg["arch"], data.num_features, cfg,
+                            generator=torch.Generator().manual_seed(int(cfg["seed"])))
+        model = model.to(dev).train()
+        loss_fn = make_loss_fn(cfg, class_weights(data.y[data.train_mask]),
+                               int(t_train.min()), int(t_train.max()), dev)
+        ids = torch.from_numpy(node_ids).to(dev)
+        x = torch.from_numpy(data.x).to(dev)
+        t = torch.from_numpy(data.timestep.astype(np.int32)).to(dev)
+        y = torch.from_numpy(np.maximum(data.y, 0).astype(np.int64)).to(dev)
+        t0 = time.time()
+        logits = model(x[ids], ell.to(dev), t[ids] if model.uses_time_embed else None)
+        t_loss = t[ids[:b]] if str(cfg.get("time_loss_weighting", "none")) != "none" else None
+        loss = loss_fn(model, logits[:b], y[ids[:b]], t_loss,
+                       torch.from_numpy(seed_mask[:b]).to(dev))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        got[dev] = (logits.detach().cpu(), loss.detach().cpu(), time.time() - t0,
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (lg, ls, s_cuda, gr), (lg_ref, ls_ref, s_cpu, gr_ref) = got[device], got["cpu"]
+    # each against the largest entry of its reference: a logit near 0, or
+    # the gradient of a bias ahead of a BatchNorm (0 up to rounding), keeps
+    # the absolute rounding error of the sums that made it
+    logit_err = float((lg - lg_ref).abs().max() / lg_ref.abs().max())
+    loss_err = float((ls - ls_ref).abs() / ls_ref.abs())
+    scale = max(float(g.abs().max()) for g in gr_ref.values())
+    grad_err = max(float((gr[n] - gr_ref[n]).abs().max()) for n in gr_ref) / scale
+    log(f"mini-batch: one sampled batch of {n_seed} seeds, {sampler.n_sub} rows of width "
+        f"{sampler.width}, sampled in {sample_s:.2f} s on the host; forward + loss + backward "
+        f"{s_cuda:.3f} s on {CARD} (first call), {s_cpu:.2f} s on the CPU; errors relative "
+        f"to the largest reference entry (tol {MB_RTOL:.0e}): logits {logit_err:.3e} (max abs "
+        f"{float((lg - lg_ref).abs().max()):.3e} of {float(lg_ref.abs().max()):.3f}), loss "
+        f"{loss_err:.3e} ({float(ls):.6f} vs {float(ls_ref):.6f}), gradients {grad_err:.3e}")
+    if max(logit_err, loss_err, grad_err) > MB_RTOL:
+        fail("a sampled batch's forward, loss or gradients on the card disagree with the CPU")
+
+
+def minibatch_phase(tmp, processed) -> dict:
+    """rec_k8 with `mini_batch: true` at its fanout and batch size for
+    MB_EPOCHS epochs (sampled training and validation, the full graph
+    scored through the ELL encoding, no hand-written kernel launched); then
+    one batch on the card against the CPU. Returns the run."""
+    run = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_minibatch", epochs=MB_EPOCHS,
+                      mini_batch=True)
+    no_kernel_launched(run)
+    m, cfg = run["metrics"], run["cfg"]
+    log(f"mini-batch rec_k8 (fanout {cfg['fanout']}, batch {cfg['batch_size']}): budget "
+        f"{m['n_sub']} rows of width {m['batch_width']}; per train batch, by epoch: sampling "
+        f"{[round(v, 1) for v in m['sample_ms']]} ms on the host, step (upload, forward, "
+        f"backward, Adam, loss read) {[round(v, 1) for v in m['step_ms']]} ms; epoch walls "
+        f"{[round(v, 3) for v in m['epoch_seconds']]} s on {CARD}")
+    minibatch_batch_check(cfg)
+    return run
+
+
+def profile_dir_phase(tmp, processed) -> dict:
+    """rec_k8 with `profile_dir`: `auto` K drops to the serial loop, the
+    Chrome trace of epochs 4-6 exists and names bsda_spmm_kernel (8 launches
+    an epoch). Returns the run's kernel launches."""
+    prof_dir = os.path.join(tmp, "profile_dir")
+    run = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_profiled",
+                      epochs=PROFILE_DIR_EPOCHS, profile_dir=prof_dir)
+    check_rec_k8_launches(run)
+    path = os.path.join(prof_dir, "rec_k8_profiled.trace.json")
+    if run["metrics"]["epochs_per_sync"] != 1 or not os.path.exists(path):
+        fail(f"profile_dir: K={run['metrics']['epochs_per_sync']}, trace "
+             f"{'written' if os.path.exists(path) else 'missing'}")
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    spmm = sum("bsda_spmm_kernel" in k for k in kernels)
+    log(f"profile_dir: {os.path.getsize(path)} bytes of Chrome trace, {len(events)} events, "
+        f"{len(kernels)} kernel events, bsda_spmm_kernel x{spmm} (3 epochs x 8 = 24); epoch "
+        f"walls {[round(1e3 * v, 2) for v in run['metrics']['epoch_seconds']]} ms (4-6 traced)")
+    if not spmm:
+        fail("the profile_dir trace names no bsda_spmm_kernel")
+    return run["launches"]
+
+
+def sweep_phase(tmp, processed) -> dict:
+    """sweep_gnn over two learning rates of rec_k8 (KLOOP_EPOCHS epochs
+    each) sequentially, then with two workers on the one card: the same
+    ranks and run names, metrics within SWEEP_TOL, the sequential sweep's
+    combos through the kernels; walls printed. Returns the sequential
+    sweep's kernel launches (in this process; each combo's replays counted
+    as true_launches counts them)."""
+    import yaml
+
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
+    from elliptic_gnn_tpu_torch.sweeps import sweep_gnn
+
+    with open(os.path.join(HERE, "configs", "rec_k8.yaml")) as fh:
+        base = yaml.safe_load(fh)
+    base.update(processed_dir=processed, max_epochs=KLOOP_EPOCHS)
+    # time_embed_dim in the grid keeps the config's sin embedding: the
+    # sweep's normalization turns the embedding type off in a combo without it
+    grid = {"lr": [5e-4, 5e-3], "time_embed_dim": [2]}
+    boards, results = {}, {}
+    for workers in (1, 2):
+        root = os.path.join(tmp, f"sweep_w{workers}")
+        bsda_spmm_cuda.reset_launches()
+        t0 = time.time()
+        rows = sweep_gnn.run_sweep(base, grid, rank_key="pr_auc_illicit",
+                                   output_root=root, workers=workers)
+        wall = time.time() - t0
+        with open(os.path.join(root, "sweeps", "leaderboard.tsv")) as fh:
+            boards[workers] = [line.split("\t")[:2] for line in fh.read().splitlines()[1:]]
+        results[workers] = rows
+        log(f"sweep_gnn, {workers} worker(s): {len(rows)} combos in {wall:.1f} s on {CARD} "
+            f"(per combo {[r['dt_seconds'] for r in rows]} s); leaderboard {boards[workers]}"
+            + (f"; kernel launches in this process {dict(bsda_spmm_cuda.launches)}"
+               if workers == 1 else ""))
+        if len(rows) != 2 or not os.path.exists(os.path.join(root, "gnn", "best")):
+            fail(f"sweep_gnn with {workers} worker(s) did not finish both combos")
+        if workers == 1:
+            launches = dict(bsda_spmm_cuda.launches)
+            for r in rows:
+                launches = true_launches(launches, r)
+            if not launches["ring"] or not launches["banded"]:
+                fail("the sequential sweep did not train through the BSDA kernel")
+    keys = ("pr_auc_illicit", "roc_auc", "best_val_pr_auc", "pr_auc_last3")
+    err = max(abs(a[k] - b[k]) for a, b in zip(results[1], results[2]) for k in keys)
+    log(f"sweep_gnn: sequential against two workers, ranks and run names "
+        f"{'equal' if boards[1] == boards[2] else 'DIFFER'}, {', '.join(keys)} max abs "
+        f"{err:.3e} (tol {SWEEP_TOL:.0e})")
+    if boards[1] != boards[2] or err > SWEEP_TOL:
+        fail("the sweep's workers disagree with its sequential run")
+    return launches
 
 
 def run_all_phase(run, outputs) -> dict:
@@ -1686,9 +1893,13 @@ def drive(device) -> list:
         resume_phase(tmp, processed, rec)
         analysis_phase(rec)
         report_walls("rec_k8", (rec, rec_serial))
+        rec_ell = ell_phase(tmp, processed)
+        rec_mb = minibatch_phase(tmp, processed)
+        slice_launches = {"profile_dir_launches": profile_dir_phase(tmp, processed),
+                          "sweep_launches": sweep_phase(tmp, processed)}
         gat = slice_phase(tmp, processed, "gat.yaml", epochs=KLOOP_EPOCHS)
         check_gat_launches(gat)
-        predict_check(gat["outdir"])
+        predict_check(gat["outdir"], {"gat_fwd": 1, "gat_fwd_gated": 1})
         gat_serial = slice_phase(tmp, processed, "gat.yaml", "gat_serial",
                                  epochs=KLOOP_EPOCHS, epochs_per_sync=1)
         check_gat_launches(gat_serial)
@@ -1715,6 +1926,8 @@ def drive(device) -> list:
                             scoring={"ring": 1, "banded": 1})
         profile_phase(rec["cfg"], ["bsda_spmm_kernel"])
         profile_phase(rec_serial["cfg"], ["bsda_spmm_kernel"])
+        profile_phase(rec_ell["cfg"], [])
+        profile_phase(rec_mb["cfg"], [])
         profile_phase(gat["cfg"], ["gat_fwd_kernel", "gat_bwd_kernel"])
         with two_sweep_backward():
             profile_phase(gat2["cfg"], ["gat_fwd_kernel", "gat_bwd_dst_kernel",
@@ -1755,6 +1968,9 @@ def drive(device) -> list:
         kernel_row("bsda_spmm[ring: sage F=128 bf16]", ring_row,
                    sage["launches"]["ring"], arch_entries[("sage", 128)]),
     ]
+    # the rec_k8 rows' launches on this slice's own BSDA paths too
+    for row, name in ((kernels[0], "ring"), (kernels[1], "banded")):
+        row.update({k: v[name] for k, v in slice_launches.items()})
     f2 = arch_entries[("gcn", 2)]
     kernels[2].update(second_shape("f2", f2), library_ms_f2=f2["library_ms"])
     # the backwards run once per layer under one count: an entry holds the

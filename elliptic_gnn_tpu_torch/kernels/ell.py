@@ -3,9 +3,11 @@
 Destination rows are grouped into power-of-two degree buckets, each row's
 neighbour list padded to the bucket width (padding weight 0). Aggregation is
 a dense gather plus a weighted row sum per bucket, and one gather by the
-inverse permutation puts rows back in node order. In the port it carries
-the BSDA residual spill (kernels/bsda.py, kernels/bsda_gat.py) and serves
-as a plain reference.
+inverse permutation puts rows back in node order (or none, after
+renumber_for_ell). In the port it carries the BSDA residual spill
+(kernels/bsda.py, kernels/bsda_gat.py), the explainer's subgraphs, and the
+trainer's `aggregation: ell` and sampled mini-batch paths, which the JAX
+package also runs as plain gathers outside any Pallas kernel.
 
 The host-side build is numpy, identical to the JAX package's; the result
 holds torch tensors (index tensors as int64, torch's index type).
@@ -152,6 +154,16 @@ def build_ell_graph(
     )
 
 
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] for an index tensor of any shape, through index_select: its
+    backward is one index_add_ (atomics), where x[idx]'s sorts the indices
+    and sums each run of equal ones in a single warp. Every padding slot of
+    an ELL row points at node 0, so that run is long: a sampled batch's
+    203,769 x 21 table holds millions (the sorting backward took ~6 s a
+    step on an H100)."""
+    return x.index_select(0, idx.reshape(-1)).view(*idx.shape, *x.shape[1:])
+
+
 def ell_weighted_sum(g: EllGraph, x: torch.Tensor) -> torch.Tensor:
     """f32 [N_rows, F] = row_scale[d] * sum_e w_e * x[src_e].
 
@@ -160,7 +172,7 @@ def ell_weighted_sum(g: EllGraph, x: torch.Tensor) -> torch.Tensor:
     feat = x.shape[-1]
     outs = []
     for nbr, w, scale in zip(g.nbrs, g.weights, g.row_scale):
-        gathered = x[nbr].float()  # [R, W, F]
+        gathered = gather_rows(x, nbr).float()  # [R, W, F]
         wq = w.to(x.dtype).float()
         agg = torch.einsum("rw,rwf->rf", wq, gathered)
         outs.append(agg * scale[:, None])
@@ -193,20 +205,40 @@ def ell_gat_aggregate(g: EllGraph, x_proj: torch.Tensor,
     outs = []
     for nbr, w, rows in zip(g.nbrs, g.weights, g.rows):
         valid = (w > 0)[..., None]  # [R, W, 1]
-        scores = alpha_src[nbr] + alpha_dst[rows][:, None, :]  # [R, W, H]
+        scores = gather_rows(alpha_src, nbr) + alpha_dst[rows][:, None, :]  # [R, W, H]
         scores = torch.nn.functional.leaky_relu(scores, negative_slope)
         scores = torch.where(valid, scores, scores.new_full((), -torch.inf))
         smax = scores.amax(dim=1, keepdim=True)
         smax = torch.where(torch.isfinite(smax), smax, torch.zeros_like(smax))
         ex = torch.exp(scores - smax) * valid
         att = ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-16)
-        outs.append(torch.einsum("rwh,rwhc->rhc", att, x_proj[nbr]))
+        outs.append(torch.einsum("rwh,rwhc->rhc", att, gather_rows(x_proj, nbr)))
     if g.n_zero_deg:
         outs.append(x_proj.new_zeros((g.n_zero_deg, h, c)))
     permuted = torch.cat(outs, dim=0)
     if g.inv_perm is None:
         return permuted
     return permuted[g.inv_perm]
+
+
+def renumber_for_ell(g: EllGraph):
+    """Relabel nodes so the concatenated bucket-row order IS the node order.
+
+    Returns (g_renumbered, rank) with rank[old_id] = new_id (int32, as the
+    JAX package's). Aggregation on the renumbered graph skips its final
+    reorder gather (inv_perm None). Apply `rank` to every per-node array
+    (GraphData.renumber), which keeps the way back for the artifacts."""
+    if g.inv_perm is None:
+        return g, np.arange(g.num_nodes, dtype=np.int32)
+    rank = g.inv_perm.cpu().numpy().astype(np.int64)
+    rank_t = torch.from_numpy(rank)
+    g2 = dataclasses.replace(
+        g,
+        nbrs=tuple(rank_t[n.cpu()].to(n.device) for n in g.nbrs),
+        rows=tuple(rank_t[r.cpu()].to(r.device) for r in g.rows),
+        inv_perm=None,
+    )
+    return g2, rank.astype(np.int32)
 
 
 def gcn_norm_weights(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:

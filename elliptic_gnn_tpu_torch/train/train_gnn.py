@@ -28,11 +28,19 @@ Two loops make the same per-epoch decisions (early stop on val PR-AUC with
     CUDA graph and replayed; a capture that fails raises. On the CPU the
     same epoch body runs eagerly.
 
+The encoding follows `aggregation` as in the JAX trainer
+(_pick_aggregation): the BSDA tables and the hand-written kernels by
+default, or the ELL gather (`aggregation: ell`, relabelled by
+renumber_for_ell unless `renumber: false`); `mini_batch: true` trains on
+sampled subgraphs (train/sampler.py) and scores the full graph through the
+ELL encoding. `profile_dir` traces three epochs of the serial loop with
+torch.profiler into a Chrome trace JSON.
+
 Runs on CUDA (`device: auto` or `cuda`) and raises when there is no GPU,
 unless the config says `device: cpu`.
 
-Not ported yet (raise): mini-batch training, multi-device meshes,
-`aggregation: ell`, profiling.
+Not ported yet (raise): multi-device meshes (`mesh_devices` other than 1,
+`aggregation: shard_map`).
 """
 from __future__ import annotations
 
@@ -50,8 +58,9 @@ from ..graph import load_processed, make_temporal_masks
 from ..graph.transform import append_scalar_time, remove_hub_edges, symmetrize_edges
 from ..kernels import bsda_spmm_cuda, gat_cuda
 from ..kernels.bsda import bfs_order, build_bsda_for_kind
+from ..kernels.ell import EllGraph, renumber_for_ell
 from ..kernels.packed_gat import use_two_sweep_backward
-from ..models import MODEL_GRAPH_KIND, build_model
+from ..models import MODEL_GRAPH_KIND, build_model, prepare_graph_ops
 from ..models.convert import params_from_jax
 from ..models.losses import class_weights, make_loss_fn
 from ..utils import metrics as M
@@ -63,19 +72,44 @@ from . import calibrate, checkpoint
 
 
 def _reject_unported(cfg: dict) -> None:
-    unported = {
-        "mini_batch": bool(cfg.get("mini_batch", False)),
-        "mesh_devices": (cfg.get("mesh_devices", 1) or 1) not in (1, "1"),
-        "profile_dir": bool(cfg.get("profile_dir")),
-        "aggregation": str(cfg.get("aggregation", "auto")) not in (
-            "auto", "bsda", "bsda_pallas"),
-    }
-    bad = [k for k, v in unported.items() if v]
+    bad = []
+    if (cfg.get("mesh_devices", 1) or 1) not in (1, "1"):
+        bad.append("mesh_devices")
+    if str(cfg.get("aggregation", "auto")) == "shard_map":
+        bad.append("aggregation: shard_map")
     if bad:
         raise NotImplementedError(
             f"config option(s) {bad} are not ported to elliptic_gnn_tpu_torch "
-            "yet (ROADMAP Queue A #1 aggregation and profile_dir, #2 mini_batch, "
-            "#4 mesh_devices); use the JAX trainer (elliptic_gnn_tpu.train.train_gnn)")
+            "yet (ROADMAP Queue A #4, multi-device training); use the JAX "
+            "trainer (elliptic_gnn_tpu.train.train_gnn)")
+
+
+def _pick_aggregation(cfg: dict, kind: str) -> str:
+    """The aggregation encoding, by the JAX trainer's table:
+      'bsda', 'bsda_pallas'  the int8 BSDA tables; on CUDA tensors through
+                             the hand-written kernels, on CPU tensors
+                             through their plain versions (the two names
+                             are one path in the port; 'auto' is 'bsda',
+                             and GAT's 'bsda_pallas' is 'bsda', as in JAX)
+      'ell'                  the ELL gather (kernels/ell.py); always for
+                             `mini_batch`
+      'shard_map'            multi-device; refused by _reject_unported
+    Unknown values raise."""
+    mode = cfg.get("aggregation", "auto")
+    if cfg.get("use_pallas", False):  # the JAX package's legacy switch
+        mode = "bsda_pallas"
+    if cfg.get("mini_batch", False) or kind not in ("sage", "gcn", "gat"):
+        return "ell"
+    if mode == "auto":
+        return "bsda"
+    if mode == "bsda_pallas":
+        return "bsda" if kind == "gat" else "bsda_pallas"
+    if mode not in ("bsda", "ell", "shard_map"):
+        raise ValueError(
+            f"Unknown aggregation {mode!r}; expected one of "
+            "auto/bsda/bsda_pallas/ell/shard_map"
+        )
+    return str(mode)
 
 
 def make_optimizer(model: torch.nn.Module, cfg: dict,
@@ -91,12 +125,19 @@ def make_optimizer(model: torch.nn.Module, cfg: dict,
 
 def epochs_per_sync(cfg: dict, device: torch.device) -> int:
     """K of the K-epoch loop: `auto` is 8 on CUDA and 1 (serial) on the CPU,
-    as the JAX trainer takes 8 on its accelerator; an integer pins K and 1
-    forces the serial loop."""
+    as the JAX trainer takes 8 on its accelerator, and 1 where `profile_dir`
+    asks for a trace (only the serial loop has epochs on the host to
+    bracket); an integer pins K (with `profile_dir` too: then nothing is
+    traced) and 1 forces the serial loop."""
     k_cfg = cfg.get("epochs_per_sync", "auto")
-    if k_cfg in (None, "auto"):
-        return 8 if device.type == "cuda" else 1
-    return int(k_cfg) or 1
+    if k_cfg not in (None, "auto"):
+        return int(k_cfg) or 1
+    k = 8 if device.type == "cuda" else 1
+    if cfg.get("profile_dir") and k > 1:
+        print("[PROFILE] profile_dir set: epochs_per_sync auto -> 1 "
+              "(serial loop; pin an integer K to override)")
+        k = 1
+    return k
 
 
 def prepare_data(cfg: dict):
@@ -143,19 +184,31 @@ def build_tables(cfg: dict, edge_index: np.ndarray, num_nodes: int,
 
 def build_graph_ops(cfg: dict, data, device: torch.device,
                     training: bool = True):
-    """(data, gops): the graph BFS-renumbered (artifacts translate back via
-    data.orig_index) and its int8 BSDA tables on `device`, as the JAX
-    trainer builds them for its kernel paths: with transpose tables for
-    sage/gcn (gradients run the SpMM on A^T); gat's one-sweep backward walks
-    the forward tables, its transpose tables are built only for `training`
-    with the two-sweep backward chosen
-    (kernels/packed_gat.py::use_two_sweep_backward)."""
+    """(data, gops): the graph and its aggregation encoding on `device`,
+    chosen by _pick_aggregation; the one place that picks it (the trainer,
+    predict and the post-hoc tools' rebuild_on come here).
+
+    BSDA: the graph BFS-renumbered and its int8 tables, as the JAX trainer
+    builds them for its kernel paths: with transpose tables for sage/gcn
+    (gradients run the SpMM on A^T); gat's one-sweep backward walks the
+    forward tables, its transpose tables are built only for `training` with
+    the two-sweep backward chosen
+    (kernels/packed_gat.py::use_two_sweep_backward).
+    ELL: models.prepare_graph_ops, relabelled by renumber_for_ell unless
+    `renumber: false` or `mini_batch` (the sampler keeps on-disk ids).
+    A renumbered graph's artifacts translate back via data.orig_index."""
     arch = cfg["arch"]
     if arch not in MODEL_GRAPH_KIND:
         raise ValueError(
             f"Unknown arch {arch!r}; expected one of {sorted(MODEL_GRAPH_KIND)}"
         )
     kind = MODEL_GRAPH_KIND[arch]
+    if _pick_aggregation(cfg, kind) == "ell":
+        gops = prepare_graph_ops(data.edge_index, data.num_nodes, kind)
+        if bool(cfg.get("renumber", True)) and not cfg.get("mini_batch", False):
+            gops, rank = renumber_for_ell(gops)
+            data = data.renumber(rank)
+        return data, gops.to(device)
     rank = bfs_order(data.edge_index, data.num_nodes, data.timestep)
     data = data.renumber(rank)
     gops = build_tables(
@@ -201,8 +254,14 @@ def main(cfg: dict, init_params=None) -> dict:
     inputs = _Inputs(data, device)
 
     t_start = time.time()
-    best, best_val, epochs_run, epoch_seconds, loop_info = _train_loop_fullbatch(
-        cfg, outdir, inputs, model, gops, opt, loss_fn, logger, device)
+    if cfg.get("mini_batch", False):
+        from .sampler import train_loop_minibatch
+
+        best, best_val, epochs_run, epoch_seconds, loop_info = train_loop_minibatch(
+            cfg, data, inputs, model, opt, loss_fn, logger, device)
+    else:
+        best, best_val, epochs_run, epoch_seconds, loop_info = _train_loop_fullbatch(
+            cfg, outdir, inputs, model, gops, opt, loss_fn, logger, device)
     train_seconds = time.time() - t_start
     model.load_state_dict(best)
     checkpoint.save_best(outdir, model)
@@ -323,19 +382,65 @@ def _serial_loop(cfg, outdir, model, opt, logger, device, gen, train_step, input
 
     # process the PREVIOUS epoch while this one runs on the device: the
     # early-stop check lags one epoch (one discarded in-flight epoch at stop)
+    profile_dir, prof = cfg.get("profile_dir"), None
     pending = None
-    for epoch in range(start_epoch, int(cfg["max_epochs"]) + 1):
-        t0 = time.time()
-        step = epoch_step(epoch)
-        stop = pending is not None and process(*pending)
-        epoch_seconds.append(time.time() - t0)
-        if stop:
-            pending = None
-            break
-        pending = step
-    if pending is not None:
-        process(*pending)
+    try:
+        for epoch in range(start_epoch, int(cfg["max_epochs"]) + 1):
+            if profile_dir and epoch == start_epoch + 3:
+                prof = _start_trace(device)
+            t0 = time.time()
+            step = epoch_step(epoch)
+            if prof is not None and epoch == start_epoch + 5:
+                _stop_trace(prof, profile_dir, cfg["run_name"], device)
+                prof = None
+            stop = pending is not None and process(*pending)
+            epoch_seconds.append(time.time() - t0)
+            if stop:
+                pending = None
+                break
+            pending = step
+        if pending is not None:
+            process(*pending)
+    finally:
+        if prof is not None:  # the run ended inside the traced epochs
+            _stop_trace(prof, profile_dir, cfg["run_name"], device)
     return best, best_val, epochs_run, epoch_seconds, {"epochs_per_sync": 1}
+
+
+def _start_trace(device: torch.device):
+    """A started torch.profiler (CPU, and CUDA on the card), or None where
+    it fails to start: profiling is best effort and the run goes on, as in
+    the JAX trainer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        prof = profile(activities=activities)
+        prof.start()
+    except Exception as exc:
+        print(f"[PROFILE] start_trace failed: {exc}")
+        return None
+    return prof
+
+
+def _stop_trace(prof, profile_dir: str, run_name: str,
+                device: torch.device) -> None:
+    """Stop the trace once the traced epochs have run on the device and
+    write it as <profile_dir>/<run_name>.trace.json (Chrome trace format,
+    where the JAX trainer writes TensorBoard's profile layout); a failure
+    prints and the run goes on."""
+    try:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"{run_name}.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"[PROFILE] trace written to {path}")
+    except Exception as exc:
+        print(f"[PROFILE] stop_trace failed: {exc}")
 
 
 def _snapshot_opt(opt: torch.optim.Adam) -> dict:
@@ -513,11 +618,16 @@ def _finalize(cfg, outdir, data, inputs, model, gops, best_val, logger,
 
     frac = float(cfg.get("ablate_hubs_frac", 0.0) or 0.0)
     if frac > 0:
-        # the tables again on the (renumbered) graph without the hub edges,
-        # scored by the best model through the same kernels
+        # the run's encoding again on the (renumbered) graph without the hub
+        # edges, scored by the best model the same way
         ei_abl, num_hubs = remove_hub_edges(data.edge_index, data.num_nodes, frac)
-        gops_abl = build_tables(cfg, ei_abl, data.num_nodes, inputs.x.device,
-                                transpose=False)
+        if isinstance(gops, EllGraph):
+            gops_abl = prepare_graph_ops(
+                ei_abl, data.num_nodes, MODEL_GRAPH_KIND[cfg["arch"]]
+            ).to(inputs.x.device)
+        else:
+            gops_abl = build_tables(cfg, ei_abl, data.num_nodes, inputs.x.device,
+                                    transpose=False)
         with torch.no_grad():
             logits_abl = model(inputs.x, gops_abl, t_idx_arg).cpu().numpy()
         p_abl = calibrate.calibrated_probs(logits_abl, temp)

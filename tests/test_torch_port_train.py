@@ -129,8 +129,8 @@ def test_device_auto_raises_without_gpu(processed, tmp_path, monkeypatch):
 
 
 def test_unported_option_raises(processed, tmp_path):
-    with pytest.raises(NotImplementedError, match="mini_batch"):
-        train_gnn.main(_cfg(processed[1], tmp_path, mini_batch=True))
+    with pytest.raises(NotImplementedError, match="mesh_devices"):
+        train_gnn.main(_cfg(processed[1], tmp_path, mesh_devices=2))
 
 
 def test_port_imports_without_jax():
@@ -157,6 +157,9 @@ def test_port_imports_without_jax():
         "import elliptic_gnn_tpu_torch.analysis.sweep\n"
         "import elliptic_gnn_tpu_torch.analysis.treeshap\n"
         "import elliptic_gnn_tpu_torch.train.train_baselines\n"
+        "import elliptic_gnn_tpu_torch.train.sampler\n"
+        "import elliptic_gnn_tpu_torch.sweeps.sweep_gnn\n"
+        "import elliptic_gnn_tpu_torch.sweeps._worker\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'elliptic_gnn_tpu', 'pandas')\n"
         "       and sys.modules[m] is not None and m not in before]\n"
         "assert not bad, bad\n"
