@@ -18,7 +18,15 @@ Phases (any failure exits non-zero before the result line):
      tables (self-looped, dst and src scales together) at F=128 and F=2 and
      the SAGE tables at F=167 and F=128, bf16, kernel against plain version;
      every launch shape twice, the two results equal bit for bit; one line
-     per shape with kernel, bound and library ms and their ratios;
+     per shape with kernel, bound and library ms and their ratios; then the
+     halo path's shards: the rec_k8 tables padded (pad_bsda_chunks) and
+     partitioned (partition_bsda) at n = 4 and n = 2, each shard's
+     shard_local_aggregate (the kernel on its local split tables, the halo
+     fix-up, the spill; backward the kernel on its block-transpose tables)
+     with its halo rows from the global x, at F=64 bf16, F=168 bf16 and
+     F=64 f32: the shards' rows and gradient against the single-device
+     kernel, each shard's two launches against their plain versions, two
+     runs bit for bit; launches, each shard's ms and the whole graph's;
   4. GAT kernels vs plain: on the same graph, directed and self-looped,
      depth 4: the forward at (h, ch) = (4, 8) with the slot cover and
      (1, 2) without, normalize on and off, compared on val = acc / s and
@@ -85,7 +93,19 @@ Phases (any failure exits non-zero before the result line):
      learning rates of rec_k8, sequential and with two workers on the one
      card: the same ranks and run names, metrics within 2e-3; walls,
      sampling and step times printed;
-  9. post-hoc: analysis.run_all on the rec_k8 and gat.yaml run dirs on the
+  9. the halo path in a world of one (`aggregation: shard_map,
+     mesh_devices: 1`, an NCCL group of one rank): rec_k8 16 epochs in the
+     K loop (its all-reduces captured) and serial, gcn.yaml and gat.yaml 5
+     epochs; rec_k8 and gcn launch bsda_spmm every epoch as their
+     single-device runs do, GAT's training launches none of the seven
+     kernels (plain attention per shard; its scoring pass the two
+     forwards); first-epoch losses against the single-device runs within
+     1e-4 relative, final and best val PR-AUC within 2e-3, K against serial
+     within 1e-4 per epoch; walls and replayed epochs beside the
+     single-device runs'. With two cards or more, rec_k8 over
+     min(4, cards) NCCL ranks that train_gnn.main starts; with one, a line
+     saying it did not run;
+ 10. post-hoc: analysis.run_all on the rec_k8 and gat.yaml run dirs on the
      card, every stage (eval_by_time, calibration, workload, robustness,
      hub_ablation, explain, report), launch counts set to 0 just before
      and read just after: robustness and hub_ablation must have scored
@@ -98,12 +118,14 @@ Phases (any failure exits non-zero before the result line):
      (the explainer's EllGraph goes to the ELL gather), walls printed with
      the card; the host-only CLIs (eda, and train_baselines and explain xgb
      where sklearn and matplotlib import);
- 10. profile: the runs for 3 epochs under torch.profiler, device time by
+ 11. profile: the runs for 3 epochs under torch.profiler, device time by
      kernel name (rec_k8 in both loops, with `aggregation: ell` and with
      `mini_batch: true`);
- 11. prints the table of TPU kernels, the kernel line (each entry with its
+ 12. prints the table of TPU kernels, the kernel line (each entry with its
      post-hoc launches; the rec_k8 rows also with those of the profile_dir
-     run and of the sequential sweep), the card line, and the result line
+     run, of the sequential sweep, of the shard phase (`shard_launches`)
+     and of the mesh-1 runs (`mesh1_launches`), the gcn row with its
+     mesh-1 run's), the card line, and the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -170,6 +192,17 @@ MB_EPOCHS = 3
 MB_RTOL = 1e-4
 PROFILE_DIR_EPOCHS = 6
 SWEEP_TOL = 2e-3
+# the halo path: the per-shard kernel phase at these partitions and
+# (F, dtype) cases; bf16 shards against the whole-graph kernel relative to
+# the largest entry (two roundings to bf16 where the kernel rounds once);
+# the mesh-1 runs against the single-device runs of the same seed: the
+# first-epoch loss (the dense tables are the same, the spill takes another
+# route) and the final and best val PR-AUC (tests/test_parallel.py)
+SHARD_WAYS = (4, 2)
+SHARD_CASES = ((64, "bfloat16"), (168, "bfloat16"), (64, "float32"))
+SHARD_BF16_TOL = dict(rtol=1 / 64, atol=1e-3)
+MESH1_LOSS_RTOL = 1e-4
+MESH1_PR_ATOL = 2e-3
 
 
 CARD = "unknown"  # nvidia-smi's name and power limit, set by main()
@@ -321,7 +354,7 @@ def kernel_phase(device, flush_buf):
         r = results[("forward", 4, f, "bfloat16")]
         entries[variant] = spmm_entry(f"{variant} (F={f} bf16, forward tables)",
                                       r["table"], r["x"], r, flush_buf)
-    return entries
+    return entries, g
 
 
 def spmm_entry(label, t, x, r, flush_buf):
@@ -357,6 +390,121 @@ def spmm_entry(label, t, x, r, flush_buf):
         f"kernel / bound {r['ms'] / entry['bound_ms']:.2f}, kernel / library "
         + ("n/a" if library_ms is None else f"{r['ms'] / library_ms:.2f}"))
     return entry
+
+
+def shard_close(got, want, dname) -> bool:
+    """f32: elementwise within TOL; bf16: within SHARD_BF16_TOL of the
+    largest reference entry (a shard rounds its kernel part and its halo
+    fix-up to bf16 apart, the whole-graph kernel once)."""
+    if dname == "float32":
+        return within(got, want, TOL["float32"])
+    tol = SHARD_BF16_TOL
+    return float((got - want).abs().max()) <= tol["atol"] + tol["rtol"] * float(
+        want.abs().max())
+
+
+def shard_kernel_phase(device, flush_buf, g):
+    """The halo path's per-shard aggregation on the card, in one process:
+    the rec_k8 tables `g` (Elliptic scale, symmetrized, int8, bit-packed,
+    depth 3) padded with pad_bsda_chunks and partitioned with
+    partition_bsda at n = 4 and n = 2; each shard's shard_local_aggregate
+    (the kernel on its local split tables, the halo fix-up and the spill;
+    backward: the kernel on its block-transpose tables) with its halo rows
+    taken from the global x, the rows the ring would deliver. Held three
+    ways: the shards' rows and the gradient of sum(out * w) summed back
+    onto x against the single-device kernel (shard_close); each shard's two
+    kernel launches against their plain versions (TOL); two runs of each
+    shard bit for bit. Returns the launches made through the shards'
+    aggregation (forward and backward, both runs) by variant."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import bsda, bsda_spmm_cuda
+    from elliptic_gnn_tpu_torch.parallel import shardmap_step as sm
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    n0 = g.num_nodes
+    launches = {"ring": 0, "banded": 0}
+    failures = []
+    for n in SHARD_WAYS:
+        t0 = time.time()
+        g_p = bsda.pad_bsda_chunks(g, n)
+        sg = sm.partition_bsda(g_p, n, use_kernel=True)
+        shards = [sm.shard_slice(sg, d).to(device) for d in range(n)]
+        n_rows = g_p.num_chunks * g_p.chunk
+        n_loc, hc = n_rows // n, sg.halo_chunks * sg.chunk
+        log(f"partition n={n}: {time.time() - t0:.1f} s; {n_loc // sg.chunk} chunks a shard, "
+            f"halo {sg.halo_chunks} chunks, b_ext_pad {sg.b_ext_pad}, transpose depth "
+            f"{sg.depth_t}, pack {sg.a_pack}; halo fix-up chunks "
+            f"{[s.hal_dst.shape[1] for s in shards]}, spill rows "
+            f"{[s.res_rows.shape[1] for s in shards]}")
+        for f, dname in SHARD_CASES:
+            dtype = getattr(torch, dname)
+            x = torch.randn((n0, f), generator=gen, device=device).to(dtype)
+            w = torch.randn(f, generator=gen, device=device)
+            xr = x.clone().requires_grad_(True)
+            want = bsda_spmm_cuda.bsda_spmm_cuda(g, xr)
+            (want.float() * w).sum().backward()
+            want, want_grad = want.detach().float(), xr.grad.float()
+            x_pad = torch.cat([x, x.new_zeros((n_rows - n0, f))])
+            ct = w.to(dtype).expand(n_loc, f).contiguous()
+            outs, grad = [], torch.zeros((n_rows, f), device=device)
+            shard_ms, plain_err = [], 0.0
+            for d, sd in enumerate(shards):
+                lo, hi = d * n_loc - hc, (d + 1) * n_loc + hc
+                x_ext = torch.cat([x_pad.new_zeros((max(-lo, 0), f)),
+                                   x_pad[max(lo, 0): min(hi, n_rows)],
+                                   x_pad.new_zeros((max(hi - n_rows, 0), f))])
+                runs = []
+                for _ in range(2):
+                    before = dict(bsda_spmm_cuda.launches)
+                    xe = x_ext.clone().requires_grad_(True)
+                    out = sm.shard_local_aggregate(sd, xe)
+                    (out.float() * w).sum().backward()
+                    for k in launches:
+                        launches[k] += bsda_spmm_cuda.launches[k] - before[k]
+                    runs.append((out.detach(), xe.grad))
+                if not (torch.equal(runs[0][0], runs[1][0])
+                        and torch.equal(runs[0][1], runs[1][1])):
+                    failures.append(f"n={n} shard {d} F={f} {dname}: two runs differ")
+                outs.append(runs[0][0])
+                grad[max(lo, 0): min(hi, n_rows)] += runs[0][1][
+                    max(-lo, 0): max(-lo, 0) + min(hi, n_rows) - max(lo, 0)].float()
+                # the kernel's two launches of the shard against their plain versions
+                lv, tv = sm._local_view(sd), sm._transpose_view(sd)
+                xl = x_ext[hc: hc + n_loc]
+                ctp = torch.cat([ct.new_zeros((hc, f)), ct, ct.new_zeros(
+                    (sd.b_ext_pad * sd.chunk - hc - n_loc, f))])
+                for view, inp in ((lv, xl), (tv, ctp)):
+                    got = bsda_spmm_cuda.bsda_dense_cuda(view, inp).float()
+                    ref = bsda.bsda_dense_plain(view, inp).float()
+                    plain_err = max(plain_err, float((got - ref).abs().max()))
+                    if not within(got, ref, TOL[dname]):
+                        failures.append(f"n={n} shard {d} F={f} {dname}: kernel vs plain")
+                shard_ms.append((cuda_ms(lambda: bsda_spmm_cuda.bsda_dense_cuda(lv, xl),
+                                         flush_buf),
+                                 cuda_ms(lambda: bsda_spmm_cuda.bsda_dense_cuda(tv, ctp),
+                                         flush_buf)))
+            out_all = torch.cat(outs)[:n0].float()
+            err_out = float((out_all - want).abs().max())
+            err_grad = float((grad[:n0] - want_grad).abs().max())
+            ok = shard_close(out_all, want, dname) and shard_close(grad[:n0], want_grad, dname)
+            whole_ms = cuda_ms(lambda: bsda_spmm_cuda.bsda_dense_cuda(g, x), flush_buf)
+            whole_bwd_ms = cuda_ms(lambda: bsda_spmm_cuda.bsda_dense_cuda(
+                g.transpose, w.to(dtype).expand(n0, f).contiguous()), flush_buf)
+            log(f"shards n={n} F={f} {dname}: against the single-device kernel max_abs "
+                f"out {err_out:.3e}, grad {err_grad:.3e} ({'ok' if ok else 'MISMATCH'}); "
+                f"kernel vs plain max_abs {plain_err:.3e}; kernel ms a shard forward "
+                f"{[round(a, 4) for a, _ in shard_ms]}, backward "
+                f"{[round(b, 4) for _, b in shard_ms]}; whole graph forward "
+                f"{whole_ms:.4f} ms, transpose {whole_bwd_ms:.4f} ms")
+            if not ok:
+                failures.append(f"n={n} F={f} {dname}: shards against the whole graph")
+    log(f"shard phase launches (shard_local_aggregate, two runs a shard): {launches}")
+    if failures:
+        fail(f"the halo path's shard aggregation disagrees: {failures}")
+    if not all(launches.values()):
+        fail(f"a BSDA variant was never launched by the shards: {launches}")
+    return launches
 
 
 def arch_kernel_phase(device, flush_buf):
@@ -1823,6 +1971,82 @@ def posthoc_phase(tmp, processed, rec, gat) -> dict:
     return launches
 
 
+def mesh1_phase(tmp, processed, rec, gcn, gat) -> dict:
+    """`aggregation: shard_map` at `mesh_devices: 1`: the halo path in a
+    world of one, a real NCCL process group around the sharded step. rec_k8
+    KLOOP_EPOCHS epochs in the K loop (the epoch with its all-reduces
+    captured) and the serial loop, gcn.yaml (dst and src scales) and
+    gat.yaml (plain attention per shard) EPOCHS epochs. Every epoch of
+    rec_k8 and gcn goes through bsda_spmm (the same counts as the
+    single-device runs); the GAT training launches none of the seven
+    kernels (its scoring pass on the single-device encoding the two
+    forwards); first-epoch losses against the single-device runs of the
+    same seed (MESH1_LOSS_RTOL), final and best val PR-AUC against them
+    (MESH1_PR_ATOL), K against serial per epoch (KLOOP_TOL). Returns the
+    true launches of the rec_k8 runs and of the gcn run."""
+    sm = {"aggregation": "shard_map", "mesh_devices": 1}
+    k_run = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_mesh1",
+                        epochs=KLOOP_EPOCHS, **sm)
+    serial = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_mesh1_serial",
+                         epochs=KLOOP_EPOCHS, epochs_per_sync=1, **sm)
+    for run in (k_run, serial):
+        check_rec_k8_launches(run)
+    compare_runs("rec_k8 shard_map mesh 1, K=8 against serial", k_run, serial)
+    gcn1 = slice_phase(tmp, processed, "gcn.yaml", "gcn_mesh1", **sm)
+    check_conv_launches("gcn.yaml shard_map mesh 1", gcn1,
+                        per_epoch={"ring": 9, "banded": 0}, scoring={"ring": 3, "banded": 0})
+    gat1 = slice_phase(tmp, processed, "gat.yaml", "gat_mesh1", **sm)
+    want = {"gat_fwd": 1, "gat_fwd_gated": 1}
+    if any(n != want.get(k, 0) for k, n in gat1["launches"].items()):
+        fail(f"gat.yaml shard_map mesh 1 launched a kernel in training: "
+             f"{gat1['launches']}, want the scoring pass's {want} alone")
+    for name, one, mesh1, final in (("rec_k8", rec, k_run, True),
+                                    ("gcn.yaml", gcn, gcn1, True),
+                                    ("gat.yaml", gat, gat1, False)):
+        loss_rel = abs(mesh1["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        pr = [abs(mesh1["metrics"][k] - one["metrics"][k])
+              for k in ("pr_auc_illicit", "best_val_pr_auc")] if final else None
+        log(f"{name} shard_map mesh 1 against single device: first-epoch loss "
+            f"{mesh1['losses'][0]:.6f} vs {one['losses'][0]:.6f}, rel {loss_rel:.3e} "
+            f"(tol {MESH1_LOSS_RTOL:.0e})" + (
+                f"; test PR-AUC diff {pr[0]:.3e}, best val diff {pr[1]:.3e} "
+                f"(tol {MESH1_PR_ATOL:.0e})" if final else ""))
+        if loss_rel > MESH1_LOSS_RTOL or (final and max(pr) > MESH1_PR_ATOL):
+            fail(f"{name} with aggregation: shard_map, mesh_devices: 1 disagrees with "
+                 "the single-device run")
+    report_walls("rec_k8 shard_map mesh 1 and single device", (k_run, serial, rec))
+    for name, runs in (("gcn.yaml", (gcn1, gcn)), ("gat.yaml", (gat1, gat))):
+        log(f"{name} one replayed epoch, device ms per block: shard_map mesh 1 "
+            f"{runs[0]['metrics'].get('replay_ms')}, single device "
+            f"{runs[1]['metrics'].get('replay_ms')}")
+    rec_launches = {k: k_run["launches"][k] + serial["launches"][k]
+                    for k in ("ring", "banded")}
+    return {"rec_k8": rec_launches, "gcn": {k: gcn1["launches"][k] for k in ("ring", "banded")}}
+
+
+def multicard_phase(tmp, processed, rec) -> None:
+    """rec_k8 at mesh_devices: min(4, cards) over NCCL, its ranks started
+    by train_gnn.main, where the host has two cards or more; else one line
+    saying why it did not run."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"multi-card run: not run: this host has {count} card (NCCL runs one rank "
+            "a card; the halo path over more than one rank is held against the JAX "
+            "package on the CPU with gloo ranks, tests/test_torch_port_multihost.py)")
+        return
+    n = min(4, count)
+    run = slice_phase(tmp, processed, "rec_k8.yaml", f"rec_k8_mesh{n}",
+                      epochs=KLOOP_EPOCHS, mesh_devices=n)
+    diff = max(abs(run["metrics"][k] - rec["metrics"][k])
+               for k in ("pr_auc_illicit", "best_val_pr_auc"))
+    log(f"rec_k8 over {n} cards (NCCL): test and best val PR-AUC against one card "
+        f"max diff {diff:.3e} (tol {MESH1_PR_ATOL:.0e})")
+    if diff > MESH1_PR_ATOL:
+        fail(f"rec_k8 over {n} cards disagrees with the single-card run")
+
+
 def profile_phase(cfg, kernel_names) -> None:
     """Where the device time goes: the same run for PROFILE_EPOCHS epochs
     under torch.profiler, device time summed by kernel name (setup, the
@@ -1869,7 +2093,9 @@ def drive(device) -> list:
     import torch
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    entries = kernel_phase(device, flush_buf)
+    entries, rec_tables = kernel_phase(device, flush_buf)
+    shard_launches = shard_kernel_phase(device, flush_buf, rec_tables)
+    del rec_tables
     arch_entries = arch_kernel_phase(device, flush_buf)
     gat_entries, gat_tables = gat_kernel_phase(device, flush_buf)
     gat_entries.update(gat_two_sweep_phase(device, flush_buf, gat_tables))
@@ -1924,6 +2150,8 @@ def drive(device) -> list:
         check_conv_launches("sage.yaml", sage,
                             per_epoch={"ring": 3, "banded": 2},
                             scoring={"ring": 1, "banded": 1})
+        mesh1_launches = mesh1_phase(tmp, processed, rec, gcn, gat)
+        multicard_phase(tmp, processed, rec)
         profile_phase(rec["cfg"], ["bsda_spmm_kernel"])
         profile_phase(rec_serial["cfg"], ["bsda_spmm_kernel"])
         profile_phase(rec_ell["cfg"], [])
@@ -1968,9 +2196,14 @@ def drive(device) -> list:
         kernel_row("bsda_spmm[ring: sage F=128 bf16]", ring_row,
                    sage["launches"]["ring"], arch_entries[("sage", 128)]),
     ]
-    # the rec_k8 rows' launches on this slice's own BSDA paths too
+    # the rec_k8 rows' launches on the ninth slice's BSDA paths, in the
+    # halo path's shard phase and in its mesh-1 runs (K and serial) too;
+    # the gcn row's in its mesh-1 run
     for row, name in ((kernels[0], "ring"), (kernels[1], "banded")):
         row.update({k: v[name] for k, v in slice_launches.items()})
+        row.update(shard_launches=shard_launches[name],
+                   mesh1_launches=mesh1_launches["rec_k8"][name])
+    kernels[2].update(mesh1_launches=mesh1_launches["gcn"]["ring"])
     f2 = arch_entries[("gcn", 2)]
     kernels[2].update(second_shape("f2", f2), library_ms_f2=f2["library_ms"])
     # the backwards run once per layer under one count: an entry holds the

@@ -13,6 +13,10 @@ names so each counterpart is easy to find:
     train/     full-batch trainer, temperature calibration, best-model
                checkpoint, batch scoring (predict)
     analysis/  run-dir loading, the model-reload pattern, epoch times
+    parallel/  multi-device training over torch.distributed: the mesh of
+               ranks, process-group set-up and primary-rank IO, row
+               sharding, and the explicit halo path (partitioned BSDA
+               tables, the ring exchange, each shard's aggregation)
     utils/     metrics (numpy), logging, filesystem helpers
 
 It imports torch and numpy only: never jax, optax or elliptic_gnn_tpu.

@@ -78,7 +78,9 @@ def rebuild_on(cfg: dict, data, run_dir: str, device: Optional[str] = None) -> T
     """(data, gops, model) for prepared `data` (perturbed or not): data
     BFS-renumbered as in training (data.orig_index translates back), its
     tables and the model with the run's best.ckpt on the config's device
-    (`device` overrides it)."""
+    (`device` overrides it). A run that trained on the halo path
+    (`aggregation: shard_map` or a mesh) is scored with the single-device
+    BSDA encoding, as its trainer scored it."""
     from ..train.train_gnn import build_graph_ops
     from ..utils.common import resolve_device
 

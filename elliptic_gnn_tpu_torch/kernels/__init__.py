@@ -9,9 +9,18 @@ def spmm(g, x, compute_dtype=None):
                    raises), the plain PyTorch version for CPU tensors;
       EllGraph  -> the ELL gather (kernels/ell.py) on either device, at
                    full precision whatever `compute_dtype` says, as the
-                   JAX package runs its ELL path."""
+                   JAX package runs its ELL path;
+      ShardedBsda -> one rank's share over the halo path (the ring
+                   exchange, then each shard's tables through the same
+                   kernel; parallel/shardmap_step.py)."""
     if isinstance(g, EllGraph):
         return ell_spmm(g, x, compute_dtype=None)
+    if not isinstance(g, BsdaGraph):
+        from ..parallel.shardmap_step import ShardedBsda, sharded_bsda_spmm
+
+        if isinstance(g, ShardedBsda):
+            return sharded_bsda_spmm(g, x, compute_dtype=compute_dtype)
+        raise TypeError(f"no aggregation for {type(g).__name__}")
     if x.is_cuda:
         from .bsda_spmm_cuda import bsda_spmm_cuda
 
@@ -21,9 +30,16 @@ def spmm(g, x, compute_dtype=None):
 
 def gat_aggregate(g, x_proj, alpha_src, alpha_dst, negative_slope=0.2):
     """GAT attention of one layer by encoding: the masked row softmax of
-    the ELL graph, else the BSDA formulation (kernels/bsda_gat.py; the
-    model takes the packed kernels for a BsdaGraph on CUDA before it gets
-    here)."""
+    the ELL graph, one rank's share of the halo path for a ShardedBsda
+    (plain PyTorch per shard, as the JAX package attends in XLA there),
+    else the BSDA formulation (kernels/bsda_gat.py; the model takes the
+    packed kernels for a BsdaGraph on CUDA before it gets here)."""
     if isinstance(g, EllGraph):
         return ell_gat_aggregate(g, x_proj, alpha_src, alpha_dst, negative_slope)
+    if not isinstance(g, BsdaGraph):
+        from ..parallel.shardmap_step import ShardedBsda, sharded_gat_attend
+
+        if isinstance(g, ShardedBsda):
+            return sharded_gat_attend(g, x_proj, alpha_src, alpha_dst, negative_slope)
+        raise TypeError(f"no attention for {type(g).__name__}")
     return bsda_gat_aggregate(g, x_proj, alpha_src, alpha_dst, negative_slope)

@@ -461,6 +461,43 @@ def gat_block_transpose(g: BsdaGraph) -> BsdaGraph:
     )
 
 
+def pad_bsda_chunks(g: BsdaGraph, multiple: int) -> BsdaGraph:
+    """The destination-chunk axis padded to a multiple (zero A-blocks,
+    self-pointing sources, zero scales), so that the encoding tiles a group
+    of ranks; the bit-packed planes, slot_occ and the transpose are padded
+    alike. num_nodes is unchanged; callers pad node arrays to the new
+    num_chunks * chunk grid."""
+    b = g.num_chunks
+    pad = (-b) % multiple
+    if pad == 0:
+        return g
+
+    def cat_zeros(t):
+        if t is None:
+            return None
+        return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))], dim=0)
+
+    new_ids = torch.arange(b, b + pad, dtype=g.src_chunk.dtype,
+                           device=g.src_chunk.device)
+
+    def pad_scale(s):
+        return None if s is None else torch.cat([s, s.new_zeros(pad * g.chunk)])
+
+    return dataclasses.replace(
+        g,
+        a=cat_zeros(g.a),
+        a_packed=cat_zeros(g.a_packed),
+        src_chunk=torch.cat([g.src_chunk, new_ids[:, None].repeat(1, g.depth)]),
+        num_chunks=b + pad,
+        n_pad=g.n_pad + pad * g.chunk,
+        dst_scale=pad_scale(g.dst_scale),
+        src_scale=pad_scale(g.src_scale),
+        slot_occ=cat_zeros(g.slot_occ),
+        transpose=(None if g.transpose is None
+                   else pad_bsda_chunks(g.transpose, multiple)),
+    )
+
+
 # ---------------- aggregation ----------------
 
 DenseFn = Callable[[BsdaGraph, torch.Tensor], torch.Tensor]

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from .bsda import BsdaGraph
+from .segment import segment_sum
 
 
 def _block_terms(mult, asrc_j, adst_i, m_i, slope: float):
@@ -65,13 +66,11 @@ def dense_bwd_head(g: BsdaGraph, xp_h, asrc_h, adst_h, m_h, abar_h, sbar_h,
 
     dadst = dt.sum(dim=(1, 3)).reshape(-1)
     # source-side sums scatter at chunk granularity; (b, d) -> src_chunk ids
-    # may repeat, index_add_ sums them
+    # may repeat, the segment sum adds them
     flat = src.reshape(-1)
-    dasrc = xp_h.new_zeros((b, c)).index_add_(
-        0, flat, dt.sum(dim=2).reshape(-1, c)).reshape(-1)
+    dasrc = segment_sum(dt.sum(dim=2).reshape(-1, c), flat, b).reshape(-1)
     dxp_bd = torch.einsum("bdij,bif->bdjf", e, abar3)         # [B, D, Cj, Ch]
-    dxp = xp_h.new_zeros((b, c, ch)).index_add_(
-        0, flat, dxp_bd.reshape(-1, c, ch)).reshape(-1, ch)
+    dxp = segment_sum(dxp_bd.reshape(-1, c, ch), flat, b).reshape(-1, ch)
     return dxp, dasrc, dadst
 
 

@@ -29,6 +29,7 @@ from ..graph.transform import add_self_loops
 from ..kernels import BsdaGraph, gat_aggregate, spmm
 from ..kernels.ell import build_ell_graph, gcn_norm_weights
 from ..kernels.packed_gat import packed_gat_forward, packed_gat_train_forward
+from ..parallel.mesh import psum
 from ..utils.common import dropout as _dropout
 
 MODEL_GRAPH_KIND = {
@@ -87,7 +88,11 @@ def _linear(d_in: int, d_out: int, bias: bool,
 class BatchNorm(nn.Module):
     """Counterpart of bn_apply: BatchNorm over the node dimension, running
     stats momentum 0.1 toward the batch statistic, unbiased running var;
-    `row_mask` [N] excludes rows (padding) from the batch statistics."""
+    `row_mask` [N] excludes rows (padding) from the batch statistics. With
+    a process `group` (rows sharded over its ranks) the count, sum and sum
+    of squares are summed over the group, in one all-reduce whose backward
+    all-reduces their cotangents (parallel/mesh.py::psum), so every rank
+    normalizes with the global statistics."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -97,8 +102,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(dim))
         self.register_buffer("count", torch.zeros(()))
 
-    def forward(self, h: torch.Tensor,
-                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, row_mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         if self.training:
             if row_mask is not None:
                 m = row_mask.to(h.dtype)[:, None]
@@ -111,6 +116,9 @@ class BatchNorm(nn.Module):
                 n = h.new_full((), float(h.shape[0]))
                 s = h.sum(dim=0)
                 sq = (h * h).sum(dim=0)
+            if group is not None:
+                stats = psum(torch.cat([n[None], s, sq]), group)
+                n, s, sq = stats[0], stats[1: 1 + h.shape[1]], stats[1 + h.shape[1]:]
             mean = s / n
             var = torch.clamp(sq / n - mean * mean, min=0.0)
             with torch.no_grad():
@@ -175,7 +183,7 @@ class _ConvStack(nn.Module):
 
     def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
         h = x
         for layer in self.layers[:-1]:
             h = torch.relu(layer(h, g, self.compute_dtype))
@@ -261,13 +269,13 @@ class SageResBN(nn.Module):
 
     def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
         h = self._inject_time(x, t_idx)
         for li in range(len(self.layers) - 1):
             h_in = h
             h = self.layers[li](h, g, self.compute_dtype)
             if self.use_bn:
-                h = self.bns[li](h, row_mask)
+                h = self.bns[li](h, row_mask, group)
             h = torch.relu(h)
             h = _dropout(h, self.dropout, self.training, generator)
             if self.residual:
@@ -340,7 +348,7 @@ class GAT(nn.Module):
 
     def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
         if not (x.is_cuda and isinstance(g, BsdaGraph)):
             return self.forward_plain(x, g, generator)
         params = [dict(w=l.w, a_src=l.a_src, a_dst=l.a_dst, b=l.b)

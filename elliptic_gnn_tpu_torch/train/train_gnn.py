@@ -36,11 +36,26 @@ sampled subgraphs (train/sampler.py) and scores the full graph through the
 ELL encoding. `profile_dir` traces three epochs of the serial loop with
 torch.profiler into a Chrome trace JSON.
 
+Multi-device training takes the explicit halo path
+(parallel/shardmap_step.py), as `aggregation: auto` does in the JAX trainer
+on a mesh: `mesh_devices: N` (or `all`) splits the destination chunks over
+N ranks of a torch.distributed group (NCCL on CUDA, gloo under `device:
+cpu`), one process per rank. Without the EGNN_* variables (or config keys)
+of parallel/multihost.py, main() starts the N ranks on this host itself and
+returns rank 0's metrics; with them, this process is one rank.
+`aggregation: shard_map` at `mesh_devices: 1` runs the same path in a world
+of one. Each rank's aggregation goes through the BSDA kernel on its split
+tables (GAT attends in plain PyTorch per shard, as JAX attends in XLA);
+BatchNorm statistics and the loss are all-reduced, the gradients
+all-reduced as one flat buffer before the clip and Adam; every rank takes
+the same decisions, and the primary rank alone writes the run dir.
+
 Runs on CUDA (`device: auto` or `cuda`) and raises when there is no GPU,
 unless the config says `device: cpu`.
 
-Not ported yet (raise): multi-device meshes (`mesh_devices` other than 1,
-`aggregation: shard_map`).
+Not ported yet (raise): the GSPMD row sharding of the JAX package
+(`mesh_devices` > 1 with `aggregation: bsda|bsda_pallas|ell`, and the
+`auto` fallback for a graph that partition_bsda rejects).
 """
 from __future__ import annotations
 
@@ -52,40 +67,71 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from ..graph import load_processed, make_temporal_masks
 from ..graph.transform import append_scalar_time, remove_hub_edges, symmetrize_edges
 from ..kernels import bsda_spmm_cuda, gat_cuda
-from ..kernels.bsda import bfs_order, build_bsda_for_kind
+from ..kernels.bsda import bfs_order, build_bsda_for_kind, pad_bsda_chunks
 from ..kernels.ell import EllGraph, renumber_for_ell
 from ..kernels.packed_gat import use_two_sweep_backward
 from ..models import MODEL_GRAPH_KIND, build_model, prepare_graph_ops
 from ..models.convert import params_from_jax
-from ..models.losses import class_weights, make_loss_fn
+from ..models.losses import class_weights, make_loss_fn, make_loss_parts
+from ..parallel import multihost
+from ..parallel.mesh import NODE_AXIS, check_devices, make_mesh
+from ..parallel.sharded import shard_graph_inputs
+from ..parallel.shardmap_step import partition_bsda, shard_slice
 from ..utils import metrics as M
 from ..utils.common import (
     ensure_dir, log_device_info, resolve_device, save_json, set_seed, upload,
 )
-from ..utils.logger import RunLogger
+from ..utils.logger import NullLogger, RunLogger
 from . import calibrate, checkpoint
 
 
-def _reject_unported(cfg: dict) -> None:
-    bad = []
-    if (cfg.get("mesh_devices", 1) or 1) not in (1, "1"):
-        bad.append("mesh_devices")
-    if str(cfg.get("aggregation", "auto")) == "shard_map":
-        bad.append("aggregation: shard_map")
-    if bad:
-        raise NotImplementedError(
-            f"config option(s) {bad} are not ported to elliptic_gnn_tpu_torch "
-            "yet (ROADMAP Queue A #4, multi-device training); use the JAX "
-            "trainer (elliptic_gnn_tpu.train.train_gnn)")
+def mesh_size(cfg: dict, device_type: Optional[str] = None) -> int:
+    """`mesh_devices`: an integer, or `all`: every rank of an initialized
+    multi-process group, else every card of this host (1 on the CPU).
+    `device_type` None reads CUDA where a card is present."""
+    mesh_cfg = cfg.get("mesh_devices", 1) or 1
+    if mesh_cfg != "all":
+        return int(mesh_cfg)
+    if multihost.process_count() > 1:
+        return multihost.process_count()
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.cuda.device_count() if device_type == "cuda" else 1
 
 
-def _pick_aggregation(cfg: dict, kind: str) -> str:
+def _reject_unported(cfg: dict, n_mesh: int) -> None:
+    """Refuses the GSPMD cases: a mesh with a pinned single-device
+    encoding."""
+    if n_mesh > 1 and not cfg.get("mini_batch", False):
+        agg = _pick_aggregation(cfg, _kind(cfg), n_mesh)
+        if agg != "shard_map":
+            raise NotImplementedError(
+                f"mesh_devices: {n_mesh} with aggregation: {agg} is the JAX "
+                "package's GSPMD row sharding, not ported to "
+                "elliptic_gnn_tpu_torch yet (ROADMAP Queue A: the GSPMD path); "
+                "aggregation: auto or shard_map trains over the halo path")
+
+
+def _kind(cfg: dict) -> str:
+    arch = cfg["arch"]
+    if arch not in MODEL_GRAPH_KIND:
+        raise ValueError(
+            f"Unknown arch {arch!r}; expected one of {sorted(MODEL_GRAPH_KIND)}"
+        )
+    return MODEL_GRAPH_KIND[arch]
+
+
+def _pick_aggregation(cfg: dict, kind: str, n_mesh: Optional[int] = None) -> str:
     """The aggregation encoding, by the JAX trainer's table:
+      'shard_map'            the explicit halo path over the ranks of a
+                             mesh: what 'auto' is on a mesh of more than
+                             one rank (`n_mesh`; None reads mesh_devices)
       'bsda', 'bsda_pallas'  the int8 BSDA tables; on CUDA tensors through
                              the hand-written kernels, on CPU tensors
                              through their plain versions (the two names
@@ -93,7 +139,6 @@ def _pick_aggregation(cfg: dict, kind: str) -> str:
                              and GAT's 'bsda_pallas' is 'bsda', as in JAX)
       'ell'                  the ELL gather (kernels/ell.py); always for
                              `mini_batch`
-      'shard_map'            multi-device; refused by _reject_unported
     Unknown values raise."""
     mode = cfg.get("aggregation", "auto")
     if cfg.get("use_pallas", False):  # the JAX package's legacy switch
@@ -101,6 +146,8 @@ def _pick_aggregation(cfg: dict, kind: str) -> str:
     if cfg.get("mini_batch", False) or kind not in ("sage", "gcn", "gat"):
         return "ell"
     if mode == "auto":
+        if (mesh_size(cfg) if n_mesh is None else n_mesh) > 1:
+            return "shard_map"
         return "bsda"
     if mode == "bsda_pallas":
         return "bsda" if kind == "gat" else "bsda_pallas"
@@ -196,14 +243,13 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
     (kernels/packed_gat.py::use_two_sweep_backward).
     ELL: models.prepare_graph_ops, relabelled by renumber_for_ell unless
     `renumber: false` or `mini_batch` (the sampler keeps on-disk ids).
+    `aggregation: shard_map` (or `auto` on a mesh) builds the same tables
+    without transpose tables (the trainer partitions them; the scoring pass,
+    predict and rebuild_on use them whole, on one device).
     A renumbered graph's artifacts translate back via data.orig_index."""
-    arch = cfg["arch"]
-    if arch not in MODEL_GRAPH_KIND:
-        raise ValueError(
-            f"Unknown arch {arch!r}; expected one of {sorted(MODEL_GRAPH_KIND)}"
-        )
-    kind = MODEL_GRAPH_KIND[arch]
-    if _pick_aggregation(cfg, kind) == "ell":
+    kind = _kind(cfg)
+    agg = _pick_aggregation(cfg, kind)
+    if agg == "ell":
         gops = prepare_graph_ops(data.edge_index, data.num_nodes, kind)
         if bool(cfg.get("renumber", True)) and not cfg.get("mini_batch", False):
             gops, rank = renumber_for_ell(gops)
@@ -213,7 +259,8 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
     data = data.renumber(rank)
     gops = build_tables(
         cfg, data.edge_index, data.num_nodes, device,
-        transpose=kind != "gat" or (training and use_two_sweep_backward()))
+        transpose=agg != "shard_map" and (
+            kind != "gat" or (training and use_two_sweep_backward())))
     return data, gops
 
 
@@ -230,28 +277,74 @@ def build_train_state(cfg: dict, data, seed: int, device: torch.device,
     model = model.to(device)
     opt = make_optimizer(model, cfg, capturable=device.type == "cuda")
 
+    loss_fn = make_loss_fn(cfg, *_loss_args(cfg, data), device)
+    return data, model, gops, opt, loss_fn
+
+
+def _loss_args(cfg: dict, data):
+    """(class weights, first and last train timestep) of the loss."""
     if cfg.get("class_weight_pos", "auto") == "auto":
         cw = class_weights(data.y[data.train_mask])
     else:
         cw = np.array([1.0, float(cfg["class_weight_pos"])], dtype=np.float32)
     t_train = data.timestep[data.train_mask]
-    loss_fn = make_loss_fn(cfg, cw, int(t_train.min()), int(t_train.max()), device)
-    return data, model, gops, opt, loss_fn
+    return cw, int(t_train.min()), int(t_train.max())
 
 
 def main(cfg: dict, init_params=None) -> dict:
+    """Train one config; returns its metrics (on a mesh started here, rank
+    0's, read from its metrics.json)."""
     set_seed(cfg.get("seed", 42))
     device = resolve_device(cfg.get("device", "auto"))
-    _reject_unported(cfg)
+    multihost.maybe_initialize(cfg, device.type)
+    n_mesh = 1 if cfg.get("mini_batch", False) else mesh_size(cfg, device.type)
+    _reject_unported(cfg, n_mesh)
+    n_proc = multihost.process_count()
+    if n_mesh > 1 and n_proc == 1:
+        return _launch_ranks(cfg, n_mesh, device, init_params)
+    if n_proc > 1 and n_mesh != n_proc:
+        raise ValueError(
+            f"multi-process runs must shard over all {n_proc} ranks: set "
+            f"mesh_devices: all (got {cfg.get('mesh_devices', 1)})")
+    if not cfg.get("mini_batch", False) and \
+            _pick_aggregation(cfg, _kind(cfg), n_mesh) == "shard_map":
+        with multihost.world_of_one(device.type):
+            return _run(cfg, init_params, device, make_mesh(n_mesh, device.type))
+    return _run(cfg, init_params, device, None)
+
+
+def _launch_ranks(cfg: dict, n: int, device: torch.device, init_params) -> dict:
+    """`mesh_devices: n` without a process group: n ranks on this host, one
+    process each (parallel/multihost.py::spawn_ranks); rank 0's metrics."""
+    check_devices(n, device.type)
+    print(f"[MESH] starting {n} ranks on this host ({device.type})")
+    multihost.spawn_ranks(n, main, (cfg, init_params), device.type)
     outdir = os.path.join(cfg.get("output_root", "outputs"), "gnn", cfg["run_name"])
-    ensure_dir(outdir)
-    logger = RunLogger(outdir)
+    with open(os.path.join(outdir, "metrics.json")) as fh:
+        return json.load(fh)
+
+
+def _run(cfg: dict, init_params, device: torch.device, mesh) -> dict:
+    """One process's run: single-device (`mesh` None) or one rank of the
+    halo path."""
+    if mesh is not None:
+        device = mesh.device
+    primary = multihost.is_primary()
+    outdir = os.path.join(cfg.get("output_root", "outputs"), "gnn", cfg["run_name"])
+    if primary:
+        ensure_dir(outdir)
+        logger = RunLogger(outdir)
+    else:
+        logger = NullLogger()
     log_device_info(device)
 
     data = prepare_data(cfg)
     data, model, gops, opt, loss_fn = build_train_state(
         cfg, data, cfg.get("seed", 42), device, init_params)
     inputs = _Inputs(data, device)
+    train_ops, train_inputs = gops, inputs
+    if mesh is not None:
+        train_ops, train_inputs = _shard(cfg, data, gops, mesh)
 
     t_start = time.time()
     if cfg.get("mini_batch", False):
@@ -261,13 +354,40 @@ def main(cfg: dict, init_params=None) -> dict:
             cfg, data, inputs, model, opt, loss_fn, logger, device)
     else:
         best, best_val, epochs_run, epoch_seconds, loop_info = _train_loop_fullbatch(
-            cfg, outdir, inputs, model, gops, opt, loss_fn, logger, device)
+            cfg, outdir, train_inputs, model, train_ops, opt, loss_fn, logger,
+            device, mesh)
     train_seconds = time.time() - t_start
     model.load_state_dict(best)
-    checkpoint.save_best(outdir, model)
+    if primary:
+        checkpoint.save_best(outdir, model)
 
     return _finalize(cfg, outdir, data, inputs, model, gops, best_val, logger,
                      train_seconds, epochs_run, epoch_seconds, loop_info)
+
+
+def _shard(cfg: dict, data, gops, mesh):
+    """This rank's share of the halo path: the tables padded to tile the
+    mesh, partitioned (the kernel route's tables for sage/gcn; GAT attends
+    in plain PyTorch) and sliced to this rank on its device, and the node
+    arrays' rows (_ShardInputs). A graph that partition_bsda rejects raises
+    its ValueError under an explicit `aggregation: shard_map`; under `auto`
+    the JAX package falls back to GSPMD, which is not ported yet."""
+    gops_p = pad_bsda_chunks(gops, mesh.size)
+    try:
+        sg = partition_bsda(gops_p, mesh.size, use_kernel=_kind(cfg) != "gat")
+    except ValueError as exc:
+        if str(cfg.get("aggregation", "auto")) == "shard_map":
+            raise
+        raise NotImplementedError(
+            f"the graph is not banded enough for the halo path ({exc}); the JAX "
+            "package falls back to GSPMD row sharding there, which is not ported "
+            "to elliptic_gnn_tpu_torch yet (ROADMAP Queue A: the GSPMD path)") from exc
+    sg_r = shard_slice(sg, mesh.rank, mesh.group).to(mesh.device)
+    inputs = _ShardInputs(cfg, data, gops_p, mesh)
+    print(f"[MESH] training sharded over {mesh.size} ranks of the {NODE_AXIS!r} axis "
+          f"({inputs.n_pad} padded rows, explicit shard_map), rank {mesh.rank} on "
+          f"{mesh.device}")
+    return sg_r, inputs
 
 
 class _Inputs:
@@ -284,12 +404,34 @@ class _Inputs:
         self.y_val = upload((data.y[data.val_mask] == 1).astype(np.int32), device)
 
 
+class _ShardInputs:
+    """This rank's rows of the node arrays (parallel/sharded.py), the val
+    rows it owns with their positions in the global val vector, the global
+    val labels, the global train count (the loss denominator) and the
+    loss's parts."""
+
+    def __init__(self, cfg: dict, data, gops, mesh):
+        (self.x, self.y, self.t, self.train_mask, self.row_mask,
+         self.n_pad) = shard_graph_inputs(mesh, data, gops)
+        n_loc = self.x.shape[0]
+        lo = mesh.rank * n_loc
+        val_idx = np.where(data.val_mask)[0]
+        mine = (val_idx >= lo) & (val_idx < lo + n_loc)
+        self.n_val = int(val_idx.size)
+        self.val_local = upload(val_idx[mine] - lo, mesh.device)
+        self.val_pos = upload(np.nonzero(mine)[0], mesh.device)
+        self.y_val = upload((data.y[data.val_mask] == 1).astype(np.int32), mesh.device)
+        self.den = torch.tensor(max(float(data.train_mask.sum()), 1.0),
+                                dtype=torch.float32, device=mesh.device)
+        self.loss_parts = make_loss_parts(cfg, *_loss_args(cfg, data), mesh.device)
+
+
 def _snapshot(model: torch.nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
 def _train_loop_fullbatch(cfg, outdir, inputs, model, gops, opt, loss_fn,
-                          logger, device):
+                          logger, device, mesh=None):
     """Returns (best state_dict, best_val, epochs_run, epoch_seconds,
     loop_info): epoch_seconds holds each epoch's host wall time (the serial
     loop: one iteration; the K loop: its block's wall over the epochs the
@@ -297,10 +439,16 @@ def _train_loop_fullbatch(cfg, outdir, inputs, model, gops, opt, loss_fn,
     loop_info the K and, on CUDA, the replays of the captured epoch, the
     kernel launches captured in it (each replay launches them again) and
     replay_ms, per block the device time of one replayed epoch (CUDA events
-    around the block's replays)."""
+    around the block's replays). With a `mesh`, `gops` and `inputs` are
+    this rank's shard and rows (_shard) and the epoch is the sharded step
+    (_sharded_step)."""
     t_idx_arg = inputs.t if model.uses_time_embed else None
     use_time_loss = str(cfg.get("time_loss_weighting", "none")) != "none"
-    gen = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 42)) + 1)
+    # each rank draws its own dropout masks: the seed and the rank make its
+    # generator's seed (rank 0's is the single-device run's)
+    rank = 0 if mesh is None else mesh.rank
+    gen = torch.Generator(device=device).manual_seed(
+        int(cfg.get("seed", 42)) + 1 + (rank << 32))
     grad_clip = float(cfg.get("grad_clip", 0) or 0)
 
     def train_step():
@@ -321,21 +469,91 @@ def _train_loop_fullbatch(cfg, outdir, inputs, model, gops, opt, loss_fn,
             probs_val = torch.softmax(logits, dim=1)[:, 1][inputs.val_idx]
         return loss.detach(), probs_val
 
+    if mesh is not None:
+        train_step = _sharded_step(model, gops, opt, inputs, gen, grad_clip,
+                                   use_time_loss, mesh)
     best = _snapshot(model)
     best_val, bad, start_epoch = -1.0, 0, 1
     if cfg.get("resume", False) and checkpoint.has_resume(outdir):
         epoch, best_val, bad, rng = checkpoint.load_resume(outdir, model, opt, cfg, best)
         # a file of the JAX package, or of a run on another device type,
-        # holds no state of this generator: it restarts from the seed
-        if rng is not None and rng.numel() == gen.get_state().numel():
+        # holds no state of this generator: it restarts from the seed; the
+        # file holds rank 0's, so the other ranks restart theirs too
+        if rng is not None and rng.numel() == gen.get_state().numel() and rank == 0:
             gen.set_state(rng)
         start_epoch = epoch + 1
         print(f"[RESUME] from epoch {start_epoch} (best_val={best_val:.4f})")
 
     k = epochs_per_sync(cfg, device)
     run = _k_loop if k > 1 else _serial_loop
-    return run(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
-               best, best_val, bad, start_epoch, k)
+    out = run(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
+              best, best_val, bad, start_epoch, k)
+    if mesh is not None:
+        out[4]["mesh_devices"] = mesh.size
+    return out
+
+
+def _sharded_step(model, sg, opt, inputs, gen, grad_clip, use_time_loss, mesh):
+    """One epoch of one rank on the halo path (counterpart of
+    make_shardmap_train_step): the training forward on this rank's rows,
+    the loss numerator all-reduced over the global train count, each rank
+    backpropagating its own share num_r / den (the parameter penalty on
+    rank 0 alone), the gradients all-reduced (SUM) as one flat buffer
+    before the clip and Adam, then the eval forward and the val
+    probabilities assembled on every rank by an all-reduce. Returns (loss,
+    val probabilities) on the device, the same on every rank."""
+    loss_vec_fn, penalty_fn = inputs.loss_parts
+    group = mesh.group
+    params = list(model.parameters())
+    t_idx = inputs.t if model.uses_time_embed else None
+
+    def train_step():
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        logits = model(inputs.x, sg, t_idx, generator=gen,
+                       row_mask=inputs.row_mask, group=group)
+        vec = loss_vec_fn(logits, inputs.y, inputs.t if use_time_loss else None)
+        num_r = (vec * inputs.train_mask).sum()
+        share = num_r / inputs.den
+        penalty = penalty_fn(model)
+        if penalty is not None and mesh.rank == 0:
+            share = share + penalty
+        share.backward()
+        _all_reduce_grads(params, group)
+        if grad_clip > 0:
+            torch.nn.utils.clip_grad_norm_(params, grad_clip)
+        opt.step()
+        num = num_r.detach().clone()
+        dist.all_reduce(num, group=group)
+        loss = num / inputs.den
+        if penalty is not None:
+            loss = loss + penalty.detach()
+        model.eval()
+        with torch.no_grad():
+            logits = model(inputs.x, sg, t_idx, row_mask=inputs.row_mask, group=group)
+            probs = torch.softmax(logits, dim=1)[:, 1]
+            probs_val = probs.new_zeros(inputs.n_val).index_copy_(
+                0, inputs.val_pos, probs[inputs.val_local])
+            dist.all_reduce(probs_val, group=group)
+        return loss, probs_val
+
+    return train_step
+
+
+def _all_reduce_grads(params, group) -> None:
+    """Every parameter's gradient summed over the group, in one all-reduce
+    of a flat buffer (a parameter without a gradient counts zeros)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    off = 0
+    for p, g in zip(params, grads):
+        chunk = flat[off: off + g.numel()].view_as(g)
+        off += g.numel()
+        if p.grad is None:
+            p.grad = chunk.clone()
+        else:
+            p.grad.copy_(chunk)
 
 
 def _serial_loop(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
@@ -360,7 +578,7 @@ def _serial_loop(cfg, outdir, model, opt, logger, device, gen, train_step, input
         """Host tail of one epoch: pull the fused vector (the one sync),
         val PR-AUC, best tracking, checkpoint, early-stop decision."""
         nonlocal best_val, bad, best, epochs_run
-        fused_h = fused_dev.cpu().numpy()
+        fused_h = multihost.replicate_to_all_hosts(fused_dev).cpu().numpy()
         p_val, loss_f = fused_h[:-1], float(fused_h[-1])
         pr_val = 0.0 if p_val.size == 0 else M.pr_auc_illicit(y_val_bin, p_val)
         logger.log_epoch(ep, loss_f, pr_val)
@@ -372,7 +590,7 @@ def _serial_loop(cfg, outdir, model, opt, logger, device, gen, train_step, input
         if ep % 10 == 0 or ep == 1:
             print(f"Epoch {ep:4d} | loss {loss_f:.4f} | "
                   f"val PR-AUC(illicit) {pr_val:.4f} (best {best_val:.4f})")
-        if saved is not None:
+        if saved is not None and multihost.is_primary():
             checkpoint.save_resume(outdir, model, saved[0], cfg, ep, best_val, bad,
                                    best=best, rng_state=saved[1], current=state_e)
         if bad >= patience:
@@ -382,7 +600,9 @@ def _serial_loop(cfg, outdir, model, opt, logger, device, gen, train_step, input
 
     # process the PREVIOUS epoch while this one runs on the device: the
     # early-stop check lags one epoch (one discarded in-flight epoch at stop)
-    profile_dir, prof = cfg.get("profile_dir"), None
+    # the trace is the primary rank's, as all artifact IO
+    profile_dir = cfg.get("profile_dir") if multihost.is_primary() else None
+    prof = None
     pending = None
     try:
         for epoch in range(start_epoch, int(cfg["max_epochs"]) + 1):
@@ -554,7 +774,8 @@ def _k_loop(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
                     graph.replay()
                 events[1].record()
             replays += todo
-        rh = loop.report.cpu().numpy()  # the block's one host sync
+        # the block's one host sync
+        rh = multihost.replicate_to_all_hosts(loop.report).cpu().numpy()
         wall = time.time() - t0
         if device.type == "cuda" and todo:
             replay_ms.append(events[0].elapsed_time(events[1]) / todo)
@@ -579,7 +800,7 @@ def _k_loop(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
                 print("Early stopping.")
                 stopped = True
                 break
-        if (ckpt_every and not stopped
+        if (ckpt_every and not stopped and multihost.is_primary()
                 and (ep - 1) // ckpt_every > (block_start - 1) // ckpt_every):
             checkpoint.save_resume(outdir, model, opt.state, cfg, ep - 1, best_val,
                                    bad, best=best, rng_state=gen.get_state())
@@ -594,7 +815,10 @@ def _finalize(cfg, outdir, data, inputs, model, gops, best_val, logger,
               train_seconds: float, epochs_run: int, epoch_seconds,
               loop_info: dict) -> dict:
     """Full-graph eval with the best parameters, temperature scaling,
-    artifacts, threshold + metrics, optional hub ablation, config echo."""
+    artifacts, threshold + metrics, optional hub ablation, config echo. A
+    rank of a sharded run scores the whole graph with the single-device
+    encoding (`gops`), as the JAX trainer does per host; the primary rank
+    writes, then every rank passes a barrier."""
     t_idx_arg = inputs.t if model.uses_time_embed else None
     model.eval()
     with torch.no_grad():
@@ -606,8 +830,9 @@ def _finalize(cfg, outdir, data, inputs, model, gops, best_val, logger,
         temp = calibrate.fit_temperature(logits_full[data.val_mask], y_val_bin)
         print(f"[CALIB] temperature T={temp:.4f}")
 
+    primary = multihost.is_primary()
     probs = calibrate.calibrated_probs(logits_full, temp)
-    metrics = finish_run(cfg, outdir, data, probs, best_val, extra={
+    metrics = finish_run(cfg, outdir, data, probs, best_val, write=primary, extra={
         "train_seconds": float(train_seconds),
         "epochs_run": int(epochs_run),
         "epoch_seconds": [float(s) for s in epoch_seconds],
@@ -636,12 +861,15 @@ def _finalize(cfg, outdir, data, inputs, model, gops, best_val, logger,
             cfg, (y_te == 1).astype(int), p_abl[data.test_mask], metrics["threshold"])
         hub_metrics.update(n_hubs=int(num_hubs), hub_fraction=frac,
                            n_edges_remaining=int(ei_abl.shape[1]))
-        save_json(os.path.join(outdir, "metrics_hub_removed.json"), hub_metrics)
+        if primary:
+            save_json(os.path.join(outdir, "metrics_hub_removed.json"), hub_metrics)
 
-    with open(os.path.join(outdir, "config_used.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f)
-    print(json.dumps(metrics, indent=2))
+    if primary:
+        with open(os.path.join(outdir, "config_used.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+        print(json.dumps(metrics, indent=2))
     logger.close()
+    multihost.barrier("finalize")  # every rank leaves the run together
     return metrics
 
 
@@ -663,9 +891,10 @@ def test_metrics_at_threshold(cfg: dict, y_bin: np.ndarray, p_te: np.ndarray,
 
 
 def finish_run(cfg: dict, outdir: str, data, probs: np.ndarray, best_val: float,
-               extra: Optional[dict] = None) -> dict:
+               extra: Optional[dict] = None, write: bool = True) -> dict:
     """Artifact + metrics emission: the run-directory contract. `probs` are
-    calibrated P(illicit) for all nodes."""
+    calibrated P(illicit) for all nodes. `write=False` (every rank but the
+    primary) computes the metrics without touching the disk."""
     y_np = data.y
     val_mask, test_mask = data.val_mask, data.test_mask
     timestep_np = data.timestep
@@ -680,14 +909,15 @@ def finish_run(cfg: dict, outdir: str, data, probs: np.ndarray, best_val: float,
         if data.orig_index is not None
         else np.arange(len(y_np), dtype=np.int64)
     )
-    np.save(os.path.join(outdir, "scores_val.npy"), p_val)
-    np.save(os.path.join(outdir, "y_val.npy"), y_val)
-    np.save(os.path.join(outdir, "node_idx_val.npy"), orig[val_mask])
-    np.save(os.path.join(outdir, "timestep_val.npy"), timestep_np[val_mask])
-    np.save(os.path.join(outdir, "scores_test.npy"), p_te)
-    np.save(os.path.join(outdir, "y_test.npy"), y_te)
-    np.save(os.path.join(outdir, "node_idx_test.npy"), orig[test_mask])
-    np.save(os.path.join(outdir, "timestep_test.npy"), timestep_np[test_mask])
+    if write:
+        np.save(os.path.join(outdir, "scores_val.npy"), p_val)
+        np.save(os.path.join(outdir, "y_val.npy"), y_val)
+        np.save(os.path.join(outdir, "node_idx_val.npy"), orig[val_mask])
+        np.save(os.path.join(outdir, "timestep_val.npy"), timestep_np[val_mask])
+        np.save(os.path.join(outdir, "scores_test.npy"), p_te)
+        np.save(os.path.join(outdir, "y_test.npy"), y_te)
+        np.save(os.path.join(outdir, "node_idx_test.npy"), orig[test_mask])
+        np.save(os.path.join(outdir, "timestep_test.npy"), timestep_np[test_mask])
 
     if cfg.get("use_val_for_thresholds", True):
         pt = float(cfg.get("precision_target", 0.0) or 0.0)
@@ -712,7 +942,8 @@ def finish_run(cfg: dict, outdir: str, data, probs: np.ndarray, best_val: float,
     if extra:
         metrics.update(extra)
 
-    save_json(os.path.join(outdir, "metrics.json"), metrics)
+    if write:
+        save_json(os.path.join(outdir, "metrics.json"), metrics)
     return metrics
 
 

@@ -44,3 +44,16 @@ class RunLogger:
         self._fh.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger:
+    """RunLogger's interface, doing nothing: the logger of every rank but
+    the primary one, which alone writes the run dir
+    (parallel/multihost.py)."""
+
+    def log_epoch(self, epoch: int, train_loss: float, val_pr_auc: float,
+                  extras: Optional[dict] = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

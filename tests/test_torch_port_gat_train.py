@@ -233,11 +233,12 @@ def test_predict_on_sage_resbn_run(tmp_path, runs):
 
 def test_resume_and_unported_archs_raise(runs, tmp_path):
     cfg_p = dict(runs[1], output_root=str(tmp_path))
-    # resume (tests/test_torch_port_resume_hubs.py) and profile_dir
-    # (tests/test_torch_port_ell_train.py) are ported; the multi-device
-    # aggregation is not
-    with pytest.raises(NotImplementedError, match="shard_map"):
-        train_gnn.main(dict(cfg_p, aggregation="shard_map"))
+    # resume (tests/test_torch_port_resume_hubs.py), profile_dir
+    # (tests/test_torch_port_ell_train.py) and the halo path
+    # (tests/test_torch_port_multihost.py) are ported; the GSPMD row
+    # sharding of a pinned single-device encoding on a mesh is not
+    with pytest.raises(NotImplementedError, match="GSPMD"):
+        train_gnn.main(dict(cfg_p, aggregation="bsda", mesh_devices=2))
     # every arch of the JAX package is ported (gcn and sage:
     # tests/test_torch_port_archs.py); an unknown one is refused
     with pytest.raises(ValueError, match="Unknown arch"):
