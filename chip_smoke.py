@@ -27,6 +27,14 @@ Phases (any failure exits non-zero before the result line):
      F=64 f32: the shards' rows and gradient against the single-device
      kernel, each shard's two launches against their plain versions, two
      runs bit for bit; launches, each shard's ms and the whole graph's;
+     then the GSPMD row sharding's rectangular launches: the same tables
+     padded at n = 4 and n = 2, every rank's slice of destination chunks
+     over the whole x (what the all-gather delivers), forward and the
+     transpose slice over the whole cotangent, at the same (F, dtype)
+     cases: the ranks' rows and gradient against the single-device kernel
+     (and whether the dense parts are bit-equal to its rows), each launch
+     against its plain version, two runs bit for bit; launches, a rank's ms
+     against the whole graph's, forward and transpose;
   4. GAT kernels vs plain: on the same graph, directed and self-looped,
      depth 4: the forward at (h, ch) = (4, 8) with the slot cover and
      (1, 2) without, normalize on and off, compared on val = acc / s and
@@ -102,9 +110,18 @@ Phases (any failure exits non-zero before the result line):
      forwards); first-epoch losses against the single-device runs within
      1e-4 relative, final and best val PR-AUC within 2e-3, K against serial
      within 1e-4 per epoch; walls and replayed epochs beside the
-     single-device runs'. With two cards or more, rec_k8 over
-     min(4, cards) NCCL ranks that train_gnn.main starts; with one, a line
-     saying it did not run;
+     single-device runs'. Then the GSPMD row sharding in a world of one
+     NCCL rank, entered through train_gnn.train_rank (the function a rank
+     process runs) with a pinned `aggregation` at `mesh_devices: 1`:
+     rec_k8 with `bsda` 16 epochs in the K loop (its all-gathers captured)
+     and serial, gcn.yaml 5 and gat.yaml 16 epochs with `bsda`, rec_k8 with
+     `ell` 16 epochs; rec_k8 and gcn launch bsda_spmm as often as their
+     single-device runs, GAT's training and the ELL run none of the seven
+     kernels; first-epoch losses within 1e-4 relative, test and best val
+     PR-AUC within 2e-3 of the single-device runs, K against serial within
+     1e-4. With two cards or more, rec_k8 over min(4, cards) NCCL ranks
+     that train_gnn.main starts, on the halo path and on the GSPMD row
+     sharding; with one, a line saying they did not run;
  10. post-hoc: analysis.run_all on the rec_k8 and gat.yaml run dirs on the
      card, every stage (eval_by_time, calibration, workload, robustness,
      hub_ablation, explain, report), launch counts set to 0 just before
@@ -123,10 +140,17 @@ Phases (any failure exits non-zero before the result line):
      `mini_batch: true`);
  12. prints the table of TPU kernels, the kernel line (each entry with its
      post-hoc launches; the rec_k8 rows also with those of the profile_dir
-     run, of the sequential sweep, of the shard phase (`shard_launches`)
-     and of the mesh-1 runs (`mesh1_launches`), the gcn row with its
-     mesh-1 run's), the card line, and the result line
+     run, of the sequential sweep, of the shard phase (`shard_launches`),
+     of the mesh-1 runs (`mesh1_launches`), of the GSPMD kernel phase
+     (`gspmd_launches`, with a rank's and the whole graph's ms under
+     `gspmd_ms`) and of the GSPMD mesh-1 runs (`gspmd_mesh1_launches`), the
+     gcn row with its two mesh-1 runs'), the card line, and the result line
      {"ok": true, "device": {...}}.
+
+With `--multicard`, on a host of two cards or more, it runs only the
+synthetic graph's rec_k8 on one card and the multi-card runs of phase 9
+(the halo path and the GSPMD row sharding over min(4, cards) NCCL ranks),
+then the card line and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -505,6 +529,104 @@ def shard_kernel_phase(device, flush_buf, g):
     if not all(launches.values()):
         fail(f"a BSDA variant was never launched by the shards: {launches}")
     return launches
+
+
+def gspmd_kernel_phase(device, flush_buf, g):
+    """The GSPMD row sharding's kernel on the card, in one process: the
+    rec_k8 tables `g` (Elliptic scale, symmetrized, int8, bit-packed, depth
+    3, with transposes) padded with pad_bsda_chunks at n = 4 and n = 2;
+    every rank's rectangular slice (gspmd_step.bsda_row_slice) over the
+    whole x, which is what the all-gather delivers: the forward (dense part
+    and the slice's spill) and the transpose slice over the whole
+    cotangent of sum(out * w). Held three ways: the ranks' rows and
+    gradient against the whole-graph kernel's (shard_close, and whether
+    the dense parts are bit-equal: the same tables and summation order);
+    each rectangular launch against its plain version (TOL); two runs bit
+    for bit. Prints the CUDA-event medians of a rank's slice against the
+    whole graph, forward and transpose. Returns (launches by variant, both
+    runs of every rank, forward and transpose; the per-case times)."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import bsda, bsda_spmm_cuda
+    from elliptic_gnn_tpu_torch.parallel.gspmd_step import bsda_row_slice
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    n0 = g.num_nodes
+    launches = {"ring": 0, "banded": 0}
+    times, failures = {}, []
+    dense = bsda_spmm_cuda.bsda_dense_cuda
+    for n in SHARD_WAYS:
+        t0 = time.time()
+        g_p = bsda.pad_bsda_chunks(g, n)
+        n_rows = g_p.num_chunks * g_p.chunk
+        n_loc = n_rows // n
+        views = [(bsda_row_slice(g_p, n, d).to(device),
+                  bsda_row_slice(g_p.transpose, n, d).to(device)) for d in range(n)]
+        log(f"GSPMD slices n={n}: {time.time() - t0:.1f} s; {n_loc // g_p.chunk} destination "
+            f"chunks a rank of {g_p.num_chunks}; spill rows a rank "
+            f"{[0 if v.residual_rows is None else v.residual_rows.numel() for v, _ in views]}")
+        for f, dname in SHARD_CASES:
+            dtype = getattr(torch, dname)
+            x = torch.randn((n0, f), generator=gen, device=device).to(dtype)
+            w = torch.randn(f, generator=gen, device=device)
+            xr = x.clone().requires_grad_(True)
+            want = bsda_spmm_cuda.bsda_spmm_cuda(g, xr)
+            (want.float() * w).sum().backward()
+            want, want_grad = want.detach().float(), xr.grad.float()
+            x_all = torch.cat([x, x.new_zeros((n_rows - n0, f))])
+            ct_all = w.to(dtype).expand(n_rows, f).contiguous()
+            whole_fwd, whole_bwd = dense(g_p, x_all), dense(g_p.transpose, ct_all)
+            outs, grads, bit_equal, plain_err, rank_ms = [], [], True, 0.0, []
+            for d, (fv, tv) in enumerate(views):
+                rows = slice(d * n_loc, (d + 1) * n_loc)
+                runs = []
+                for _ in range(2):
+                    before = dict(bsda_spmm_cuda.launches)
+                    out = bsda.bsda_forward(fv, x_all, dense, n_out=n_loc)
+                    dx = bsda.bsda_forward(tv, ct_all, dense, n_out=n_loc)
+                    for k in launches:
+                        launches[k] += bsda_spmm_cuda.launches[k] - before[k]
+                    runs.append((out, dx))
+                if not (torch.equal(runs[0][0], runs[1][0])
+                        and torch.equal(runs[0][1], runs[1][1])):
+                    failures.append(f"n={n} rank {d} F={f} {dname}: two runs differ")
+                outs.append(runs[0][0])
+                grads.append(runs[0][1])
+                for view, inp, whole in ((fv, x_all, whole_fwd), (tv, ct_all, whole_bwd)):
+                    got = dense(view, inp, n_loc)
+                    bit_equal = bit_equal and torch.equal(got, whole[rows])
+                    ref = bsda.bsda_dense_plain(view, inp, n_loc).float()
+                    plain_err = max(plain_err, float((got.float() - ref).abs().max()))
+                    if not within(got.float(), ref, TOL[dname]):
+                        failures.append(f"n={n} rank {d} F={f} {dname}: kernel vs plain")
+                rank_ms.append((cuda_ms(lambda: dense(fv, x_all, n_loc), flush_buf),
+                                cuda_ms(lambda: dense(tv, ct_all, n_loc), flush_buf)))
+            out_all = torch.cat(outs)[:n0].float()
+            grad_all = torch.cat(grads)[:n0].float()
+            err_out = float((out_all - want).abs().max())
+            err_grad = float((grad_all - want_grad).abs().max())
+            ok = shard_close(out_all, want, dname) and shard_close(grad_all, want_grad, dname)
+            whole_ms = cuda_ms(lambda: dense(g_p, x_all), flush_buf)
+            whole_bwd_ms = cuda_ms(lambda: dense(g_p.transpose, ct_all), flush_buf)
+            times[(n, f, dname)] = dict(rank_fwd=[a for a, _ in rank_ms],
+                                        rank_bwd=[b for _, b in rank_ms],
+                                        whole_fwd=whole_ms, whole_bwd=whole_bwd_ms)
+            log(f"GSPMD ranks n={n} F={f} {dname}: against the whole graph max_abs out "
+                f"{err_out:.3e}, grad {err_grad:.3e} ({'ok' if ok else 'MISMATCH'}); dense "
+                f"parts {'bit-equal to' if bit_equal else 'NOT bit-equal to'} the whole "
+                f"graph's rows; kernel vs plain max_abs {plain_err:.3e}; kernel ms a rank "
+                f"forward {[round(a, 4) for a, _ in rank_ms]}, transpose "
+                f"{[round(b, 4) for _, b in rank_ms]}; whole graph forward {whole_ms:.4f} ms, "
+                f"transpose {whole_bwd_ms:.4f} ms")
+            if not ok:
+                failures.append(f"n={n} F={f} {dname}: ranks against the whole graph")
+    log(f"GSPMD kernel phase launches (every rank's slice, forward and transpose, two "
+        f"runs): {launches}")
+    if failures:
+        fail(f"the GSPMD row sharding's rectangular launches disagree: {failures}")
+    if not all(launches.values()):
+        fail(f"a BSDA variant was never launched by the GSPMD slices: {launches}")
+    return launches, times
 
 
 def arch_kernel_phase(device, flush_buf):
@@ -1306,8 +1428,9 @@ def device_epochs(metrics) -> int:
 
 
 def slice_phase(tmp, processed, config_name, run_name=None, epochs=EPOCHS,
-                expect_epochs=True, **overrides):
-    """train_gnn.main on one config's values at full width for `epochs`
+                expect_epochs=True, entry=None, **overrides):
+    """train_gnn.main (or `entry`, a function of the config that returns
+    the metrics) on one config's values at full width for `epochs`
     epochs, launch counts set to 0 just before and read just after (the K
     loop's replays counted as true_launches counts them). `run_name`
     replaces the config's; `overrides` replace other values. Returns a
@@ -1327,7 +1450,7 @@ def slice_phase(tmp, processed, config_name, run_name=None, epochs=EPOCHS,
     bsda_spmm_cuda.reset_launches()
     gat_cuda.reset_launches()
     t0 = time.time()
-    metrics = train_gnn.main(cfg)
+    metrics = (entry or train_gnn.main)(cfg)
     wall = time.time() - t0
     launches = true_launches({**bsda_spmm_cuda.launches, **gat_cuda.launches}, metrics)
 
@@ -2024,27 +2147,102 @@ def mesh1_phase(tmp, processed, rec, gcn, gat) -> dict:
     return {"rec_k8": rec_launches, "gcn": {k: gcn1["launches"][k] for k in ("ring", "banded")}}
 
 
+def gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell) -> dict:
+    """The GSPMD row sharding in a world of one NCCL rank, entered through
+    train_gnn.train_rank (the function a rank process runs) with a pinned
+    `aggregation` at `mesh_devices: 1`: rec_k8 with `bsda` KLOOP_EPOCHS
+    epochs in the K loop (its all-gathers captured) and serial, gcn.yaml
+    (dst and src scales) EPOCHS epochs and gat.yaml (plain attention over
+    the gathered rows) KLOOP_EPOCHS epochs with `bsda`, rec_k8 with `ell`
+    KLOOP_EPOCHS epochs: the epochs of the single-device runs.
+    rec_k8 and gcn launch bsda_spmm as often per epoch as their
+    single-device runs (one rectangular launch an aggregation); GAT's
+    training launches none of the seven kernels (its scoring pass the two
+    forwards); the ELL run none at all. First-epoch losses against the
+    single-device runs (MESH1_LOSS_RTOL), test and best val PR-AUC
+    against them (MESH1_PR_ATOL), K against serial per epoch (KLOOP_TOL);
+    replayed epochs beside the single-device runs'. Returns the true
+    launches of the rec_k8 runs and of the gcn run."""
+    from elliptic_gnn_tpu_torch.train import train_gnn
+
+    one = {"mesh_devices": 1, "entry": train_gnn.train_rank}
+    k_run = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_gspmd1",
+                        epochs=KLOOP_EPOCHS, aggregation="bsda", **one)
+    serial = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_gspmd1_serial",
+                         epochs=KLOOP_EPOCHS, epochs_per_sync=1, aggregation="bsda", **one)
+    for run in (k_run, serial):
+        check_rec_k8_launches(run)
+    compare_runs("rec_k8 GSPMD mesh 1, K=8 against serial", k_run, serial)
+    gcn1 = slice_phase(tmp, processed, "gcn.yaml", "gcn_gspmd1", aggregation="bsda", **one)
+    check_conv_launches("gcn.yaml GSPMD mesh 1", gcn1,
+                        per_epoch={"ring": 9, "banded": 0}, scoring={"ring": 3, "banded": 0})
+    gat1 = slice_phase(tmp, processed, "gat.yaml", "gat_gspmd1", epochs=KLOOP_EPOCHS,
+                       aggregation="bsda", **one)
+    want = {"gat_fwd": 1, "gat_fwd_gated": 1}
+    if any(n != want.get(k, 0) for k, n in gat1["launches"].items()):
+        fail(f"gat.yaml GSPMD mesh 1 launched a kernel in training: "
+             f"{gat1['launches']}, want the scoring pass's {want} alone")
+    ell1 = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_ell_gspmd1",
+                       epochs=KLOOP_EPOCHS, aggregation="ell", **one)
+    no_kernel_launched(ell1)
+    for name, single, mesh1 in (("rec_k8", rec, k_run), ("gcn.yaml", gcn, gcn1),
+                                ("gat.yaml", gat, gat1), ("rec_k8 ell", rec_ell, ell1)):
+        loss_rel = abs(mesh1["losses"][0] - single["losses"][0]) / abs(single["losses"][0])
+        pr = [abs(mesh1["metrics"][k] - single["metrics"][k])
+              for k in ("pr_auc_illicit", "best_val_pr_auc")]
+        log(f"{name} GSPMD mesh 1 against single device: first-epoch loss "
+            f"{mesh1['losses'][0]:.6f} vs {single['losses'][0]:.6f}, rel {loss_rel:.3e} "
+            f"(tol {MESH1_LOSS_RTOL:.0e}); PR-AUC diffs {[f'{v:.3e}' for v in pr]} "
+            f"(tol {MESH1_PR_ATOL:.0e}); one replayed epoch, device ms per block: GSPMD "
+            f"{mesh1['metrics'].get('replay_ms')}, single device "
+            f"{single['metrics'].get('replay_ms')}")
+        if loss_rel > MESH1_LOSS_RTOL or max(pr) > MESH1_PR_ATOL:
+            fail(f"{name} with the GSPMD row sharding at mesh_devices: 1 disagrees with "
+                 "the single-device run")
+    report_walls("rec_k8 GSPMD mesh 1 and single device", (k_run, serial, rec))
+    return {"rec_k8": {k: k_run["launches"][k] + serial["launches"][k]
+                       for k in ("ring", "banded")},
+            "gcn": {k: gcn1["launches"][k] for k in ("ring", "banded")}}
+
+
 def multicard_phase(tmp, processed, rec) -> None:
     """rec_k8 at mesh_devices: min(4, cards) over NCCL, its ranks started
-    by train_gnn.main, where the host has two cards or more; else one line
-    saying why it did not run."""
+    by train_gnn.main, on the halo path (`auto`) and on the GSPMD row
+    sharding (`aggregation: bsda`), where the host has two cards or more;
+    else one line saying why they did not run."""
     import torch
 
     count = torch.cuda.device_count()
     if count < 2:
-        log(f"multi-card run: not run: this host has {count} card (NCCL runs one rank "
-            "a card; the halo path over more than one rank is held against the JAX "
-            "package on the CPU with gloo ranks, tests/test_torch_port_multihost.py)")
+        log(f"multi-card runs: not run: this host has {count} card (NCCL runs one rank "
+            "a card; the halo path and the GSPMD row sharding over more than one rank "
+            "are held against the JAX package on the CPU with gloo ranks, "
+            "tests/test_torch_port_multihost.py)")
         return
     n = min(4, count)
-    run = slice_phase(tmp, processed, "rec_k8.yaml", f"rec_k8_mesh{n}",
-                      epochs=KLOOP_EPOCHS, mesh_devices=n)
-    diff = max(abs(run["metrics"][k] - rec["metrics"][k])
-               for k in ("pr_auc_illicit", "best_val_pr_auc"))
-    log(f"rec_k8 over {n} cards (NCCL): test and best val PR-AUC against one card "
-        f"max diff {diff:.3e} (tol {MESH1_PR_ATOL:.0e})")
-    if diff > MESH1_PR_ATOL:
-        fail(f"rec_k8 over {n} cards disagrees with the single-card run")
+    for route, extra in (("halo", {}), ("GSPMD", {"aggregation": "bsda"})):
+        run = slice_phase(tmp, processed, "rec_k8.yaml", f"rec_k8_mesh{n}_{route}",
+                          epochs=KLOOP_EPOCHS, mesh_devices=n, **extra)
+        diff = max(abs(run["metrics"][k] - rec["metrics"][k])
+                   for k in ("pr_auc_illicit", "best_val_pr_auc"))
+        log(f"rec_k8 over {n} cards (NCCL, {route}): test and best val PR-AUC against one "
+            f"card max diff {diff:.3e} (tol {MESH1_PR_ATOL:.0e})")
+        report_walls(f"rec_k8 over {n} cards ({route}) and one card", (run, rec))
+        if diff > MESH1_PR_ATOL:
+            fail(f"rec_k8 over {n} cards ({route}) disagrees with the single-card run")
+
+
+def multicard_drive() -> None:
+    """`python3 chip_smoke.py --multicard` on a host of two cards or more:
+    the mesh runs alone (what exists only across cards): the synthetic
+    Elliptic-scale graph, rec_k8 on one card for KLOOP_EPOCHS epochs, then
+    multicard_phase (the halo path and the GSPMD row sharding over
+    min(4, cards) NCCL ranks against it)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        processed = build_processed(tmp)
+        rec = slice_phase(tmp, processed, "rec_k8.yaml", epochs=KLOOP_EPOCHS)
+        check_rec_k8_launches(rec)
+        multicard_phase(tmp, processed, rec)
 
 
 def profile_phase(cfg, kernel_names) -> None:
@@ -2095,6 +2293,7 @@ def drive(device) -> list:
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     entries, rec_tables = kernel_phase(device, flush_buf)
     shard_launches = shard_kernel_phase(device, flush_buf, rec_tables)
+    gspmd_launches, gspmd_times = gspmd_kernel_phase(device, flush_buf, rec_tables)
     del rec_tables
     arch_entries = arch_kernel_phase(device, flush_buf)
     gat_entries, gat_tables = gat_kernel_phase(device, flush_buf)
@@ -2151,6 +2350,7 @@ def drive(device) -> list:
                             per_epoch={"ring": 3, "banded": 2},
                             scoring={"ring": 1, "banded": 1})
         mesh1_launches = mesh1_phase(tmp, processed, rec, gcn, gat)
+        gspmd1_launches = gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell)
         multicard_phase(tmp, processed, rec)
         profile_phase(rec["cfg"], ["bsda_spmm_kernel"])
         profile_phase(rec_serial["cfg"], ["bsda_spmm_kernel"])
@@ -2199,11 +2399,18 @@ def drive(device) -> list:
     # the rec_k8 rows' launches on the ninth slice's BSDA paths, in the
     # halo path's shard phase and in its mesh-1 runs (K and serial) too;
     # the gcn row's in its mesh-1 run
-    for row, name in ((kernels[0], "ring"), (kernels[1], "banded")):
+    # and in the GSPMD row sharding's kernel phase (gspmd_launches; a rank's
+    # rectangular launch against the whole graph's, forward and transpose,
+    # at n = 4 and 2, under gspmd_ms) and in its mesh-1 runs
+    for row, name, f in ((kernels[0], "ring", 64), (kernels[1], "banded", 168)):
         row.update({k: v[name] for k, v in slice_launches.items()})
         row.update(shard_launches=shard_launches[name],
-                   mesh1_launches=mesh1_launches["rec_k8"][name])
-    kernels[2].update(mesh1_launches=mesh1_launches["gcn"]["ring"])
+                   mesh1_launches=mesh1_launches["rec_k8"][name],
+                   gspmd_launches=gspmd_launches[name],
+                   gspmd_mesh1_launches=gspmd1_launches["rec_k8"][name],
+                   gspmd_ms={f"n={n}": gspmd_times[(n, f, "bfloat16")] for n in SHARD_WAYS})
+    kernels[2].update(mesh1_launches=mesh1_launches["gcn"]["ring"],
+                      gspmd_mesh1_launches=gspmd1_launches["gcn"]["ring"])
     f2 = arch_entries[("gcn", 2)]
     kernels[2].update(second_shape("f2", f2), library_ms_f2=f2["library_ms"])
     # the backwards run once per layer under one count: an entry holds the
@@ -2230,12 +2437,16 @@ def drive(device) -> list:
 
 
 def main() -> None:
+    if sys.argv[1:] not in ([], ["--multicard"]):
+        fail(f"unknown arguments {sys.argv[1:]}: none, or --multicard")
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    if sys.argv[1:] and torch.cuda.device_count() < 2:
+        fail("--multicard needs a host of two cards or more")
     sys.path.insert(0, HERE)
     try:
         from elliptic_gnn_tpu_torch.kernels import cuda_build
@@ -2261,13 +2472,17 @@ def main() -> None:
     log(f"built {', '.join(os.path.relpath(p, HERE) for p in libs.values())} "
         f"in {time.time() - t0:.1f} s")
 
-    kernels = drive(device)
-    table = [{"replaces": loc, "tpu_kernel": name,
-              "status": "ported" if port else "todo", "port": port}
-             for loc, name, port in TPU_KERNELS]
-    log(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernel_table": table}))
-    print(json.dumps({"kernels": kernels}))
+    if sys.argv[1:]:
+        multicard_drive()
+        log(f"total {time.time() - t_start:.1f} s")
+    else:
+        kernels = drive(device)
+        table = [{"replaces": loc, "tpu_kernel": name,
+                  "status": "ported" if port else "todo", "port": port}
+                 for loc, name, port in TPU_KERNELS]
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"kernel_table": table}))
+        print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 
 Copy of generate() in elliptic_gnn_tpu/graph/synthetic.py: both draw from
 numpy's default_rng in the same order, so the same seed gives bit-identical
-graphs in either package. Tests and benchmarks use this statistically
+graphs in either package; write_raw_csvs writes a graph as the reference's
+three CSVs, byte for byte as the JAX package's does. Tests and benchmarks use this statistically
 similar stand-in for the Elliptic CSVs: T timesteps, intra-timestep edges with
 a heavy-tailed degree distribution, ~23% of nodes labeled, ~10% of labeled
 nodes illicit, and class-conditional Gaussian features so that models can
@@ -10,8 +11,11 @@ actually learn (PR-AUC well above the base rate).
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
+from ..utils.common import ensure_dir
 from .data import GraphData
 
 
@@ -123,6 +127,41 @@ def generate(
         edge_index = np.zeros((2, 0), dtype=np.int32)
 
     return GraphData(x=x, y=y, timestep=timestep, edge_index=edge_index)
+
+
+def write_raw_csvs(data: GraphData, data_dir: str, seed: int = 0) -> None:
+    """Emit the three raw CSVs in the reference's on-disk format:
+    headerless features (txId, timestep, f0..; features at 6 significant
+    digits), classes with header (txId,class using 'unknown'/'1'/'2'
+    strings), edgelist with header txId1,txId2. The txIds are distinct
+    8-digit ids drawn from `seed`."""
+    ensure_dir(data_dir)
+    rng = np.random.default_rng(seed)
+    n = data.num_nodes
+    tx_ids = rng.choice(np.arange(10_000_000, 99_999_999), size=n, replace=False)
+
+    feat = np.concatenate(
+        [
+            tx_ids[:, None].astype(np.float64),
+            data.timestep[:, None].astype(np.float64),
+            data.x.astype(np.float64),
+        ],
+        axis=1,
+    )
+    fmt = ["%d", "%d"] + ["%.6g"] * data.num_features
+    np.savetxt(os.path.join(data_dir, "elliptic_txs_features.csv"), feat,
+               delimiter=",", fmt=fmt)
+
+    label_str = np.where(data.y == 1, "1", np.where(data.y == 0, "2", "unknown"))
+    with open(os.path.join(data_dir, "elliptic_txs_classes.csv"), "w") as fh:
+        fh.write("txId,class\n")
+        for t, s in zip(tx_ids, label_str):
+            fh.write(f"{t},{s}\n")
+
+    with open(os.path.join(data_dir, "elliptic_txs_edgelist.csv"), "w") as fh:
+        fh.write("txId1,txId2\n")
+        for s, d in data.edge_index.T:
+            fh.write(f"{tx_ids[s]},{tx_ids[d]}\n")
 
 
 def hub_edges(num_nodes: int, hub_chunk: int = 1, empty_chunk: int = 3,

@@ -500,10 +500,11 @@ def pad_bsda_chunks(g: BsdaGraph, multiple: int) -> BsdaGraph:
 
 # ---------------- aggregation ----------------
 
-DenseFn = Callable[[BsdaGraph, torch.Tensor], torch.Tensor]
+DenseFn = Callable[..., torch.Tensor]  # (g, xc[, n_out]) -> out
 
 
-def bsda_dense_plain(g: BsdaGraph, xc: torch.Tensor) -> torch.Tensor:
+def bsda_dense_plain(g: BsdaGraph, xc: torch.Tensor,
+                     n_out: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the dense part (the CUDA kernel's
     reference): [n0, F] in xc's dtype,
 
@@ -513,31 +514,42 @@ def bsda_dense_plain(g: BsdaGraph, xc: torch.Tensor) -> torch.Tensor:
     kernels/bsda.py:442-479) with the Pallas kernel's rounding points
     (pallas_bsda.py:99-117): the scaled rhs is rounded to xc's dtype, the
     products accumulate in f32, ds scales the f32 sum, and the result is
-    rounded to xc's dtype."""
+    rounded to xc's dtype.
+
+    With `n_out`, the rectangular form (bsda_dense_cuda's): g's chunks are
+    a slice of destination chunks, src_chunk holds chunk ids of xc's rows
+    (the whole row grid), g.src_scale covers xc's rows and g.dst_scale the
+    slice's; the first n_out rows of the slice come out."""
     n0, f = xc.shape
     c, b = g.chunk, g.num_chunks
     rhs = xc
     if g.src_scale is not None:
         rhs = rhs * g.src_scale[:n0, None].to(xc.dtype)
-    pad = b * c - n0
+    src_chunks = b if n_out is None else -(-n0 // c)
+    pad = src_chunks * c - n0
     if pad < 0:
         raise ValueError(f"x has {n0} rows; the tables hold {b * c}")
+    if n_out is not None and not 0 < n_out <= b * c:
+        raise ValueError(f"{n_out} output rows; the tables hold {b * c}")
     if pad:
         rhs = torch.cat([rhs, rhs.new_zeros((pad, f))], dim=0)
-    gathered = rhs.reshape(b, c, f)[g.src_chunk.long()].float()  # [B, D, C, F]
+    gathered = rhs.reshape(src_chunks, c, f)[g.src_chunk.long()].float()  # [B, D, C, F]
     out = torch.einsum("bdij,bdjf->bif", g.a.to(xc.dtype).float(), gathered)
     out = out.reshape(b * c, f)
     if g.dst_scale is not None:
         out = out * g.dst_scale[:, None]
-    return out[:n0].to(xc.dtype)
+    return out[:n0 if n_out is None else n_out].to(xc.dtype)
 
 
-def bsda_forward(g: BsdaGraph, xc: torch.Tensor, dense: DenseFn) -> torch.Tensor:
+def bsda_forward(g: BsdaGraph, xc: torch.Tensor, dense: DenseFn,
+                 n_out: Optional[int] = None) -> torch.Tensor:
     """Dense part through `dense` (kernel or plain version), then the spill
     added with one index-add on residual_rows — in place on the fresh dense
     output, in its dtype, as the JAX kernel path adds it
-    (pallas_bsda.py:402-411)."""
-    out = dense(g, xc)
+    (pallas_bsda.py:402-411). With `n_out` the rectangular form: a slice of
+    destination chunks (its residual's rows the slice's own, its sources
+    rows of xc) writes n_out rows."""
+    out = dense(g, xc) if n_out is None else dense(g, xc, n_out)
     if g.residual is not None:
         spill = ell_weighted_sum(g.residual, xc)  # f32 [R, F], compact rows
         out.index_add_(0, g.residual_rows, spill.to(out.dtype))

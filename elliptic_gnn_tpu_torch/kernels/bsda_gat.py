@@ -32,13 +32,15 @@ def dense_part(g: BsdaGraph, xp_h: torch.Tensor, asrc_h: torch.Tensor,
     """One head's dense-block attention partials.
 
     xp_h [N_pad, Ch], asrc_h/adst_h [N_pad] (padded to the chunk grid).
-    Returns (m [B,C], s [B,C], acc [B,C,Ch]): the row max of the scores
+    Rectangular where g's chunks are a slice of destination chunks: xp_h
+    and asrc_h then hold every row (src_chunk's ids index them), adst_h the
+    slice's rows. Returns (m [B,C], s [B,C], acc [B,C,Ch]): the row max of the scores
     over the row's dense edges (NEG_INF for a row with none), the sum of
     exp(score - m) weighted by multiplicity, and the weighted feature sum."""
     b, c = g.num_chunks, g.chunk
     mult = g.a.to(torch.float32)  # [B, D, C, C] edge multiplicities
     src = g.src_chunk.long()
-    asrc_chunks = asrc_h.reshape(b, c)[src]  # [B, D, C]
+    asrc_chunks = asrc_h.reshape(-1, c)[src]  # [B, D, C]
     adst3 = adst_h.reshape(b, c)
     scores = torch.where(
         mult > 0,
@@ -48,7 +50,7 @@ def dense_part(g: BsdaGraph, xp_h: torch.Tensor, asrc_h: torch.Tensor,
     )
     m = scores.amax(dim=(1, 3))  # [B, C]
     e = torch.exp(scores - m[:, None, :, None]) * mult
-    xp_chunks = xp_h.reshape(b, c, -1)[src]  # [B, D, C, Ch]
+    xp_chunks = xp_h.reshape(-1, c, xp_h.shape[-1])[src]  # [B, D, C, Ch]
     # ones column: one product gives the weighted feature sum and the
     # softmax denominator
     xp_ext = torch.cat([xp_chunks, xp_chunks.new_ones(xp_chunks.shape[:-1] + (1,))],
@@ -104,8 +106,11 @@ def attend(g: BsdaGraph, xp, asrc, adst, negative_slope: float):
     """Global segment-softmax attention on padded arrays: xp
     [N_pad, H, Ch], asrc/adst [N_pad, H] (N_pad = num_chunks * chunk).
     Returns (y [N_pad, H, Ch], m, s [N_pad, H]): the output and the merged
-    softmax state."""
-    n_pad, h, ch = xp.shape
+    softmax state. On a slice of destination chunks (dense_part's
+    rectangular form; its residual's rows the slice's own) adst and the
+    results have the slice's rows."""
+    n_pad = adst.shape[0]
+    h, ch = xp.shape[1:]
     parts = [dense_part(g, xp[:, k, :], asrc[:, k], adst[:, k], negative_slope)
              for k in range(h)]
     m = torch.stack([p[0].reshape(-1) for p in parts], dim=1)      # [N_pad, H]

@@ -10,6 +10,10 @@ plain C interface under <repo>/build/torch_ext at first use, and loaded
 with ctypes (kernels/cuda_build.py). There is no fallback: a missing
 compiler, a failed build, a CPU tensor or a failed launch raises.
 
+A rectangular launch (`n_out`) computes a slice of destination chunks from
+every row of x: one rank's rows under the GSPMD row sharding
+(parallel/gspmd_step.py). The whole-graph call is the square case.
+
 `launches` counts kernel launches per TPU variant the launch stands for
 (see _variant), so a run can show that it went through the kernel.
 """
@@ -52,14 +56,19 @@ def _load() -> ctypes.CDLL:
         i = ctypes.c_int
         lib.bsda_spmm_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.bsda_spmm_launch.restype = ctypes.c_int
+        if hasattr(lib, "bsda_spmm_launch_rect"):  # absent from older sources
+            lib.bsda_spmm_launch_rect.argtypes = [p, p, p, p, p, p] + [i] * 8 + [p]
+            lib.bsda_spmm_launch_rect.restype = ctypes.c_int
         lib.bsda_spmm_error_string.argtypes = [ctypes.c_int]
         lib.bsda_spmm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _variant(g: BsdaGraph, f: int) -> str:
-    nb = -(-g.num_chunks // max(_GROUP, int(g.max_chunk_dist)))
+def _variant(g: BsdaGraph, f: int, src_chunks: int) -> str:
+    """The TPU kernel the launch stands for, by the whole graph's chunk
+    count (`src_chunks`: a rectangular slice counts as its graph does)."""
+    nb = -(-src_chunks // max(_GROUP, int(g.max_chunk_dist)))
     ft_padded = -(-f // _FEAT_TILE) * _FEAT_TILE
     return "ring" if ft_padded == _FEAT_TILE and nb > _RING else "banded"
 
@@ -76,9 +85,12 @@ def kernel_table(g: BsdaGraph):
     return g.a, g.depth, 1
 
 
-def bsda_dense_cuda(g: BsdaGraph, xc: torch.Tensor) -> torch.Tensor:
-    """Dense part of the BSDA SpMM on the GPU: [n0, F] in xc's dtype.
-    Same function as kernels/bsda.py::bsda_dense_plain."""
+def bsda_dense_cuda(g: BsdaGraph, xc: torch.Tensor,
+                    n_out: Optional[int] = None) -> torch.Tensor:
+    """Dense part of the BSDA SpMM on the GPU: [n0, F] in xc's dtype, or
+    with `n_out` the rectangular launch: g's chunks a slice of destination
+    chunks whose src_chunk ids index xc's rows, g.src_scale over xc's rows,
+    [n_out, F] out. Same function as kernels/bsda.py::bsda_dense_plain."""
     if not xc.is_cuda:
         raise ValueError("bsda_dense_cuda takes CUDA tensors; the plain "
                          "version is kernels/bsda.py::bsda_dense_plain")
@@ -95,8 +107,10 @@ def bsda_dense_cuda(g: BsdaGraph, xc: torch.Tensor) -> torch.Tensor:
     n0, f = xc.shape
     if n0 > MAX_ROWS:
         raise ValueError(f"x has {n0} rows; the kernel's edge list takes {MAX_ROWS}")
-    if n0 > g.num_chunks * g.chunk:
-        raise ValueError(f"x has {n0} rows; the tables hold {g.num_chunks * g.chunk}")
+    rect = n_out is not None
+    n_out = n0 if n_out is None else int(n_out)
+    if n_out > g.num_chunks * g.chunk or (rect and n_out <= 0):
+        raise ValueError(f"{n_out} output rows; the tables hold {g.num_chunks * g.chunk}")
     tensors = [a, g.src_chunk] + [s for s in (g.dst_scale, g.src_scale)
                                   if s is not None]
     for t in tensors:
@@ -110,24 +124,27 @@ def bsda_dense_cuda(g: BsdaGraph, xc: torch.Tensor) -> torch.Tensor:
     if g.src_chunk.dtype != torch.int32:
         raise ValueError(f"src_chunk must be int32, not {g.src_chunk.dtype}")
     xc = xc.contiguous()
-    out = torch.empty_like(xc)
+    out = xc.new_empty((n_out, f))
     if n0 == 0 or f == 0:
-        return out
+        return out.zero_()
     lib = _load()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    dtype = 0 if xc.dtype == torch.float32 else 1
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
-        rc = lib.bsda_spmm_launch(
-            ptr(a), ptr(g.src_chunk), ptr(xc), ptr(g.dst_scale),
-            ptr(g.src_scale), ptr(out), g.num_chunks, g.depth, planes, pack,
-            n0, f, 0 if xc.dtype == torch.float32 else 1, stream)
+        args = (ptr(a), ptr(g.src_chunk), ptr(xc), ptr(g.dst_scale), ptr(g.src_scale),
+                ptr(out), g.num_chunks, g.depth, planes, pack, n0)
+        if rect:
+            rc = lib.bsda_spmm_launch_rect(*args, n_out, f, dtype, stream)
+        else:
+            rc = lib.bsda_spmm_launch(*args, f, dtype, stream)
     if rc != 0:
         raise RuntimeError(
             f"bsda_spmm launch failed: {lib.bsda_spmm_error_string(rc).decode()}")
-    launches[_variant(g, f)] += 1
+    launches[_variant(g, f, -(-n0 // g.chunk) if rect else g.num_chunks)] += 1
     return out
 
 

@@ -33,6 +33,11 @@
 // bf16 values are exact in f32; ds scales the f32 sum; the store rounds to
 // bf16. Only the order of the f32 additions differs.
 //
+// A rectangular launch (bsda_spmm_launch_rect) runs a slice of the
+// destination chunks and writes their rows alone, reading every row of x:
+// one rank's rows under the GSPMD row sharding (parallel/gspmd_step.py),
+// x all-gathered. The whole-graph launch is the case n_out = n_rows.
+//
 // Plain C interface, loaded with ctypes (kernels/bsda_spmm_cuda.py).
 
 #include <cuda_bf16.h>
@@ -123,9 +128,12 @@ struct Io<__nv_bfloat16> {
   }
 };
 
-// What the launch fixes for every block.
+// What the launch fixes for every block. n_rows: the rows of x (and ss)
+// that the gathers may read; n_out: the rows of out that the grid writes,
+// chunk b's rows from b * C (a rectangular launch writes a slice of
+// destination chunks, whose src_chunk ids index every row of x).
 struct Plan {
-  int depth, planes, pack, n_rows, f;
+  int depth, planes, pack, n_rows, n_out, f;
   int vec;       // copy width of the x gather in bytes (16, 8, 4; 2: shifted)
   int odd0;      // with vec 2: whether x itself lies 2 bytes after a 4-byte boundary
   int list_cap;  // edges a list holds
@@ -193,8 +201,8 @@ bsda_spmm_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
                  const int32_t* __restrict__ src_chunk,  // [B, depth]
                  const T* __restrict__ x,                // [n_rows, f]
                  const float* __restrict__ ds,           // [B*C] or null
-                 const float* __restrict__ ss,           // [B*C] or null
-                 T* __restrict__ out,                    // [n_rows, f]
+                 const float* __restrict__ ss,           // [n_rows] or null
+                 T* __restrict__ out,                    // [n_out, f]
                  const Plan pl) {
   extern __shared__ __align__(16) unsigned char smem[];
   // [2 gather buffers, under them the list's items | 2 src-scale buffers
@@ -207,7 +215,7 @@ bsda_spmm_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
       make_list(reinterpret_cast<unsigned char*>(ds_sm + kChunk), smem, pl.list_cap);
 
   const int b = blockIdx.x;
-  const int rows_left = pl.n_rows - b * kChunk;
+  const int rows_left = pl.n_out - b * kChunk;
   if (ds != nullptr && (int)threadIdx.x < min(kChunk, rows_left))
     cp_async<4>(ds_sm + threadIdx.x, ds + (size_t)b * kChunk + threadIdx.x);
   const uint32_t* planes_b = reinterpret_cast<const uint32_t*>(
@@ -317,14 +325,17 @@ cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const void* x,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
-int bsda_spmm_launch(const void* a, const void* src_chunk, const void* x,
-                     const void* ds, const void* ss, void* out,
-                     int num_chunks, int depth, int planes, int pack,
-                     int n_rows, int f, int dtype, void* stream) {
+// The rectangular launch: num_chunks destination chunks (a, src_chunk and
+// ds at the first of them) write out's n_out rows, reading the n_rows rows
+// of x; src_chunk holds chunk ids of x. dtype: 0 = float32, 1 = bfloat16.
+// Returns the cudaError_t of the launch.
+int bsda_spmm_launch_rect(const void* a, const void* src_chunk, const void* x,
+                          const void* ds, const void* ss, void* out,
+                          int num_chunks, int depth, int planes, int pack,
+                          int n_rows, int n_out, int f, int dtype, void* stream) {
   if (num_chunks <= 0 || depth <= 0 || depth > kMaxDepth || f <= 0 || n_rows <= 0 ||
-      n_rows > kMaxRows || (pack != 1 && pack != 2 && pack != 4) ||
-      planes * pack < depth)
+      n_rows > kMaxRows || n_out <= 0 || n_out > kMaxRows ||
+      (pack != 1 && pack != 2 && pack != 4) || planes * pack < depth)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* a8 = static_cast<const uint8_t*>(a);
@@ -336,6 +347,7 @@ int bsda_spmm_launch(const void* a, const void* src_chunk, const void* x,
   pl.planes = planes;
   pl.pack = pack;
   pl.n_rows = n_rows;
+  pl.n_out = n_out;
   pl.f = f;
   cudaError_t err;
   if (dtype == 0)
@@ -345,6 +357,15 @@ int bsda_spmm_launch(const void* a, const void* src_chunk, const void* x,
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The whole graph: out has the rows of x.
+int bsda_spmm_launch(const void* a, const void* src_chunk, const void* x,
+                     const void* ds, const void* ss, void* out,
+                     int num_chunks, int depth, int planes, int pack,
+                     int n_rows, int f, int dtype, void* stream) {
+  return bsda_spmm_launch_rect(a, src_chunk, x, ds, ss, out, num_chunks, depth, planes,
+                               pack, n_rows, n_rows, f, dtype, stream);
 }
 
 const char* bsda_spmm_error_string(int code) {

@@ -320,7 +320,10 @@ class GAT(nn.Module):
     tensors it runs layer by layer through the plain formulation
     (forward_plain), differentiated by autograd; on an EllGraph (the
     explainer's subgraph) layer by layer through the ELL masked softmax on
-    either device, as the JAX model does. There is no switch between the
+    either device, as the JAX model does; on a rank's share of a mesh run
+    (ShardedBsda of the halo path, RowShardedBsda or RowShardedEll of the
+    GSPMD row sharding) layer by layer through the plain attention of that
+    route, as the JAX model attends in XLA there. There is no switch between the
     kernels and the plain version: `gat_fused_vjp: false`, the JAX
     package's autodiff comparator, is refused."""
 

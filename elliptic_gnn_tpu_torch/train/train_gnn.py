@@ -36,26 +36,31 @@ sampled subgraphs (train/sampler.py) and scores the full graph through the
 ELL encoding. `profile_dir` traces three epochs of the serial loop with
 torch.profiler into a Chrome trace JSON.
 
-Multi-device training takes the explicit halo path
-(parallel/shardmap_step.py), as `aggregation: auto` does in the JAX trainer
-on a mesh: `mesh_devices: N` (or `all`) splits the destination chunks over
-N ranks of a torch.distributed group (NCCL on CUDA, gloo under `device:
-cpu`), one process per rank. Without the EGNN_* variables (or config keys)
-of parallel/multihost.py, main() starts the N ranks on this host itself and
-returns rank 0's metrics; with them, this process is one rank.
-`aggregation: shard_map` at `mesh_devices: 1` runs the same path in a world
-of one. Each rank's aggregation goes through the BSDA kernel on its split
-tables (GAT attends in plain PyTorch per shard, as JAX attends in XLA);
+Multi-device training: `mesh_devices: N` (or `all`) splits the node rows
+over N ranks of a torch.distributed group (NCCL on CUDA, gloo under
+`device: cpu`), one process per rank. Without the EGNN_* variables (or
+config keys) of parallel/multihost.py, main() starts the N ranks on this
+host itself and returns rank 0's metrics; with them, this process is one
+rank (train_rank). Two routes, as in the JAX trainer:
+  - the explicit halo path (parallel/shardmap_step.py), what `aggregation:
+    auto` is on a mesh: the destination chunks split over the ranks, each
+    rank's aggregation through the BSDA kernel on its split tables after a
+    ring exchange of the boundary rows (GAT attends in plain PyTorch per
+    shard, as JAX attends in XLA); `aggregation: shard_map` at
+    `mesh_devices: 1` runs it in a world of one;
+  - the GSPMD row sharding (parallel/gspmd_step.py), for a pinned
+    `aggregation: bsda|bsda_pallas|ell` on a mesh, and for `auto` where
+    partition_bsda finds the graph not banded enough (the tables are then
+    rebuilt with transpose tables): the rows all-gathered, each rank's
+    destination rows through the kernel's rectangular launch (ELL: the
+    gather; GAT: plain attention).
 BatchNorm statistics and the loss are all-reduced, the gradients
 all-reduced as one flat buffer before the clip and Adam; every rank takes
 the same decisions, and the primary rank alone writes the run dir.
+`mini_batch` trains on one device.
 
 Runs on CUDA (`device: auto` or `cuda`) and raises when there is no GPU,
 unless the config says `device: cpu`.
-
-Not ported yet (raise): the GSPMD row sharding of the JAX package
-(`mesh_devices` > 1 with `aggregation: bsda|bsda_pallas|ell`, and the
-`auto` fallback for a graph that partition_bsda rejects).
 """
 from __future__ import annotations
 
@@ -73,7 +78,7 @@ import yaml
 from ..graph import load_processed, make_temporal_masks
 from ..graph.transform import append_scalar_time, remove_hub_edges, symmetrize_edges
 from ..kernels import bsda_spmm_cuda, gat_cuda
-from ..kernels.bsda import bfs_order, build_bsda_for_kind, pad_bsda_chunks
+from ..kernels.bsda import BsdaGraph, bfs_order, build_bsda_for_kind, pad_bsda_chunks
 from ..kernels.ell import EllGraph, renumber_for_ell
 from ..kernels.packed_gat import use_two_sweep_backward
 from ..models import MODEL_GRAPH_KIND, build_model, prepare_graph_ops
@@ -105,19 +110,6 @@ def mesh_size(cfg: dict, device_type: Optional[str] = None) -> int:
     return torch.cuda.device_count() if device_type == "cuda" else 1
 
 
-def _reject_unported(cfg: dict, n_mesh: int) -> None:
-    """Refuses the GSPMD cases: a mesh with a pinned single-device
-    encoding."""
-    if n_mesh > 1 and not cfg.get("mini_batch", False):
-        agg = _pick_aggregation(cfg, _kind(cfg), n_mesh)
-        if agg != "shard_map":
-            raise NotImplementedError(
-                f"mesh_devices: {n_mesh} with aggregation: {agg} is the JAX "
-                "package's GSPMD row sharding, not ported to "
-                "elliptic_gnn_tpu_torch yet (ROADMAP Queue A: the GSPMD path); "
-                "aggregation: auto or shard_map trains over the halo path")
-
-
 def _kind(cfg: dict) -> str:
     arch = cfg["arch"]
     if arch not in MODEL_GRAPH_KIND:
@@ -139,7 +131,8 @@ def _pick_aggregation(cfg: dict, kind: str, n_mesh: Optional[int] = None) -> str
                              and GAT's 'bsda_pallas' is 'bsda', as in JAX)
       'ell'                  the ELL gather (kernels/ell.py); always for
                              `mini_batch`
-    Unknown values raise."""
+    On a mesh of more than one rank a pinned 'bsda', 'bsda_pallas' or
+    'ell' takes the GSPMD row sharding (_shard). Unknown values raise."""
     mode = cfg.get("aggregation", "auto")
     if cfg.get("use_pallas", False):  # the JAX package's legacy switch
         mode = "bsda_pallas"
@@ -298,7 +291,6 @@ def main(cfg: dict, init_params=None) -> dict:
     device = resolve_device(cfg.get("device", "auto"))
     multihost.maybe_initialize(cfg, device.type)
     n_mesh = 1 if cfg.get("mini_batch", False) else mesh_size(cfg, device.type)
-    _reject_unported(cfg, n_mesh)
     n_proc = multihost.process_count()
     if n_mesh > 1 and n_proc == 1:
         return _launch_ranks(cfg, n_mesh, device, init_params)
@@ -306,11 +298,23 @@ def main(cfg: dict, init_params=None) -> dict:
         raise ValueError(
             f"multi-process runs must shard over all {n_proc} ranks: set "
             f"mesh_devices: all (got {cfg.get('mesh_devices', 1)})")
-    if not cfg.get("mini_batch", False) and \
-            _pick_aggregation(cfg, _kind(cfg), n_mesh) == "shard_map":
-        with multihost.world_of_one(device.type):
-            return _run(cfg, init_params, device, make_mesh(n_mesh, device.type))
+    if n_proc > 1 or (not cfg.get("mini_batch", False) and
+                      _pick_aggregation(cfg, _kind(cfg), n_mesh) == "shard_map"):
+        return train_rank(cfg, init_params, device)
     return _run(cfg, init_params, device, None)
+
+
+def train_rank(cfg: dict, init_params=None, device: Optional[torch.device] = None) -> dict:
+    """One rank's run over the mesh of the process group it is in (a world
+    of one where none is up): the function a rank process runs. The route
+    follows `aggregation` on the mesh's size (_shard): the halo path, or
+    the GSPMD row sharding for a pinned single-device encoding, also on a
+    mesh of one."""
+    if device is None:
+        device = resolve_device(cfg.get("device", "auto"))
+    with multihost.world_of_one(device.type):
+        mesh = make_mesh(multihost.process_count(), device.type)
+        return _run(cfg, init_params, device, mesh)
 
 
 def _launch_ranks(cfg: dict, n: int, device: torch.device, init_params) -> dict:
@@ -325,8 +329,8 @@ def _launch_ranks(cfg: dict, n: int, device: torch.device, init_params) -> dict:
 
 
 def _run(cfg: dict, init_params, device: torch.device, mesh) -> dict:
-    """One process's run: single-device (`mesh` None) or one rank of the
-    halo path."""
+    """One process's run: single-device (`mesh` None) or one rank of a
+    mesh (the halo path or the GSPMD row sharding, _shard)."""
     if mesh is not None:
         device = mesh.device
     primary = multihost.is_primary()
@@ -366,28 +370,50 @@ def _run(cfg: dict, init_params, device: torch.device, mesh) -> dict:
 
 
 def _shard(cfg: dict, data, gops, mesh):
-    """This rank's share of the halo path: the tables padded to tile the
-    mesh, partitioned (the kernel route's tables for sage/gcn; GAT attends
-    in plain PyTorch) and sliced to this rank on its device, and the node
-    arrays' rows (_ShardInputs). A graph that partition_bsda rejects raises
-    its ValueError under an explicit `aggregation: shard_map`; under `auto`
-    the JAX package falls back to GSPMD, which is not ported yet."""
-    gops_p = pad_bsda_chunks(gops, mesh.size)
-    try:
-        sg = partition_bsda(gops_p, mesh.size, use_kernel=_kind(cfg) != "gat")
-    except ValueError as exc:
-        if str(cfg.get("aggregation", "auto")) == "shard_map":
-            raise
-        raise NotImplementedError(
-            f"the graph is not banded enough for the halo path ({exc}); the JAX "
-            "package falls back to GSPMD row sharding there, which is not ported "
-            "to elliptic_gnn_tpu_torch yet (ROADMAP Queue A: the GSPMD path)") from exc
-    sg_r = shard_slice(sg, mesh.rank, mesh.group).to(mesh.device)
-    inputs = _ShardInputs(cfg, data, gops_p, mesh)
+    """This rank's share of the mesh run: its encoding and its rows of the
+    node arrays (_ShardInputs).
+
+    The halo path (`aggregation` shard_map, or auto on a mesh): the tables
+    padded to tile the mesh, partitioned (the kernel route's tables for
+    sage/gcn; GAT attends in plain PyTorch) and sliced to this rank. A
+    graph that partition_bsda rejects raises its ValueError under an
+    explicit `aggregation: shard_map`; under `auto` the run falls back to
+    the GSPMD row sharding, as the JAX trainer does, on tables rebuilt with
+    the JAX trainer's fallback depth and, but for GAT, transpose tables.
+
+    The GSPMD row sharding (a pinned bsda|bsda_pallas|ell): BSDA tables
+    padded to tile the mesh, this rank's destination chunks of them and of
+    their transpose (gspmd_step.RowShardedBsda); ELL tables extended and
+    padded as the JAX package pads them, cut to this rank's rows
+    (gspmd_step.RowShardedEll)."""
+    kind = _kind(cfg)
+    halo = _pick_aggregation(cfg, kind, mesh.size) == "shard_map"
+    if isinstance(gops, BsdaGraph):
+        gops = pad_bsda_chunks(gops, mesh.size)
+    if halo:
+        try:
+            sg = partition_bsda(gops, mesh.size, use_kernel=kind != "gat")
+        except ValueError as exc:
+            if str(cfg.get("aggregation", "auto")) == "shard_map":
+                raise
+            print(f"[MESH] graph not banded for boundary-only halo exchange ({exc}); "
+                  "falling back to GSPMD einsum")
+            halo = False
+            gops = pad_bsda_chunks(build_bsda_for_kind(
+                data.edge_index, data.num_nodes, kind,
+                depth=int(cfg.get("bsda_depth", 3)), a_dtype="int8",
+                transpose=kind != "gat").to(gops.a.device), mesh.size)
+    if halo:
+        train_ops = shard_slice(sg, mesh.rank, mesh.group).to(mesh.device)
+        arrays = shard_graph_inputs(mesh, data, gops)
+    else:
+        *arrays, train_ops, n_pad = shard_graph_inputs(mesh, data, gops, shard_tables=True)
+        arrays = (*arrays, n_pad)
+    inputs = _ShardInputs(cfg, data, arrays, mesh)
     print(f"[MESH] training sharded over {mesh.size} ranks of the {NODE_AXIS!r} axis "
-          f"({inputs.n_pad} padded rows, explicit shard_map), rank {mesh.rank} on "
-          f"{mesh.device}")
-    return sg_r, inputs
+          f"({inputs.n_pad} padded rows, {'explicit shard_map' if halo else 'GSPMD'}), "
+          f"rank {mesh.rank} on {mesh.device}")
+    return train_ops, inputs
 
 
 class _Inputs:
@@ -405,14 +431,14 @@ class _Inputs:
 
 
 class _ShardInputs:
-    """This rank's rows of the node arrays (parallel/sharded.py), the val
-    rows it owns with their positions in the global val vector, the global
-    val labels, the global train count (the loss denominator) and the
-    loss's parts."""
+    """This rank's rows of the node arrays (`arrays`, from
+    parallel/sharded.py::shard_graph_inputs), the val rows it owns with
+    their positions in the global val vector, the global val labels, the
+    global train count (the loss denominator) and the loss's parts."""
 
-    def __init__(self, cfg: dict, data, gops, mesh):
+    def __init__(self, cfg: dict, data, arrays, mesh):
         (self.x, self.y, self.t, self.train_mask, self.row_mask,
-         self.n_pad) = shard_graph_inputs(mesh, data, gops)
+         self.n_pad) = arrays
         n_loc = self.x.shape[0]
         lo = mesh.rank * n_loc
         val_idx = np.where(data.val_mask)[0]

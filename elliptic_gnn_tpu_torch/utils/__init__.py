@@ -1,0 +1,1 @@
+from . import common, metrics  # noqa: F401

@@ -797,6 +797,60 @@ def test_k_loop_two_sweep_gat_bit_reproducible(cuda, tmp_path, kloop_graph, monk
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_dev", [4, 2])
+@pytest.mark.parametrize("f,dtype", [(64, torch.bfloat16), (168, torch.bfloat16),
+                                     (64, torch.float32)])
+def test_rectangular_kernel_matches_plain_and_whole(cuda, n_dev, f, dtype):
+    """The GSPMD row sharding's launch: every rank's slice of destination
+    chunks (forward and transpose tables), reading every row, against its
+    plain version and bit for bit against the whole graph's launch."""
+    from elliptic_gnn_tpu_torch.kernels.bsda_spmm_cuda import bsda_dense_cuda
+    from elliptic_gnn_tpu_torch.parallel.gspmd_step import bsda_row_slice
+
+    _, g = _graph()
+    g = bsda.pad_bsda_chunks(g, n_dev)
+    n_rows = g.num_chunks * g.chunk
+    n_loc = n_rows // n_dev
+    x = _randn((n_rows, f), 4, cuda, dtype)
+    tol = F32 if dtype == torch.float32 else BF16
+    for table in (g, g.transpose):
+        whole = bsda_dense_cuda(table.to(cuda), x)
+        for d in range(n_dev):
+            view = bsda_row_slice(table, n_dev, d).to(cuda)
+            got = bsda_dense_cuda(view, x, n_loc)
+            assert got.shape == (n_loc, f) and got.dtype == dtype
+            assert torch.equal(got, whole[d * n_loc: (d + 1) * n_loc])
+            want = bsda.bsda_dense_plain(view, x, n_loc)
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["bsda", "ell"])
+def test_gspmd_world_of_one_matches_single_device(cuda, tmp_path, kloop_graph, agg):
+    """The GSPMD row sharding as one NCCL rank (train_rank; the K loop
+    captures its all-gathers) against the single-device run, dropout 0:
+    per-epoch loss and val PR-AUC within 1e-4; the BSDA run launches the
+    kernel in its captured epoch, the ELL run none."""
+    from elliptic_gnn_tpu_torch.train import train_gnn
+
+    m1, loss1, pr1, _ = _kloop_run(tmp_path, kloop_graph, "sage_resbn", 4, f"one_{agg}",
+                                   aggregation=agg, dropout=0.0)
+    real_main = train_gnn.main
+    try:
+        train_gnn.main = lambda cfg, init_params=None: train_gnn.train_rank(cfg, init_params)
+        mg, lossg, prg, _ = _kloop_run(tmp_path, kloop_graph, "sage_resbn", 4,
+                                       f"gspmd_{agg}", aggregation=agg, dropout=0.0)
+    finally:
+        train_gnn.main = real_main
+    assert mg["mesh_devices"] == 1 and mg["epochs_run"] == m1["epochs_run"]
+    np.testing.assert_allclose(lossg, loss1, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(prg, pr1, rtol=0, atol=1e-4)
+    launched = sum(mg["graph_launches"].get(k, 0) for k in ("ring", "banded"))
+    assert (launched > 0) == (agg == "bsda"), mg["graph_launches"]
+
+
+@pytest.mark.cuda
 def test_k_loop_failed_capture_raises(cuda, tmp_path, kloop_graph, monkeypatch):
     """An epoch that syncs with the host cannot be captured: the K loop
     raises and never slides back to the serial loop. (Last in the file: the

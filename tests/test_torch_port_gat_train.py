@@ -234,11 +234,20 @@ def test_predict_on_sage_resbn_run(tmp_path, runs):
 def test_resume_and_unported_archs_raise(runs, tmp_path):
     cfg_p = dict(runs[1], output_root=str(tmp_path))
     # resume (tests/test_torch_port_resume_hubs.py), profile_dir
-    # (tests/test_torch_port_ell_train.py) and the halo path
-    # (tests/test_torch_port_multihost.py) are ported; the GSPMD row
-    # sharding of a pinned single-device encoding on a mesh is not
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        train_gnn.main(dict(cfg_p, aggregation="bsda", mesh_devices=2))
+    # (tests/test_torch_port_ell_train.py), the halo path and the GSPMD row
+    # sharding (tests/test_torch_port_multihost.py) are ported: the GSPMD
+    # GAT, once refused, trains here as one rank in a world of one (plain
+    # attention over the all-gathered rows) from the same JAX init as the
+    # single-device port run, and matches it
+    data = jax_train.prepare_data(runs[0])
+    params, state = jax_build_model("gat", data.num_features, runs[0]).init(
+        jax.random.key(runs[0]["seed"]))
+    to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
+    m_g = train_gnn.train_rank(dict(cfg_p, aggregation="bsda", run_name="gat_gspmd"),
+                               init_params=(to_np(params), to_np(state)))
+    assert m_g["mesh_devices"] == 1 and m_g["epochs_run"] == runs[3]["epochs_run"]
+    for key in ("pr_auc_illicit", "best_val_pr_auc"):
+        assert abs(m_g[key] - runs[3][key]) < 2e-3, key
     # every arch of the JAX package is ported (gcn and sage:
     # tests/test_torch_port_archs.py); an unknown one is refused
     with pytest.raises(ValueError, match="Unknown arch"):

@@ -21,9 +21,10 @@ import pytest
 
 from elliptic_gnn_tpu import native as jax_native
 from elliptic_gnn_tpu.graph import build_graph as jax_build_graph
+from elliptic_gnn_tpu.graph import synthetic as jax_synthetic
 from elliptic_gnn_tpu.graph.ingest import load_elliptic_as_graph as jax_load
 from elliptic_gnn_tpu_torch import native
-from elliptic_gnn_tpu_torch.graph import build_graph
+from elliptic_gnn_tpu_torch.graph import build_graph, synthetic
 from elliptic_gnn_tpu_torch.graph.ingest import load_elliptic_as_graph
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,6 +170,32 @@ def test_build_graph_cli_matches_jax(tmp_path, native_mode, name):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     ma, mb = (json.load(open(os.path.join(p, "meta.json"))) for p in outs)
     assert ma == mb and mb["source"] == "elliptic_csv"
+
+
+def test_write_raw_csvs_matches_jax(tmp_path, native_mode):
+    """graph/synthetic.py::write_raw_csvs writes the JAX package's three
+    files byte for byte for the same graph and seed, and the port's
+    build_graph on them gives the JAX build_graph's graph.npz."""
+    kw = dict(num_nodes=900, num_features=6, num_timesteps=6, seed=2)
+    dirs = {"jax": str(tmp_path / "raw_jax"), "port": str(tmp_path / "raw_port")}
+    jax_synthetic.write_raw_csvs(jax_synthetic.generate(**kw), dirs["jax"], seed=5)
+    synthetic.write_raw_csvs(synthetic.generate(**kw), dirs["port"], seed=5)
+    for name in ("elliptic_txs_features.csv", "elliptic_txs_classes.csv",
+                 "elliptic_txs_edgelist.csv"):
+        with open(os.path.join(dirs["jax"], name), "rb") as a, \
+                open(os.path.join(dirs["port"], name), "rb") as b:
+            assert a.read() == b.read(), name
+    outs = []
+    for main, sub in ((jax_build_graph.main, "jax"), (build_graph.main, "port")):
+        cfg = {"seed": 0, "t_train_end": 3, "t_val_end": 4, "t_max": 6,
+               "data_dir": dirs[sub], "processed_dir": str(tmp_path / sub)}
+        main(cfg)
+        outs.append(cfg["processed_dir"])
+    a, b = (np.load(os.path.join(p, "graph.npz")) for p in outs)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        assert a[k].dtype == b[k].dtype
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_ingest_without_pandas(tmp_path):

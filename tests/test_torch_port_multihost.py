@@ -20,6 +20,26 @@ their jobs) runs:
     run dir.
 train_gnn.main with `mesh_devices: 2` on GAT starts its two ranks itself.
 
+The same worlds run the GSPMD row sharding (parallel/gspmd_step.py):
+  - each rank's rows of kernels.spmm on its RowShardedBsda (sage and gcn
+    int8 tables with transposes: the all-gather, the rectangular dense
+    part and the spill; backward the transpose slice) and RowShardedEll
+    (the SAGE mean ELL), forward and the gradient of sum(out * w), held
+    against the JAX package's bsda_spmm / ell_spmm and jax.vjp on the whole
+    graph;
+  - one training step (clip and Adam) over 4 and 2 ranks from the JAX
+    model's weights, against the single-device port step: SAGE-ResBN on
+    the ELL encoding (loss rtol 1e-5, parameters and BatchNorm buffers
+    rtol 2e-4 / atol 2e-5) and SAGE-ResBN, GCN and GAT on the BSDA tables
+    (loss rtol 1e-5, rtol 2e-3 / atol 3e-4), the bounds of
+    tests/test_parallel.py::test_sharded_step_matches_single_device and
+    ::test_sharded_bsda_step_matches_single_device;
+  - train_gnn.main at `mesh_devices: 4` with `aggregation: bsda` and `ell`
+    against the single-device run, and the `auto` fallback when
+    partition_bsda rejects the graph (tests/torch_port_ranks.py patches
+    the trainer's name for it): the "falling back to GSPMD einsum" line,
+    the metrics within 2e-3, and an explicit `shard_map` raising.
+
 Tolerances: aggregation, attention and their gradients rtol 1e-4, atol
 1e-5 (tests/test_shardmap.py); the step's loss within 1e-5 relative, each
 gradient within 1e-5 of the single-device step's largest gradient entry
@@ -44,6 +64,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from elliptic_gnn_tpu.graph import build_graph as jax_build_graph
 from elliptic_gnn_tpu.kernels import bsda as jax_bsda
+from elliptic_gnn_tpu.kernels import ell as jax_ell
 from elliptic_gnn_tpu.models import build_model as jax_build_model
 from elliptic_gnn_tpu.parallel import shardmap_step as jax_sm
 from elliptic_gnn_tpu.parallel.mesh import NODE_AXIS, make_mesh as jax_make_mesh
@@ -94,12 +115,26 @@ def _step_cfg(processed, out):
     return _cfg(processed, out, run_name="step", aggregation="shard_map")
 
 
-def _jax_init(processed, tmp_path_factory, seed):
-    """The JAX SAGE-ResBN's init weights from `seed` as numpy pytrees,
-    pickled; returns the file's path."""
-    cfg = _step_cfg(processed, "unused")
+# the GSPMD steps: tag -> (arch, aggregation)
+GSPMD_STEPS = {"ell": ("sage_resbn", "ell"), "sage_resbn": ("sage_resbn", "bsda"),
+               "gcn": ("gcn", "bsda"), "gat": ("gat", "bsda")}
+
+
+def _gspmd_step_cfg(processed, out, tag):
+    """The GSPMD step's config: JAX's test rate and decay (lr 1e-3,
+    weight decay 1e-4, clip 1), the arch's widths of ARCHS."""
+    arch, agg = GSPMD_STEPS[tag]
+    return _cfg(processed, out, run_name=f"gstep_{tag}", aggregation=agg, lr=1e-3,
+                weight_decay=1e-4, **ARCHS[arch])
+
+
+def _jax_init(processed, tmp_path_factory, seed, cfg=None):
+    """The JAX model's init weights from `seed` as numpy pytrees, pickled
+    (SAGE-ResBN of the step config, or `cfg`'s arch); returns the file's
+    path."""
+    cfg = cfg or _step_cfg(processed, "unused")
     data = jax_train.prepare_data(cfg)
-    params, state = jax_build_model("sage_resbn", data.num_features, cfg).init(
+    params, state = jax_build_model(cfg["arch"], data.num_features, cfg).init(
         jax.random.key(seed))
     path = str(tmp_path_factory.mktemp("init") / "init.pkl")
     with open(path, "wb") as fh:
@@ -119,7 +154,21 @@ def trainer_init_path(processed, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def world4(processed, init_path, trainer_init_path, tmp_path_factory):
+def gspmd_inits(processed, tmp_path_factory):
+    """The JAX init of each GSPMD step's arch (seed 3), by tag."""
+    return {tag: _jax_init(processed, tmp_path_factory, 3,
+                           _gspmd_step_cfg(processed, "unused", tag))
+            for tag in GSPMD_STEPS}
+
+
+def _gspmd_step_jobs(processed, out, gspmd_inits):
+    return [("gspmd_step", {"cfg": _gspmd_step_cfg(processed, out, tag),
+                            "init_path": gspmd_inits[tag], "tag": tag})
+            for tag in GSPMD_STEPS]
+
+
+@pytest.fixture(scope="module")
+def world4(processed, init_path, trainer_init_path, gspmd_inits, tmp_path_factory):
     """Every job of the 4-rank world, run once; returns (root, output root)."""
     root = str(tmp_path_factory.mktemp("world4"))
     out = os.path.join(root, "out")
@@ -134,6 +183,13 @@ def world4(processed, init_path, trainer_init_path, tmp_path_factory):
     jobs += [("main", {"cfg": _cfg(processed, out, run_name=f"m4_jax_k{k}", mesh_devices=4,
                                    epochs_per_sync=k),
                        "init_path": trainer_init_path}) for k in (1, 4)]
+    # the GSPMD row sharding: aggregations, steps, the trainer, the fallback
+    jobs += [("gspmd_agg", {"kind": kind}) for kind in ("sage", "gcn", "ell")]
+    jobs += _gspmd_step_jobs(processed, out, gspmd_inits)
+    jobs += [("main", {"cfg": _cfg(processed, out, run_name=f"g4_{agg}", mesh_devices=4,
+                                   aggregation=agg)}) for agg in ("bsda", "ell")]
+    jobs += [("fallback", {"cfg": _cfg(processed, os.path.join(root, "fb"),
+                                       run_name="fb4", mesh_devices=4)})]
     multihost.spawn_ranks(4, ranks.run_jobs, (root, jobs), "cpu")
     return root, out
 
@@ -225,11 +281,12 @@ def _single_device_step(cfg, init_path):
 
 
 @pytest.fixture(scope="module")
-def world2_step(processed, init_path, tmp_path_factory):
+def world2_step(processed, init_path, gspmd_inits, tmp_path_factory):
     root = str(tmp_path_factory.mktemp("world2"))
+    out = os.path.join(root, "out")
     multihost.spawn_ranks(2, ranks.run_jobs, (root, [(
-        "step", {"cfg": _step_cfg(processed, os.path.join(root, "out")),
-                 "init_path": init_path})]), "cpu")
+        "step", {"cfg": _step_cfg(processed, out), "init_path": init_path})]
+        + _gspmd_step_jobs(processed, out, gspmd_inits)), "cpu")
     return root
 
 
@@ -309,3 +366,107 @@ def test_main_spawns_ranks_for_gat(processed, tmp_path):
     assert m2["mesh_devices"] == 2 and m2["epochs_run"] == one["epochs_run"]
     for key in ("pr_auc_illicit", "best_val_pr_auc"):
         assert abs(m2[key] - one[key]) < PR_ATOL, key
+
+
+@pytest.mark.parametrize("kind", ["sage", "gcn", "ell"])
+def test_gspmd_spmm_matches_jax(world4, kind):
+    """Each rank's rows of the GSPMD aggregation and of d x for
+    sum(out * w), concatenated, against the JAX package's aggregation of
+    the whole graph and its vjp; the padded rows (edge-free) stay 0."""
+    ei, n = ranks.band_graph()
+    got = _gather(world4[0], f"gspmd_{kind}_r{{r}}.npz")
+    x, w = ranks.agg_inputs(got["out"].shape[0], 16)
+    if kind == "ell":
+        g = jax_ell.build_ell_graph(ei, n, mean=True)
+        fn = lambda z: jax_ell.ell_spmm(g, z)  # noqa: E731
+    else:
+        g = jax_bsda.build_bsda_for_kind(ei, n, kind, depth=3, a_dtype="int8")
+        fn = lambda z: jax_bsda.bsda_spmm(g, z)  # noqa: E731
+    out, vjp = jax.vjp(fn, jnp.asarray(x[:n]))
+    ct = np.broadcast_to(w, (n, w.size))
+    np.testing.assert_allclose(got["out"][:n], np.asarray(out), **AGG)
+    np.testing.assert_allclose(got["grad"][:n], np.asarray(vjp(jnp.asarray(ct))[0]), **AGG)
+    assert not got["out"][n:].any() and not got["grad"][n:].any()
+
+
+def _single_device_adam_step(cfg, init_path):
+    """The port's single-device step of the same weights and config: the
+    loss, then the state dict after the clip and one Adam step."""
+    with open(init_path, "rb") as fh:
+        init_params = pickle.load(fh)
+    data = train_gnn.prepare_data(cfg)
+    data, model, gops, opt, loss_fn = train_gnn.build_train_state(
+        cfg, data, cfg["seed"], torch.device("cpu"), init_params)
+    t = torch.from_numpy(data.timestep.astype(np.int32))
+    model.train()
+    opt.zero_grad()
+    logits = model(torch.from_numpy(data.x), gops, t if model.uses_time_embed else None)
+    loss = loss_fn(model, logits, torch.from_numpy(np.maximum(data.y, 0)), None,
+                   torch.from_numpy(data.train_mask.astype(np.float32)))
+    loss.backward()
+    torch.nn.utils.clip_grad_norm_(model.parameters(), float(cfg["grad_clip"]))
+    opt.step()
+    return loss.item(), {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+@pytest.mark.parametrize("tag", sorted(GSPMD_STEPS))
+def test_gspmd_step_matches_single_device(processed, gspmd_inits, world4, world2_step,
+                                          tmp_path, tag, n_ranks):
+    root = world4[0] if n_ranks == 4 else world2_step
+    got = np.load(os.path.join(root, f"gspmd_step_{tag}_n{n_ranks}.npz"))
+    cfg = _gspmd_step_cfg(processed, tmp_path, tag)
+    loss, state = _single_device_adam_step(cfg, gspmd_inits[tag])
+    assert abs(float(got["loss"]) - loss) <= 1e-5 * abs(loss)
+    assert set(state) == set(got.files) - {"loss"}
+    tol = dict(rtol=2e-4, atol=2e-5) if tag == "ell" else dict(rtol=2e-3, atol=3e-4)
+    for name, ref in state.items():
+        if name in _pre_bn_biases(cfg):
+            # zero gradient in exact arithmetic (the BatchNorm after it
+            # removes any shift): Adam's first step moves it by
+            # lr * g / (|g| + eps) of a rounding-noise g, which the two
+            # summation orders draw apart, anywhere within lr of its start
+            np.testing.assert_array_less(np.abs(got[name] - ref), cfg["lr"] * (1 + 1e-6))
+            continue
+        np.testing.assert_allclose(got[name], ref, err_msg=name, **tol)
+
+
+def _pre_bn_biases(cfg):
+    """The SAGE-ResBN hidden layers' lin_l biases, each followed by a
+    BatchNorm (layers - 1 of them)."""
+    if cfg["arch"] != "sage_resbn":
+        return ()
+    return tuple(f"layers.{i}.lin_l.bias" for i in range(cfg["layers"] - 1))
+
+
+@pytest.mark.parametrize("agg", ["bsda", "ell"])
+def test_gspmd_trainer_matches_single_device(processed, world4, tmp_path, agg):
+    """train_gnn.main at mesh_devices: 4 with a pinned encoding takes the
+    GSPMD row sharding: every rank reports the same metrics, and the run
+    agrees with the single-device run of the same encoding."""
+    root, out = world4
+    per_rank = _rank_metrics(root, f"g4_{agg}")
+    assert all(m == per_rank[0] for m in per_rank), per_rank
+    with open(os.path.join(out, "rank0", "gnn", f"g4_{agg}", "metrics.json")) as fh:
+        m4 = json.load(fh)
+    assert m4["mesh_devices"] == 4
+    one = train_gnn.main(_cfg(processed, tmp_path, run_name="one", aggregation=agg))
+    for key in ("pr_auc_illicit", "best_val_pr_auc"):
+        assert abs(m4[key] - one[key]) < PR_ATOL, key
+
+
+def test_auto_mesh_falls_back_to_gspmd_when_not_banded(processed, world4, tmp_path):
+    """Counterpart of tests/test_parallel.py::test_auto_mesh_falls_back_to_gspmd_when_not_banded:
+    with partition_bsda rejecting the graph, `aggregation: auto` on 4 ranks
+    says it falls back to GSPMD and matches the single-device run; an
+    explicit `aggregation: shard_map` raises the rejection."""
+    reports = []
+    for r in range(4):
+        with open(os.path.join(world4[0], f"fallback_r{r}.json")) as fh:
+            reports.append(json.load(fh))
+    one = train_gnn.main(_cfg(processed, tmp_path, run_name="fb1"))
+    for rep in reports:
+        assert rep["fell_back"], rep
+        assert "non-banded rejection" in (rep["error"] or ""), rep
+        for key in ("pr_auc_illicit", "best_val_pr_auc"):
+            assert abs(rep[key] - one[key]) < PR_ATOL, key

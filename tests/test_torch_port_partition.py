@@ -255,8 +255,8 @@ def test_mesh_one_matches_single_device_and_predicts(processed, tmp_path, k):
 
 def test_pick_aggregation_on_a_mesh_matches_jax():
     """`auto` on a mesh of more than one rank is the halo path, as in the
-    JAX trainer; a pinned value is kept (and refused on a mesh by
-    _reject_unported: the GSPMD path); mini_batch stays on the ELL."""
+    JAX trainer; a pinned value is kept on a mesh (the GSPMD row sharding,
+    train_gnn._shard); mini_batch stays on the ELL."""
     from elliptic_gnn_tpu.train import train_gnn as jax_train
 
     for kind in ("sage", "gcn", "gat"):
@@ -268,16 +268,18 @@ def test_pick_aggregation_on_a_mesh_matches_jax():
             assert train_gnn._pick_aggregation(cfg, kind) == \
                 jax_train._pick_aggregation(cfg, None, kind), (kind, cfg)
     for agg in ("bsda", "bsda_pallas", "ell"):
-        with pytest.raises(NotImplementedError, match="GSPMD"):
-            train_gnn._reject_unported({"arch": "sage", "aggregation": agg}, 4)
-    train_gnn._reject_unported({"arch": "sage", "mini_batch": True}, 4)
-    train_gnn._reject_unported({"arch": "sage", "aggregation": "shard_map"}, 4)
+        assert train_gnn._pick_aggregation({"aggregation": agg}, "sage", 4) == agg
+    assert train_gnn._pick_aggregation({"mini_batch": True}, "sage", 4) == "ell"
+    assert train_gnn._pick_aggregation({"aggregation": "shard_map"}, "sage", 4) == "shard_map"
 
 
-def test_unbanded_graph_raises_or_is_refused(processed, monkeypatch):
+def test_unbanded_graph_raises_or_is_refused(processed, monkeypatch, capsys):
     """A graph that partition_bsda rejects: an explicit `aggregation:
     shard_map` raises its ValueError, as in the JAX trainer; under `auto`
-    the JAX trainer falls back to GSPMD, which the port refuses."""
+    the run falls back to the GSPMD row sharding, as the JAX trainer does,
+    on tables rebuilt with their transpose (the multi-rank run:
+    tests/test_torch_port_multihost.py)."""
+    from elliptic_gnn_tpu_torch.parallel.gspmd_step import RowShardedBsda
     from elliptic_gnn_tpu_torch.parallel.mesh import Mesh
 
     def reject(*args, **kwargs):
@@ -290,8 +292,12 @@ def test_unbanded_graph_raises_or_is_refused(processed, monkeypatch):
     mesh = Mesh(size=2, rank=0, device=torch.device("cpu"))
     with pytest.raises(ValueError, match="non-banded rejection"):
         train_gnn._shard(dict(cfg, aggregation="shard_map"), data, gops, mesh)
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        train_gnn._shard(dict(cfg, mesh_devices=2), data, gops, mesh)
+    capsys.readouterr()
+    ops, inputs = train_gnn._shard(dict(cfg, mesh_devices=2), data, gops, mesh)
+    out = capsys.readouterr().out
+    assert "falling back to GSPMD einsum" in out and "GSPMD), rank 0" in out
+    assert isinstance(ops, RowShardedBsda) and ops.bwd is not None
+    assert inputs.x.shape[0] == ops.n_loc == ops.n_rows // 2
 
 
 def test_mesh_larger_than_the_cards_raises(monkeypatch):

@@ -129,11 +129,19 @@ def test_device_auto_raises_without_gpu(processed, tmp_path, monkeypatch):
 
 
 def test_unported_option_raises(processed, tmp_path):
-    # a mesh takes the halo path (aggregation auto or shard_map); a pinned
-    # single-device encoding on a mesh is the GSPMD path, not ported yet
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        train_gnn.main(_cfg(processed[1], tmp_path, mesh_devices=2,
-                            aggregation="ell"))
+    # a pinned single-device encoding on a mesh, once refused, is the GSPMD
+    # row sharding: main starts two ranks, each gathers its own rows over
+    # the all-gathered ELL rows, and the run matches the single-device one
+    m2 = train_gnn.main(_cfg(processed[1], tmp_path, run_name="ell_mesh2",
+                             mesh_devices=2, aggregation="ell"))
+    one = train_gnn.main(_cfg(processed[1], tmp_path, run_name="ell_one",
+                              aggregation="ell"))
+    assert m2["mesh_devices"] == 2 and m2["epochs_run"] == one["epochs_run"]
+    for key in ("pr_auc_illicit", "best_val_pr_auc"):
+        assert abs(m2[key] - one[key]) < 2e-3, key
+    # an aggregation the JAX package does not have is still refused
+    with pytest.raises(ValueError, match="Unknown aggregation"):
+        train_gnn.main(_cfg(processed[1], tmp_path, aggregation="csr"))
 
 
 def test_port_imports_without_jax():
@@ -164,6 +172,12 @@ def test_port_imports_without_jax():
         "import elliptic_gnn_tpu_torch.sweeps.sweep_gnn\n"
         "import elliptic_gnn_tpu_torch.parallel.multihost\n"
         "import elliptic_gnn_tpu_torch.parallel.shardmap_step\n"
+        "import elliptic_gnn_tpu_torch.parallel.gspmd_step\n"
+        "from elliptic_gnn_tpu_torch.graph.synthetic import write_raw_csvs\n"
+        "from elliptic_gnn_tpu_torch.kernels import (segment_sum, segment_mean, segment_max,\n"
+        "    segment_softmax, spmm_edge_list, build_ell_graph)\n"
+        "import elliptic_gnn_tpu_torch.utils as u\n"
+        "assert u.metrics.pr_auc_illicit and u.common.set_seed\n"
         "import elliptic_gnn_tpu_torch.kernels.segment\n"
         "import elliptic_gnn_tpu_torch.sweeps._worker\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'elliptic_gnn_tpu', 'pandas')\n"

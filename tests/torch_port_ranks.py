@@ -17,8 +17,10 @@ import sys
 import numpy as np
 import torch
 
+from elliptic_gnn_tpu_torch import kernels
 from elliptic_gnn_tpu_torch.kernels import bsda
-from elliptic_gnn_tpu_torch.parallel import multihost, shardmap_step
+from elliptic_gnn_tpu_torch.kernels.ell import build_ell_graph
+from elliptic_gnn_tpu_torch.parallel import gspmd_step, multihost, sharded, shardmap_step
 from elliptic_gnn_tpu_torch.parallel.mesh import make_mesh
 
 GAT_HEADS, GAT_CH = 2, 4
@@ -141,7 +143,101 @@ def job_main(root: str, mesh, cfg: dict, init_path=None) -> None:
                    "best_val_pr_auc": metrics["best_val_pr_auc"]}, fh)
 
 
-JOBS = {"agg": job_agg, "gat": job_gat, "step": job_step, "main": job_main}
+def gspmd_encoding(kind: str, n_dev: int, rank: int, group=None):
+    """Rank `rank`'s GSPMD encoding of band_graph(): 'sage' and 'gcn' the
+    int8 BSDA tables with transposes (padded to tile the ranks), 'ell' the
+    SAGE mean ELL graph extended and padded as the JAX package pads it."""
+    ei, n = band_graph()
+    if kind == "ell":
+        g = build_ell_graph(ei, n, mean=True)
+        n_rows = -(-n // n_dev) * n_dev
+        g_sh = sharded.shard_ell_graph(sharded._extend_for_padding(g, n_rows),
+                                       cpu_mesh(n_dev, rank))
+        return gspmd_step.row_sharded_ell(g_sh, n_dev, rank, group)
+    g = bsda.build_bsda_for_kind(ei, n, kind, depth=3, a_dtype="int8", transpose=True)
+    return gspmd_step.row_sharded_bsda(bsda.pad_bsda_chunks(g, n_dev), n_dev, rank, group)
+
+
+def cpu_mesh(n_dev: int, rank: int):
+    """A Mesh value of n_dev CPU ranks seen from `rank` (no process group)."""
+    from elliptic_gnn_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(size=n_dev, rank=rank, device=torch.device("cpu"))
+
+
+def job_gspmd_agg(root: str, mesh, kind: str, feat: int = 16) -> None:
+    """kernels.spmm of this rank's rows on its GSPMD encoding (the
+    all-gather, then the rectangular dense part and spill, or the ELL
+    gather) and the gradient of sum(out * w) with respect to them."""
+    rs = gspmd_encoding(kind, mesh.size, mesh.rank, mesh.group)
+    x, w = agg_inputs(rs.n_rows, feat)
+    rows = slice(mesh.rank * rs.n_loc, (mesh.rank + 1) * rs.n_loc)
+    xl = torch.tensor(x[rows], requires_grad=True)
+    out = kernels.spmm(rs, xl)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.savez(os.path.join(root, f"gspmd_{kind}_r{mesh.rank}.npz"),
+             out=out.detach().numpy(), grad=xl.grad.numpy())
+
+
+def job_gspmd_step(root: str, mesh, cfg: dict, init_path: str, tag: str) -> None:
+    """One training step of the GSPMD path (the config's arch and pinned
+    aggregation) from the JAX model's weights, dropout 0, with the
+    config's clip and Adam: the loss, then every parameter and BatchNorm
+    buffer after the step."""
+    from elliptic_gnn_tpu_torch.train import train_gnn
+
+    data = train_gnn.prepare_data(cfg)
+    data, model, gops, opt, _ = train_gnn.build_train_state(
+        cfg, data, cfg["seed"], mesh.device, _load_init(init_path))
+    rs, inputs = train_gnn._shard(cfg, data, gops, mesh)
+    step = train_gnn._sharded_step(model, rs, opt, inputs, None,
+                                   float(cfg["grad_clip"]), False, mesh)
+    loss, _ = step()
+    if mesh.rank == 0:
+        np.savez(os.path.join(root, f"gspmd_step_{tag}_n{mesh.size}.npz"),
+                 loss=loss.numpy(), **{k: v.numpy() for k, v in model.state_dict().items()})
+
+
+def job_fallback(root: str, mesh, cfg: dict) -> None:
+    """train_gnn.main with partition_bsda (the name the trainer calls)
+    rejecting every graph: under `aggregation: auto` the run falls back to
+    the GSPMD row sharding and says so; under an explicit `shard_map` it
+    raises the ValueError. Writes this rank's metrics, whether the
+    fallback line was printed, and the error of the explicit run."""
+    import contextlib
+    import io
+
+    from elliptic_gnn_tpu_torch.train import train_gnn
+
+    def reject(*args, **kwargs):
+        raise ValueError("synthetic non-banded rejection (test)")
+
+    saved = train_gnn.partition_bsda
+    train_gnn.partition_bsda = reject
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            metrics = train_gnn.main(dict(cfg, output_root=os.path.join(
+                cfg["output_root"], f"rank{mesh.rank}")))
+        try:
+            train_gnn.main(dict(cfg, run_name=cfg["run_name"] + "_x",
+                                aggregation="shard_map", output_root=os.path.join(
+                                    cfg["output_root"], f"rank{mesh.rank}")))
+            error = None
+        except ValueError as exc:
+            error = str(exc)
+    finally:
+        train_gnn.partition_bsda = saved
+    with open(os.path.join(root, f"fallback_r{mesh.rank}.json"), "w") as fh:
+        json.dump({"fell_back": "falling back to GSPMD einsum" in buf.getvalue(),
+                   "error": error,
+                   "pr_auc_illicit": metrics["pr_auc_illicit"],
+                   "best_val_pr_auc": metrics["best_val_pr_auc"]}, fh)
+
+
+JOBS = {"agg": job_agg, "gat": job_gat, "step": job_step, "main": job_main,
+        "gspmd_agg": job_gspmd_agg, "gspmd_step": job_gspmd_step,
+        "fallback": job_fallback}
 
 
 def run_jobs(root: str, jobs: list) -> None:
