@@ -61,6 +61,15 @@ Phases (any failure exits non-zero before the result line):
      gradients and times; and on a 6,000-node graph with a spill,
      the backward through the packed attend against autograd through the
      plain formulation;
+     GAT on a mesh: the gat.yaml tables padded at n = 4 and n = 2, every
+     GSPMD rank's rectangular launch (its destination chunks over every
+     payload row, the source sweep on its transpose slice over every G2
+     row) and every halo shard's (its table over its halo-extended rows,
+     the source sweep on the block transpose over the ext grid) of the
+     forward, the one-sweep backward and both sweeps at (4, 8) and (1, 2),
+     each against its plain version, the ranks' rows bit for bit against
+     the whole graph's launch; a rank's and a shard's ms beside the whole
+     graph's;
   5. small-graph references: SAGE-ResBN, GCN, SAGE and GAT logits on the
      card (kernels) against the same weights on the CPU (plain versions);
   6. CSV round trip: the same synthetic graph written as the three Elliptic
@@ -103,25 +112,27 @@ Phases (any failure exits non-zero before the result line):
      sampling and step times printed;
   9. the halo path in a world of one (`aggregation: shard_map,
      mesh_devices: 1`, an NCCL group of one rank): rec_k8 16 epochs in the
-     K loop (its all-reduces captured) and serial, gcn.yaml and gat.yaml 5
-     epochs; rec_k8 and gcn launch bsda_spmm every epoch as their
-     single-device runs do, GAT's training launches none of the seven
-     kernels (plain attention per shard; its scoring pass the two
-     forwards); first-epoch losses against the single-device runs within
-     1e-4 relative, final and best val PR-AUC within 2e-3, K against serial
-     within 1e-4 per epoch; walls and replayed epochs beside the
-     single-device runs'. Then the GSPMD row sharding in a world of one
+     K loop (its all-reduces captured) and serial, gcn.yaml 5 epochs,
+     gat.yaml 16 epochs in the K loop and serial and once more with the
+     two-sweep backward; rec_k8 and gcn launch bsda_spmm every epoch as
+     their single-device runs do, gat.yaml its GAT kernels (the
+     rectangular launches over each shard's halo-extended rows) as its
+     single-device run does; first-epoch losses against the single-device
+     runs within 1e-4 relative, final and best val PR-AUC within 2e-3, K
+     against serial within 1e-4 per epoch; walls and replayed epochs beside
+     the single-device runs'. Then the GSPMD row sharding in a world of one
      NCCL rank, entered through train_gnn.train_rank (the function a rank
      process runs) with a pinned `aggregation` at `mesh_devices: 1`:
      rec_k8 with `bsda` 16 epochs in the K loop (its all-gathers captured)
-     and serial, gcn.yaml 5 and gat.yaml 16 epochs with `bsda`, rec_k8 with
-     `ell` 16 epochs; rec_k8 and gcn launch bsda_spmm as often as their
-     single-device runs, GAT's training and the ELL run none of the seven
-     kernels; first-epoch losses within 1e-4 relative, test and best val
+     and serial, gcn.yaml 5 epochs, gat.yaml 16 epochs in the K loop and
+     serial with `bsda` (the GAT kernels' rectangular launches over the
+     gathered rows), rec_k8 with `ell` 16 epochs; rec_k8, gcn and GAT
+     launch their kernels as often as their single-device runs, the ELL run
+     none; first-epoch losses within 1e-4 relative, test and best val
      PR-AUC within 2e-3 of the single-device runs, K against serial within
-     1e-4. With two cards or more, rec_k8 over min(4, cards) NCCL ranks
-     that train_gnn.main starts, on the halo path and on the GSPMD row
-     sharding; with one, a line saying they did not run;
+     1e-4. With two cards or more, rec_k8 and gat.yaml over min(4, cards)
+     NCCL ranks that train_gnn.main starts, on the halo path and on the
+     GSPMD row sharding; with one, a line saying they did not run;
  10. post-hoc: analysis.run_all on the rec_k8 and gat.yaml run dirs on the
      card, every stage (eval_by_time, calibration, workload, robustness,
      hub_ablation, explain, report), launch counts set to 0 just before
@@ -144,13 +155,16 @@ Phases (any failure exits non-zero before the result line):
      of the mesh-1 runs (`mesh1_launches`), of the GSPMD kernel phase
      (`gspmd_launches`, with a rank's and the whole graph's ms under
      `gspmd_ms`) and of the GSPMD mesh-1 runs (`gspmd_mesh1_launches`), the
-     gcn row with its two mesh-1 runs'), the card line, and the result line
+     gcn row with its two mesh-1 runs', the GAT rows with the GAT mesh
+     phase's launches (`mesh_kernel_launches`, a rank's, a shard's and the
+     whole graph's ms under `mesh_ms`) and those of the mesh-1 runs of
+     both routes), the card line, and the result line
      {"ok": true, "device": {...}}.
 
 With `--multicard`, on a host of two cards or more, it runs only the
-synthetic graph's rec_k8 on one card and the multi-card runs of phase 9
-(the halo path and the GSPMD row sharding over min(4, cards) NCCL ranks),
-then the card line and the result line.
+synthetic graph's rec_k8 and gat.yaml on one card and the multi-card runs
+of phase 9 (the halo path and the GSPMD row sharding over min(4, cards)
+NCCL ranks), then the card line and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -158,6 +172,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -917,6 +932,143 @@ def gat_two_sweep_phase(device, flush_buf, g):
             "library=none (no single PyTorch call computes this function) | "
             f"kernel / bound {e['ms'] / e['bound_ms']:.2f}")
     return entries
+
+
+def gat_mesh_kernel_phase(device, flush_buf, g):
+    """GAT on a mesh, the rectangular launches of the four GAT kernels on
+    the card, in one process: the gat.yaml tables `g` (Elliptic scale,
+    directed, self-looped, depth 4, with the transpose) padded at n = 4
+    and n = 2, at (h, ch) = (4, 8) (the forward with the slot cover) and
+    (1, 2). Every GSPMD rank's slice (row_sharded_bsda: its destination
+    chunks over every payload row, what the all-gather delivers; the
+    source sweep on its transpose slice over every G2 row) and every halo
+    shard (its whole table over its halo-extended rows, taken from the
+    whole payload as the ring delivers them; the source sweep on the block
+    transpose over the ext grid, its G2 rows at their ext offset): the
+    forward, the one-sweep backward, the destination sweep and the source
+    sweep, each against its plain version (GAT_FWD_TOL on val and
+    m + log s, GAT_BWD_TOL), and the ranks' forward rows, G2, d a_dst and
+    source-sweep rows against the whole graph's launch (bit-equal: the same
+    tables and order), the shards' within the plain tolerances. Prints a
+    rank's and a shard's kernel ms beside the whole graph's. Returns
+    (launches by counter, {(kernel, h, n): {"gspmd", "halo", "whole"}})."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import bsda, gat_cuda
+    from elliptic_gnn_tpu_torch.parallel import gspmd_step, shardmap_step as sm
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    launches = {k: 0 for k in gat_cuda.launches}
+    times, failures = {}, []
+
+    def close_fwd(got, want, h, ch):
+        return all(within(a, b, GAT_FWD_TOL) for a, b in
+                   zip(gauge_free(got, h, ch, True), gauge_free(want, h, ch, True)))
+
+    def calls(fwd_g, src_g, pay, gbar, out, g2_src, row0, t_row0):
+        """The four launches of one rank or shard, by kernel name."""
+        return {
+            "fwd": lambda: gat_cuda.gat_fwd_cuda(fwd_g, pay, h, ch, 0.2, True,
+                                                 dst_row0=row0),
+            "bwd": lambda: gat_cuda.gat_bwd_cuda(fwd_g, gbar, pay, out, h, ch, 0.2, True,
+                                                 row0),
+            "dst": lambda: gat_cuda.gat_bwd_dst_cuda(fwd_g, gbar, pay, out, h, ch, 0.2,
+                                                     True, None, row0),
+            "src": lambda: gat_cuda.gat_bwd_src_cuda(src_g, pay, g2_src, h, ch, 0.2, None,
+                                                     t_row0)}
+
+    def check(where, fwd_g, src_g, pay, gbar, g2_src, row0, t_row0, own, whole):
+        """Runs one rank's or shard's launches, holds them against their
+        plain versions and the whole graph's rows `own` (`whole`: the whole
+        graph's results, held bit for bit, or None: the forward within the
+        plain tolerance); returns its per-kernel ms."""
+        before = dict(gat_cuda.launches)
+        out = gat_cuda.gat_fwd_cuda(fwd_g, pay, h, ch, 0.2, True, dst_row0=row0)
+        ct = gat_cuda.gat_bwd_cuda(fwd_g, gbar, pay, out, h, ch, 0.2, True, row0)
+        ct_d, g2 = gat_cuda.gat_bwd_dst_cuda(fwd_g, gbar, pay, out, h, ch, 0.2, True,
+                                             None, row0)
+        ct_s = gat_cuda.gat_bwd_src_cuda(src_g, pay, g2_src, h, ch, 0.2, None, t_row0)
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += gat_cuda.launches[k] - before[k]
+        hc = h * ch
+        if not close_fwd(out, gat_cuda.gat_fwd_plain(fwd_g, pay, h, ch, 0.2, True, row0),
+                         h, ch):
+            failures.append(f"{where}: gat_fwd vs plain")
+        if not within(ct, gat_cuda.gat_bwd_plain(fwd_g, gbar, pay, out, h, ch, 0.2, True,
+                                                 row0), GAT_BWD_TOL):
+            failures.append(f"{where}: gat_bwd vs plain")
+        want_d, want_g2 = gat_cuda.gat_bwd_dst_fused_plain(fwd_g, gbar, pay, out, h, ch,
+                                                           0.2, True, row0)
+        if not (within(ct_d, want_d, GAT_BWD_TOL) and within(g2, want_g2, GAT_BWD_TOL)):
+            failures.append(f"{where}: gat_bwd_dst vs plain")
+        if not within(ct_s, gat_cuda.gat_bwd_src_plain(src_g, pay, g2_src, h, ch, 0.2,
+                                                       t_row0), GAT_BWD_TOL):
+            failures.append(f"{where}: gat_bwd_src vs plain")
+        if whole is not None:
+            out_w, ct_d_w, g2_w, src_w = whole
+            same = (torch.equal(out, out_w[own]) and torch.equal(g2, g2_w[own])
+                    and torch.equal(ct_d[own][:, hc + h:], ct_d_w[own][:, hc + h:])
+                    and torch.equal(ct_s[own][:, : hc + h], src_w[own][:, : hc + h]))
+            if not same:
+                failures.append(f"{where}: not bit-equal to the whole graph's rows")
+        elif not close_fwd(out, w_out[own], h, ch):
+            failures.append(f"{where}: forward rows against the whole graph's")
+        return {k: cuda_ms(fn, flush_buf) for k, fn in calls(
+            fwd_g, src_g, pay, gbar, w_out[own], g2_src, row0, t_row0).items()}
+
+    for n in SHARD_WAYS:
+        t0 = time.time()
+        g_p = bsda.pad_bsda_chunks(g, n)
+        n_rows = g_p.num_chunks * g_p.chunk
+        n_loc = n_rows // n
+        ranks = [gspmd_step.row_sharded_bsda(g_p, n, d).to(device) for d in range(n)]
+        sg = sm.partition_bsda(g_p, n, use_kernel=True)
+        shards = [sm.shard_slice(sg, d).to(device) for d in range(n)]
+        hc_rows, rows_ext = sg.halo_chunks * sg.chunk, sg.b_ext_pad * sg.chunk
+        log(f"GAT mesh tables n={n}: {time.time() - t0:.1f} s; {n_loc // g_p.chunk} "
+            f"destination chunks a rank or shard of {g_p.num_chunks}; halo "
+            f"{sg.halo_chunks} chunks, b_ext_pad {sg.b_ext_pad}, transpose depth "
+            f"{sg.depth_t}; spill rows a rank "
+            f"{[0 if r.fwd.residual_rows is None else r.fwd.residual_rows.numel() for r in ranks]}, "
+            f"a shard {[s.res_rows.shape[1] for s in shards]}")
+        for h, ch in ((4, 8), (1, 2)):
+            width = gat_cuda.payload_width(h, ch)
+            pay = torch.randn((n_rows, width), generator=gen, device=device)
+            gbar = torch.randn((n_rows, width), generator=gen, device=device)
+            w_out = gat_cuda.gat_fwd_cuda(g_p, pay, h, ch, 0.2, True)
+            w_ct_d, w_g2 = gat_cuda.gat_bwd_dst_cuda(g_p, gbar, pay, w_out, h, ch, 0.2, True)
+            w_src = gat_cuda.gat_bwd_src_cuda(g_p.transpose, pay, w_g2, h, ch, 0.2)
+            whole = (w_out, w_ct_d, w_g2, w_src)
+            whole_ms = {k: cuda_ms(fn, flush_buf) for k, fn in calls(
+                g_p, g_p.transpose, pay, gbar, w_out, w_g2, 0, 0).items()}
+            rank_ms, shard_ms = [], []
+            for d, rs in enumerate(ranks):
+                own = slice(d * n_loc, (d + 1) * n_loc)
+                rank_ms.append(check(f"n={n} (h, ch)=({h}, {ch}) rank {d}", rs.fwd, rs.bwd,
+                                     pay, gbar[own], w_g2, d * n_loc, d * n_loc, own, whole))
+            for d, sd in enumerate(shards):
+                own = slice(d * n_loc, (d + 1) * n_loc)
+                idx = (torch.arange(-hc_rows, n_loc + hc_rows, device=device)
+                       + d * n_loc) % n_rows
+                ext = torch.cat([pay[idx], pay.new_zeros((rows_ext - idx.numel(), width))])
+                g2_ext = torch.nn.functional.pad(
+                    w_g2[own], (0, 0, hc_rows, rows_ext - hc_rows - n_loc))
+                shard_ms.append(check(f"n={n} (h, ch)=({h}, {ch}) shard {d}",
+                                      sm._gat_view(sd), sm._transpose_view(sd), ext,
+                                      gbar[own], g2_ext, hc_rows, 0, own, None))
+            for k in ("fwd", "bwd", "dst", "src"):
+                times[(k, h, n)] = {"gspmd": [m[k] for m in rank_ms],
+                                    "halo": [m[k] for m in shard_ms], "whole": whole_ms[k]}
+                log(f"GAT mesh launches n={n} (h, ch)=({h}, {ch}) {k}: kernel ms a rank "
+                    f"{[round(m[k], 4) for m in rank_ms]}, a shard "
+                    f"{[round(m[k], 4) for m in shard_ms]}; whole graph {whole_ms[k]:.4f} ms")
+    log(f"GAT mesh kernel phase launches (checks, not timing): {launches}")
+    if failures:
+        fail(f"the GAT kernels' rectangular launches disagree: {failures}")
+    if not all(launches.values()):
+        fail(f"a GAT kernel was never launched by the mesh phase: {launches}")
+    return launches, times
 
 
 def wide_gat_phase(device, flush_buf, g) -> None:
@@ -2094,19 +2246,72 @@ def posthoc_phase(tmp, processed, rec, gat) -> dict:
     return launches
 
 
-def mesh1_phase(tmp, processed, rec, gcn, gat) -> dict:
+def gat_mesh1_runs(tmp, processed, route, gat, gat2=None, **mesh) -> dict:
+    """gat.yaml at `mesh_devices: 1` on one mesh route (`mesh`: its config
+    values and entry): KLOOP_EPOCHS epochs in the K loop and in the serial
+    loop, and with `gat2` (the single-device two-sweep run) once more in
+    the K loop with the two-sweep backward. Every epoch must launch the GAT
+    kernels as the single-device run does (check_gat_launches: the
+    forwards, and gat_bwd or with two sweeps gat_bwd_dst and gat_bwd_src,
+    through the rectangular launches); K against serial per epoch
+    (KLOOP_TOL); each run's first-epoch loss, test and best val PR-AUC
+    against the single-device run of the same backward (MESH1_LOSS_RTOL,
+    MESH1_PR_ATOL). Returns the runs by name."""
+    runs = {"k": slice_phase(tmp, processed, "gat.yaml", f"gat_{route}1",
+                             epochs=KLOOP_EPOCHS, **mesh),
+            "serial": slice_phase(tmp, processed, "gat.yaml", f"gat_{route}1_serial",
+                                  epochs=KLOOP_EPOCHS, epochs_per_sync=1, **mesh)}
+    pairs = [("k", gat), ("serial", gat)]
+    if gat2 is not None:
+        with two_sweep_backward():
+            runs["two"] = slice_phase(tmp, processed, "gat.yaml", f"gat_{route}1_two_sweep",
+                                      epochs=KLOOP_EPOCHS, **mesh)
+        pairs.append(("two", gat2))
+    for name, run in runs.items():
+        check_gat_launches(run, two_sweep=name == "two")
+    compare_runs(f"gat.yaml {route} mesh 1, K=8 against serial", runs["k"], runs["serial"])
+    for name, single in pairs:
+        mesh1 = runs[name]
+        loss_rel = abs(mesh1["losses"][0] - single["losses"][0]) / abs(single["losses"][0])
+        pr = [abs(mesh1["metrics"][k] - single["metrics"][k])
+              for k in ("pr_auc_illicit", "best_val_pr_auc")]
+        log(f"gat.yaml {route} mesh 1 ({name}) against single device: first-epoch loss "
+            f"{mesh1['losses'][0]:.6f} vs {single['losses'][0]:.6f}, rel {loss_rel:.3e} (tol "
+            f"{MESH1_LOSS_RTOL:.0e}); PR-AUC diffs {[f'{v:.3e}' for v in pr]} (tol "
+            f"{MESH1_PR_ATOL:.0e}); one replayed epoch, device ms per block: mesh 1 "
+            f"{mesh1['metrics'].get('replay_ms')}, single device "
+            f"{single['metrics'].get('replay_ms')}")
+        if loss_rel > MESH1_LOSS_RTOL or max(pr) > MESH1_PR_ATOL:
+            fail(f"gat.yaml {route} at mesh_devices: 1 ({name}) disagrees with the "
+                 "single-device run")
+    report_walls(f"gat.yaml {route} mesh 1 and single device",
+                 [runs["k"], runs["serial"], gat] + ([runs["two"], gat2] if gat2 else []))
+    return runs
+
+
+def gat_mesh_launches(runs) -> dict:
+    """The GAT kernels' true launches summed over mesh-1 runs."""
+    out = {}
+    for run in runs.values():
+        for k, v in run["launches"].items():
+            if k.startswith("gat"):
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def mesh1_phase(tmp, processed, rec, gcn, gat, gat2) -> dict:
     """`aggregation: shard_map` at `mesh_devices: 1`: the halo path in a
     world of one, a real NCCL process group around the sharded step. rec_k8
     KLOOP_EPOCHS epochs in the K loop (the epoch with its all-reduces
-    captured) and the serial loop, gcn.yaml (dst and src scales) and
-    gat.yaml (plain attention per shard) EPOCHS epochs. Every epoch of
-    rec_k8 and gcn goes through bsda_spmm (the same counts as the
-    single-device runs); the GAT training launches none of the seven
-    kernels (its scoring pass on the single-device encoding the two
-    forwards); first-epoch losses against the single-device runs of the
-    same seed (MESH1_LOSS_RTOL), final and best val PR-AUC against them
+    captured) and the serial loop, gcn.yaml (dst and src scales) EPOCHS
+    epochs, gat.yaml through the GAT kernels' rectangular launches over
+    each shard's halo-extended rows (gat_mesh1_runs: K, serial and the
+    two-sweep backward). Every epoch of rec_k8 and gcn goes through
+    bsda_spmm (the same counts as the single-device runs); first-epoch
+    losses against the single-device runs of the same seed
+    (MESH1_LOSS_RTOL), final and best val PR-AUC against them
     (MESH1_PR_ATOL), K against serial per epoch (KLOOP_TOL). Returns the
-    true launches of the rec_k8 runs and of the gcn run."""
+    true launches of the rec_k8 runs, of the gcn run and of the GAT runs."""
     sm = {"aggregation": "shard_map", "mesh_devices": 1}
     k_run = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_mesh1",
                         epochs=KLOOP_EPOCHS, **sm)
@@ -2118,33 +2323,25 @@ def mesh1_phase(tmp, processed, rec, gcn, gat) -> dict:
     gcn1 = slice_phase(tmp, processed, "gcn.yaml", "gcn_mesh1", **sm)
     check_conv_launches("gcn.yaml shard_map mesh 1", gcn1,
                         per_epoch={"ring": 9, "banded": 0}, scoring={"ring": 3, "banded": 0})
-    gat1 = slice_phase(tmp, processed, "gat.yaml", "gat_mesh1", **sm)
-    want = {"gat_fwd": 1, "gat_fwd_gated": 1}
-    if any(n != want.get(k, 0) for k, n in gat1["launches"].items()):
-        fail(f"gat.yaml shard_map mesh 1 launched a kernel in training: "
-             f"{gat1['launches']}, want the scoring pass's {want} alone")
-    for name, one, mesh1, final in (("rec_k8", rec, k_run, True),
-                                    ("gcn.yaml", gcn, gcn1, True),
-                                    ("gat.yaml", gat, gat1, False)):
+    gat_runs = gat_mesh1_runs(tmp, processed, "shard_map", gat, gat2, **sm)
+    for name, one, mesh1 in (("rec_k8", rec, k_run), ("gcn.yaml", gcn, gcn1)):
         loss_rel = abs(mesh1["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
         pr = [abs(mesh1["metrics"][k] - one["metrics"][k])
-              for k in ("pr_auc_illicit", "best_val_pr_auc")] if final else None
+              for k in ("pr_auc_illicit", "best_val_pr_auc")]
         log(f"{name} shard_map mesh 1 against single device: first-epoch loss "
             f"{mesh1['losses'][0]:.6f} vs {one['losses'][0]:.6f}, rel {loss_rel:.3e} "
-            f"(tol {MESH1_LOSS_RTOL:.0e})" + (
-                f"; test PR-AUC diff {pr[0]:.3e}, best val diff {pr[1]:.3e} "
-                f"(tol {MESH1_PR_ATOL:.0e})" if final else ""))
-        if loss_rel > MESH1_LOSS_RTOL or (final and max(pr) > MESH1_PR_ATOL):
+            f"(tol {MESH1_LOSS_RTOL:.0e}); test PR-AUC diff {pr[0]:.3e}, best val diff "
+            f"{pr[1]:.3e} (tol {MESH1_PR_ATOL:.0e})")
+        if loss_rel > MESH1_LOSS_RTOL or max(pr) > MESH1_PR_ATOL:
             fail(f"{name} with aggregation: shard_map, mesh_devices: 1 disagrees with "
                  "the single-device run")
     report_walls("rec_k8 shard_map mesh 1 and single device", (k_run, serial, rec))
-    for name, runs in (("gcn.yaml", (gcn1, gcn)), ("gat.yaml", (gat1, gat))):
-        log(f"{name} one replayed epoch, device ms per block: shard_map mesh 1 "
-            f"{runs[0]['metrics'].get('replay_ms')}, single device "
-            f"{runs[1]['metrics'].get('replay_ms')}")
+    log(f"gcn.yaml one replayed epoch, device ms per block: shard_map mesh 1 "
+        f"{gcn1['metrics'].get('replay_ms')}, single device {gcn['metrics'].get('replay_ms')}")
     rec_launches = {k: k_run["launches"][k] + serial["launches"][k]
                     for k in ("ring", "banded")}
-    return {"rec_k8": rec_launches, "gcn": {k: gcn1["launches"][k] for k in ("ring", "banded")}}
+    return {"rec_k8": rec_launches, "gcn": {k: gcn1["launches"][k] for k in ("ring", "banded")},
+            "gat": gat_mesh_launches(gat_runs)}
 
 
 def gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell) -> dict:
@@ -2152,17 +2349,17 @@ def gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell) -> dict:
     train_gnn.train_rank (the function a rank process runs) with a pinned
     `aggregation` at `mesh_devices: 1`: rec_k8 with `bsda` KLOOP_EPOCHS
     epochs in the K loop (its all-gathers captured) and serial, gcn.yaml
-    (dst and src scales) EPOCHS epochs and gat.yaml (plain attention over
-    the gathered rows) KLOOP_EPOCHS epochs with `bsda`, rec_k8 with `ell`
-    KLOOP_EPOCHS epochs: the epochs of the single-device runs.
-    rec_k8 and gcn launch bsda_spmm as often per epoch as their
-    single-device runs (one rectangular launch an aggregation); GAT's
-    training launches none of the seven kernels (its scoring pass the two
-    forwards); the ELL run none at all. First-epoch losses against the
-    single-device runs (MESH1_LOSS_RTOL), test and best val PR-AUC
-    against them (MESH1_PR_ATOL), K against serial per epoch (KLOOP_TOL);
-    replayed epochs beside the single-device runs'. Returns the true
-    launches of the rec_k8 runs and of the gcn run."""
+    (dst and src scales) EPOCHS epochs, gat.yaml with `bsda` through the
+    GAT kernels' rectangular launches over the gathered rows
+    (gat_mesh1_runs: K and serial), rec_k8 with `ell` KLOOP_EPOCHS epochs:
+    the epochs of the single-device runs. rec_k8 and gcn launch bsda_spmm
+    as often per epoch as their single-device runs (one rectangular launch
+    an aggregation), GAT its kernels as its single-device run does, the ELL
+    run none at all. First-epoch losses against the single-device runs
+    (MESH1_LOSS_RTOL), test and best val PR-AUC against them
+    (MESH1_PR_ATOL), K against serial per epoch (KLOOP_TOL); replayed
+    epochs beside the single-device runs'. Returns the true launches of
+    the rec_k8 runs, of the gcn run and of the GAT runs."""
     from elliptic_gnn_tpu_torch.train import train_gnn
 
     one = {"mesh_devices": 1, "entry": train_gnn.train_rank}
@@ -2176,17 +2373,12 @@ def gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell) -> dict:
     gcn1 = slice_phase(tmp, processed, "gcn.yaml", "gcn_gspmd1", aggregation="bsda", **one)
     check_conv_launches("gcn.yaml GSPMD mesh 1", gcn1,
                         per_epoch={"ring": 9, "banded": 0}, scoring={"ring": 3, "banded": 0})
-    gat1 = slice_phase(tmp, processed, "gat.yaml", "gat_gspmd1", epochs=KLOOP_EPOCHS,
-                       aggregation="bsda", **one)
-    want = {"gat_fwd": 1, "gat_fwd_gated": 1}
-    if any(n != want.get(k, 0) for k, n in gat1["launches"].items()):
-        fail(f"gat.yaml GSPMD mesh 1 launched a kernel in training: "
-             f"{gat1['launches']}, want the scoring pass's {want} alone")
+    gat_runs = gat_mesh1_runs(tmp, processed, "gspmd", gat, aggregation="bsda", **one)
     ell1 = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_ell_gspmd1",
                        epochs=KLOOP_EPOCHS, aggregation="ell", **one)
     no_kernel_launched(ell1)
     for name, single, mesh1 in (("rec_k8", rec, k_run), ("gcn.yaml", gcn, gcn1),
-                                ("gat.yaml", gat, gat1), ("rec_k8 ell", rec_ell, ell1)):
+                                ("rec_k8 ell", rec_ell, ell1)):
         loss_rel = abs(mesh1["losses"][0] - single["losses"][0]) / abs(single["losses"][0])
         pr = [abs(mesh1["metrics"][k] - single["metrics"][k])
               for k in ("pr_auc_illicit", "best_val_pr_auc")]
@@ -2202,14 +2394,16 @@ def gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell) -> dict:
     report_walls("rec_k8 GSPMD mesh 1 and single device", (k_run, serial, rec))
     return {"rec_k8": {k: k_run["launches"][k] + serial["launches"][k]
                        for k in ("ring", "banded")},
-            "gcn": {k: gcn1["launches"][k] for k in ("ring", "banded")}}
+            "gcn": {k: gcn1["launches"][k] for k in ("ring", "banded")},
+            "gat": gat_mesh_launches(gat_runs)}
 
 
-def multicard_phase(tmp, processed, rec) -> None:
-    """rec_k8 at mesh_devices: min(4, cards) over NCCL, its ranks started
-    by train_gnn.main, on the halo path (`auto`) and on the GSPMD row
-    sharding (`aggregation: bsda`), where the host has two cards or more;
-    else one line saying why they did not run."""
+def multicard_phase(tmp, processed, rec, gat) -> None:
+    """rec_k8 and gat.yaml at mesh_devices: min(4, cards) over NCCL, their
+    ranks started by train_gnn.main, on the halo path (`auto`) and on the
+    GSPMD row sharding (`aggregation: bsda`), where the host has two cards
+    or more, against the one-card runs `rec` and `gat`; else one line
+    saying why they did not run."""
     import torch
 
     count = torch.cuda.device_count()
@@ -2220,29 +2414,33 @@ def multicard_phase(tmp, processed, rec) -> None:
             "tests/test_torch_port_multihost.py)")
         return
     n = min(4, count)
-    for route, extra in (("halo", {}), ("GSPMD", {"aggregation": "bsda"})):
-        run = slice_phase(tmp, processed, "rec_k8.yaml", f"rec_k8_mesh{n}_{route}",
+    for (config, name, single), (route, extra) in itertools.product(
+            (("rec_k8.yaml", "rec_k8", rec), ("gat.yaml", "gat", gat)),
+            (("halo", {}), ("GSPMD", {"aggregation": "bsda"}))):
+        run = slice_phase(tmp, processed, config, f"{name}_mesh{n}_{route}",
                           epochs=KLOOP_EPOCHS, mesh_devices=n, **extra)
-        diff = max(abs(run["metrics"][k] - rec["metrics"][k])
+        diff = max(abs(run["metrics"][k] - single["metrics"][k])
                    for k in ("pr_auc_illicit", "best_val_pr_auc"))
-        log(f"rec_k8 over {n} cards (NCCL, {route}): test and best val PR-AUC against one "
+        log(f"{name} over {n} cards (NCCL, {route}): test and best val PR-AUC against one "
             f"card max diff {diff:.3e} (tol {MESH1_PR_ATOL:.0e})")
-        report_walls(f"rec_k8 over {n} cards ({route}) and one card", (run, rec))
+        report_walls(f"{name} over {n} cards ({route}) and one card", (run, single))
         if diff > MESH1_PR_ATOL:
-            fail(f"rec_k8 over {n} cards ({route}) disagrees with the single-card run")
+            fail(f"{name} over {n} cards ({route}) disagrees with the single-card run")
 
 
 def multicard_drive() -> None:
     """`python3 chip_smoke.py --multicard` on a host of two cards or more:
     the mesh runs alone (what exists only across cards): the synthetic
-    Elliptic-scale graph, rec_k8 on one card for KLOOP_EPOCHS epochs, then
-    multicard_phase (the halo path and the GSPMD row sharding over
-    min(4, cards) NCCL ranks against it)."""
+    Elliptic-scale graph, rec_k8 and gat.yaml on one card for KLOOP_EPOCHS
+    epochs, then multicard_phase (the halo path and the GSPMD row sharding
+    over min(4, cards) NCCL ranks against them)."""
     with tempfile.TemporaryDirectory() as tmp:
         processed = build_processed(tmp)
         rec = slice_phase(tmp, processed, "rec_k8.yaml", epochs=KLOOP_EPOCHS)
         check_rec_k8_launches(rec)
-        multicard_phase(tmp, processed, rec)
+        gat = slice_phase(tmp, processed, "gat.yaml", epochs=KLOOP_EPOCHS)
+        check_gat_launches(gat)
+        multicard_phase(tmp, processed, rec, gat)
 
 
 def profile_phase(cfg, kernel_names) -> None:
@@ -2298,6 +2496,7 @@ def drive(device) -> list:
     arch_entries = arch_kernel_phase(device, flush_buf)
     gat_entries, gat_tables = gat_kernel_phase(device, flush_buf)
     gat_entries.update(gat_two_sweep_phase(device, flush_buf, gat_tables))
+    gat_mesh_launches_k, gat_mesh_ms = gat_mesh_kernel_phase(device, flush_buf, gat_tables)
     gat_step_times(device, gat_tables, flush_buf)
     wide_gat_phase(device, flush_buf, gat_tables)
     del flush_buf, gat_tables
@@ -2349,9 +2548,9 @@ def drive(device) -> list:
         check_conv_launches("sage.yaml", sage,
                             per_epoch={"ring": 3, "banded": 2},
                             scoring={"ring": 1, "banded": 1})
-        mesh1_launches = mesh1_phase(tmp, processed, rec, gcn, gat)
+        mesh1_launches = mesh1_phase(tmp, processed, rec, gcn, gat, gat2)
         gspmd1_launches = gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell)
-        multicard_phase(tmp, processed, rec)
+        multicard_phase(tmp, processed, rec, gat)
         profile_phase(rec["cfg"], ["bsda_spmm_kernel"])
         profile_phase(rec_serial["cfg"], ["bsda_spmm_kernel"])
         profile_phase(rec_ell["cfg"], [])
@@ -2428,6 +2627,19 @@ def drive(device) -> list:
                                   posthoc_launches=posthoc["gat"][counter]))
         if per_layer:
             kernels[-1].update(second_shape("h1", gat_entries[f"{name}[h=1]"]))
+        # GAT on a mesh: the rectangular launches of the mesh kernel phase
+        # (every rank's and shard's at n = 4 and 2, under mesh_ms with the
+        # whole graph's) and the mesh-1 runs of both routes
+        short = {"gat_fwd": "fwd", "gat_fwd_gated": "fwd", "gat_bwd": "bwd",
+                 "gat_bwd_dst": "dst", "gat_bwd_src": "src"}[counter]
+        for suffix, h in (("", 4 if counter != "gat_fwd" else 1),
+                          ("_h1", 1 if per_layer else None)):
+            if h is not None:
+                kernels[-1][f"mesh_ms{suffix}"] = {
+                    f"n={n}": gat_mesh_ms[(short, h, n)] for n in SHARD_WAYS}
+        kernels[-1].update(mesh_kernel_launches=gat_mesh_launches_k[counter],
+                           mesh1_launches=mesh1_launches["gat"].get(counter, 0),
+                           gspmd_mesh1_launches=gspmd1_launches["gat"].get(counter, 0))
         if name == "gat_bwd_dst":  # the plain torch step the kernel took in
             kernels[-1].update(grad_payload_ms=e["grad_payload_ms"],
                                grad_payload_ms_h1=gat_entries[f"{name}[h=1]"]["grad_payload_ms"])

@@ -45,12 +45,14 @@ def spmm(g, x, compute_dtype=None):
 
 
 def gat_aggregate(g, x_proj, alpha_src, alpha_dst, negative_slope=0.2):
-    """GAT attention of one layer by encoding: the masked row softmax of
-    the ELL graph, one rank's share of the halo path for a ShardedBsda, one
-    rank's rows under the GSPMD row sharding for a RowShardedBsda or
-    RowShardedEll (both plain PyTorch, as the JAX package attends in XLA
-    there), else the BSDA formulation (kernels/bsda_gat.py; the model takes
-    the packed kernels for a BsdaGraph on CUDA before it gets here)."""
+    """GAT attention of one layer by encoding, in plain PyTorch: the masked
+    row softmax of the ELL graph, one rank's share of the halo path for a
+    ShardedBsda, one rank's rows under the GSPMD row sharding for a
+    RowShardedBsda or RowShardedEll (as the JAX package attends in XLA
+    there), else the BSDA formulation (kernels/bsda_gat.py). The model
+    takes the packed kernels (kernels/packed_gat.py) for a BsdaGraph on
+    CUDA and for a ShardedBsda or RowShardedBsda on either device before it
+    gets here: these are their yardsticks."""
     if isinstance(g, EllGraph):
         return ell_gat_aggregate(g, x_proj, alpha_src, alpha_dst, negative_slope)
     if not isinstance(g, BsdaGraph):

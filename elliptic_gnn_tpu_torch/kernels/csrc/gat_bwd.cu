@@ -11,15 +11,21 @@
 // in:  gbar    [B*128, W] cotangent of the forward's output (acc columns
 //              and s columns are read; the m columns never are: the shift
 //              is a constant of the backward),
-//      payload [B*128, W] the forward's input [ xp | a_src | a_dst ],
+//      payload [n_rows, W] the forward's input [ xp | a_src | a_dst ],
 //      out_k   [B*128, W] the forward's output: its m columns give the
 //              same m, and so the same e, as the forward; with
 //              `normalized` its acc columns hold val = acc / s and gbar is
 //              the cotangent of (val, s), turned into (A, S) per row in
 //              registers: A = gbar / s, S = gbar_s - (gbar . val) / s,
 //              with 1 / max(s, 1e-16).
-// out: ct [B*128, W] rows [ d xp | d a_src | d a_dst ], zeroed by the
+// out: ct [n_rows, W] rows [ d xp | d a_src | d a_dst ], zeroed by the
 //      caller before the launch.
+//
+// The rectangular launch (gat_bwd_launch_rect), as gat_fwd.cu's: the grid's
+// destination rows are payload rows dst_row0 ...; their a_dst is read and
+// their d a_dst written there, their gbar and out_k rows are the grid's
+// own (row 0 = the grid's first row), and the per-source columns go to any
+// of ct's n_rows rows.
 //
 // Replaces elliptic_gnn_tpu/kernels/pallas_gat_bwd.py::_sweep_fused_call
 // together with the assembly in ::flash_gat_backward3: the z1/z2 rows, the
@@ -85,6 +91,8 @@ struct Plan {
   int shuffle;   // head sums by xor shuffles (else a scratch row a group)
   int red;       // bytes of the groups' scratch rows (0 with shuffle)
   int wide;      // rows of ct and gbar are 16-byte aligned
+  int n_rows;    // payload (and ct) rows the gathers may read
+  int dst_row0;  // payload row of the grid's first destination row
 };
 
 // One destination row's backward: the state of a thread, for its CPL runs.
@@ -97,7 +105,8 @@ struct RowVjp {
   const float* out_k;
   float* ct;
   float* red;  // the group's scratch row
-  size_t row0;  // the chunk's first row
+  size_t row0;   // the chunk's first row in gbar and out_k
+  size_t prow0;  // the chunk's first row in payload and ct
   int stride_f, e0, hc, h, width, normalized, runs, n_runs, c, group;
   bool shuffle, wide;
   unsigned mask;
@@ -126,7 +135,7 @@ struct RowVjp {
       part[k] = 0.f;
       dadst[k] = 0.f;
       if (!live[k]) continue;
-      adst[k] = __ldg(payload + base + hc + h + head[k]);
+      adst[k] = __ldg(payload + (prow0 + row) * width + hc + h + head[k]);
       m[k] = __ldg(out_k + base + hc + head[k]);
       sbar[k] = __ldg(gbar + base + hc + h + head[k]);
       load_run(abar[k], gbar + base + col[k]);
@@ -198,11 +207,11 @@ struct RowVjp {
   __device__ __forceinline__ void end(int row) {
 #pragma unroll
     for (int k = 0; k < CPL; ++k)
-      if (first[k]) ct[(row0 + row) * width + hc + h + head[k]] = dadst[k];
+      if (first[k]) ct[(prow0 + row) * width + hc + h + head[k]] = dadst[k];
   }
 };
 
-template <int CPL, int V>
+template <int CPL, int V, bool kRect>
 __global__ void __launch_bounds__(kThreads, (CPL == 1 ? kMinBlocks : 1))
 gat_bwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
                const int32_t* __restrict__ src_chunk,  // [B, depth]
@@ -221,6 +230,9 @@ gat_bwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   const EdgeList ed = make_list(smem + pl.area + pl.red, smem, pl.list_cap);
 
   const int b = blockIdx.x;
+  // the whole graph's launch (kRect false) takes its rows from the grid:
+  // the code it had before the rectangular form, and so its time
+  const size_t dst_row0 = kRect ? (size_t)pl.dst_row0 : 0;
   const int hc = pl.h * pl.ch;
   const int width = hc + 2 * pl.h;
   // slots at and beyond occ[b] are all zero: their planes are not read
@@ -236,7 +248,7 @@ gat_bwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   const int gid = threadIdx.x / pl.group;
   const int c = threadIdx.x % pl.group;
   const int row_step = kThreads / pl.group;
-  const int n_rows = gridDim.x * kChunk;
+  const int n_rows = kRect ? pl.n_rows : gridDim.x * kChunk;
 
   RowVjp<CPL, V> op;
   op.edge = ed.edge;
@@ -246,6 +258,7 @@ gat_bwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   op.ct = ct;
   op.red = red_sm + gid * CPL * pl.group;
   op.row0 = (size_t)b * kChunk;
+  op.prow0 = dst_row0 + op.row0;
   op.stride_f = pl.stride / 4;
   op.hc = hc;
   op.h = pl.h;
@@ -304,7 +317,7 @@ gat_bwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   }
 }
 
-template <int CPL, int V>
+template <int CPL, int V, bool kRect>
 cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* occ,
                    const float* gbar, const float* payload, const float* out_k,
                    float* ct, int num_chunks, Plan pl, cudaStream_t stream) {
@@ -312,10 +325,10 @@ cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* oc
   const size_t smem = (size_t)pl.area + pl.red + list_bytes(pl.list_cap, pl.depth);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gat_bwd_kernel<CPL, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gat_bwd_kernel<CPL, V, kRect>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  gat_bwd_kernel<CPL, V><<<num_chunks, kThreads, smem, stream>>>(
+  gat_bwd_kernel<CPL, V, kRect><<<num_chunks, kThreads, smem, stream>>>(
       a, src_chunk, occ, gbar, payload, out_k, ct, pl);
   return cudaGetLastError();
 }
@@ -324,13 +337,19 @@ cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* oc
 
 extern "C" {
 
+// The rectangular launch: num_chunks destination chunks (a, src_chunk and
+// occ at the first of them) whose rows are payload rows dst_row0 ...; gbar
+// and out_k hold the grid's num_chunks * 128 rows, payload and ct n_rows.
 // Returns the cudaError_t of the launch. occ may be null; ct must be zero.
-int gat_bwd_launch(const void* a, const void* src_chunk, const void* occ,
-                   const void* gbar, const void* payload, const void* out_k,
-                   void* ct, int num_chunks, int depth, int planes, int pack,
-                   int h, int ch, float slope, int normalized, void* stream) {
+int gat_bwd_launch_rect(const void* a, const void* src_chunk, const void* occ,
+                        const void* gbar, const void* payload, const void* out_k,
+                        void* ct, int num_chunks, int depth, int planes, int pack,
+                        int h, int ch, int n_rows, int dst_row0, float slope,
+                        int normalized, void* stream) {
   const int hc = h * ch;
-  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || depth <= 0 ||
+  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || n_rows <= 0 ||
+      n_rows > kMaxRows || dst_row0 < 0 ||
+      (long long)dst_row0 + (long long)num_chunks * kChunk > n_rows || depth <= 0 ||
       depth > kMaxDepth || h <= 0 || ch <= 0 ||
       hc + 2 * h > kMaxCols || (pack != 1 && pack != 2 && pack != 4) ||
       planes * pack < depth)
@@ -350,6 +369,8 @@ int gat_bwd_launch(const void* a, const void* src_chunk, const void* occ,
   pl.h = h;
   pl.ch = ch;
   pl.normalized = normalized;
+  pl.n_rows = n_rows;
+  pl.dst_row0 = dst_row0;
   pl.slope = slope;
   const size_t row_bytes = (size_t)(hc + 2 * h) * 4;
   pl.vec = copy_width(payload, row_bytes, 16);
@@ -366,8 +387,11 @@ int gat_bwd_launch(const void* a, const void* src_chunk, const void* occ,
   pl.wide = row_bytes % 16 == 0 && copy_width(gbar, row_bytes, 16) == 16 &&
             copy_width(out_k, row_bytes, 16) == 16 && copy_width(ct, row_bytes, 16) == 16;
   const int cpl = (hc / v + 31) / 32;
+  const bool rect = n_rows != num_chunks * kChunk || dst_row0 != 0;
   cudaError_t err;
-#define GAT_BWD_CASE(N, V) err = launch<N, V>(a8, sc, oc, gb, pay, ok, o, num_chunks, pl, s)
+#define GAT_BWD_CASE(N, V)                                          \
+  err = rect ? launch<N, V, true>(a8, sc, oc, gb, pay, ok, o, num_chunks, pl, s)  \
+             : launch<N, V, false>(a8, sc, oc, gb, pay, ok, o, num_chunks, pl, s)
   if (v == 4) {
     if (cpl <= 1) GAT_BWD_CASE(1, 4);
     else if (cpl <= 2) GAT_BWD_CASE(2, 4);
@@ -379,6 +403,16 @@ int gat_bwd_launch(const void* a, const void* src_chunk, const void* occ,
   else GAT_BWD_CASE(16, 1);
 #undef GAT_BWD_CASE
   return static_cast<int>(err);
+}
+
+// The whole graph: every tensor has the grid's rows.
+int gat_bwd_launch(const void* a, const void* src_chunk, const void* occ,
+                   const void* gbar, const void* payload, const void* out_k,
+                   void* ct, int num_chunks, int depth, int planes, int pack,
+                   int h, int ch, float slope, int normalized, void* stream) {
+  return gat_bwd_launch_rect(a, src_chunk, occ, gbar, payload, out_k, ct, num_chunks,
+                             depth, planes, pack, h, ch, num_chunks * kChunk, 0, slope,
+                             normalized, stream);
 }
 
 const char* gat_bwd_error_string(int code) {

@@ -13,7 +13,7 @@
 // in:  gbar    [B*128, W] cotangent of the forward's output (acc columns
 //              and s columns are read; the m columns never are: the shift
 //              is a constant of the backward),
-//      payload [B*128, W] the forward's input [ xp | a_src | a_dst ]: a_dst
+//      payload [n_rows, W] the forward's input [ xp | a_src | a_dst ]: a_dst
 //              of the own rows, xp and a_src of the streamed rows,
 //      out_k   [B*128, W] the forward's output: its m columns give the same
 //              m, and so the same e, as the forward; with `normalized` its
@@ -21,10 +21,15 @@
 //              (val, s), turned into (A, S) per row in registers:
 //              A = gbar / s, S = gbar_s - (gbar . val) / s, with
 //              1 / max(s, 1e-16) (kernels/gat_bwd.py::grad_payload).
-// out: ct [B*128, W]: the d a_dst columns (h*ch + h .. h*ch + 2h) of every
-//      row; the other columns belong to gat_bwd_src.cu.
-//      g2 [B*128, W2], W2 = h*ch + 3h: every row [ A | S | a_dst | m ],
+// out: ct [n_rows, W]: the d a_dst columns (h*ch + h .. h*ch + 2h) of every
+//      own row; the other columns belong to gat_bwd_src.cu.
+//      g2 [B*128, W2], W2 = h*ch + 3h: every own row [ A | S | a_dst | m ],
 //      rows with no edge too.
+//
+// The rectangular launch (gat_bwd_dst_launch_rect), as gat_fwd.cu's: the
+// own rows are payload rows dst_row0 ...; their a_dst is read and their
+// d a_dst written there, their gbar, out_k and G2 rows are the grid's own
+// (row 0 = the grid's first row).
 //
 // Replaces elliptic_gnn_tpu/kernels/pallas_gat_bwd.py::_sweep_dst_call,
 // and the assembly of its G2 rows in ::flash_gat_backward3. Not carried
@@ -93,6 +98,8 @@ struct Plan {
   int red;       // bytes of the groups' scratch rows (0 with shuffle)
   int wide;      // rows of gbar and out_k are 16-byte aligned
   int wide2;     // rows of g2 are 16-byte aligned
+  int n_rows;    // payload rows the gathers may read
+  int dst_row0;  // payload row of the grid's first destination row
 };
 
 // One destination row: the state of a thread, for its CPL runs.
@@ -106,7 +113,8 @@ struct RowDstVjp {
   float* ct;
   float* g2_rows;  // the chunk's G2 rows
   float* red;      // the group's scratch row
-  size_t row0;     // the chunk's first row
+  size_t row0;     // the chunk's first row in gbar and out_k
+  size_t prow0;    // the chunk's first row in payload and ct
   int stride_f, e0, hc, h, width, width2, normalized, runs, n_runs, c, group;
   bool shuffle, wide, wide2;
   unsigned mask;
@@ -135,7 +143,7 @@ struct RowDstVjp {
       part[k] = 0.f;
       dadst[k] = 0.f;
       if (!live[k]) continue;
-      adst[k] = __ldg(payload + base + hc + h + head[k]);
+      adst[k] = __ldg(payload + (prow0 + row) * width + hc + h + head[k]);
       m[k] = __ldg(out_k + base + hc + head[k]);
       sbar[k] = __ldg(gbar + base + hc + h + head[k]);
       load_run(abar[k], gbar + base + col[k]);
@@ -211,11 +219,11 @@ struct RowDstVjp {
   __device__ __forceinline__ void end(int row) {
 #pragma unroll
     for (int k = 0; k < CPL; ++k)
-      if (first[k]) ct[(row0 + row) * width + hc + h + head[k]] = dadst[k];
+      if (first[k]) ct[(prow0 + row) * width + hc + h + head[k]] = dadst[k];
   }
 };
 
-template <int CPL, int V>
+template <int CPL, int V, bool kRect>
 __global__ void __launch_bounds__(kThreads, (CPL == 1 ? kMinBlocks : 1))
 gat_bwd_dst_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
                    const int32_t* __restrict__ src_chunk,  // [B, depth]
@@ -235,6 +243,9 @@ gat_bwd_dst_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   const EdgeList ed = make_list(smem + pl.area + pl.red, smem, pl.list_cap);
 
   const int b = blockIdx.x;
+  // the whole graph's launch (kRect false) takes its rows from the grid:
+  // the code it had before the rectangular form, and so its time
+  const size_t dst_row0 = kRect ? (size_t)pl.dst_row0 : 0;
   const int hc = pl.h * pl.ch;
   const int width = hc + 2 * pl.h;
   const int width2 = hc + 3 * pl.h;
@@ -251,7 +262,7 @@ gat_bwd_dst_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   const int gid = threadIdx.x / pl.group;
   const int c = threadIdx.x % pl.group;
   const int row_step = kThreads / pl.group;
-  const int n_rows = gridDim.x * kChunk;
+  const int n_rows = kRect ? pl.n_rows : gridDim.x * kChunk;
 
   RowDstVjp<CPL, V> op;
   op.edge = ed.edge;
@@ -262,6 +273,7 @@ gat_bwd_dst_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   op.g2_rows = g2 + (size_t)b * kChunk * width2;
   op.red = red_sm + gid * CPL * pl.group;
   op.row0 = (size_t)b * kChunk;
+  op.prow0 = dst_row0 + op.row0;
   op.stride_f = pl.stride / 4;
   op.hc = hc;
   op.h = pl.h;
@@ -322,7 +334,7 @@ gat_bwd_dst_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   }
 }
 
-template <int CPL, int V>
+template <int CPL, int V, bool kRect>
 cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* occ,
                    const float* gbar, const float* payload, const float* out_k,
                    float* ct, float* g2, int num_chunks, Plan pl, cudaStream_t stream) {
@@ -330,10 +342,10 @@ cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* oc
   const size_t smem = (size_t)pl.area + pl.red + list_bytes(pl.list_cap, pl.depth);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gat_bwd_dst_kernel<CPL, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gat_bwd_dst_kernel<CPL, V, kRect>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  gat_bwd_dst_kernel<CPL, V><<<num_chunks, kThreads, smem, stream>>>(
+  gat_bwd_dst_kernel<CPL, V, kRect><<<num_chunks, kThreads, smem, stream>>>(
       a, src_chunk, occ, gbar, payload, out_k, ct, g2, pl);
   return cudaGetLastError();
 }
@@ -342,14 +354,19 @@ cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* oc
 
 extern "C" {
 
+// The rectangular launch: num_chunks destination chunks (a, src_chunk and
+// occ at the first of them) whose rows are payload rows dst_row0 ...; gbar,
+// out_k and g2 hold the grid's num_chunks * 128 rows, payload and ct n_rows.
 // Returns the cudaError_t of the launch. occ may be null.
-int gat_bwd_dst_launch(const void* a, const void* src_chunk, const void* occ,
-                       const void* gbar, const void* payload, const void* out_k,
-                       void* ct, void* g2, int num_chunks, int depth, int planes,
-                       int pack, int h, int ch, float slope, int normalized,
-                       void* stream) {
+int gat_bwd_dst_launch_rect(const void* a, const void* src_chunk, const void* occ,
+                            const void* gbar, const void* payload, const void* out_k,
+                            void* ct, void* g2, int num_chunks, int depth, int planes,
+                            int pack, int h, int ch, int n_rows, int dst_row0,
+                            float slope, int normalized, void* stream) {
   const int hc = h * ch;
-  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || depth <= 0 ||
+  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || n_rows <= 0 ||
+      n_rows > kMaxRows || dst_row0 < 0 ||
+      (long long)dst_row0 + (long long)num_chunks * kChunk > n_rows || depth <= 0 ||
       depth > kMaxDepth || h <= 0 || ch <= 0 ||
       hc + 2 * h > kMaxCols || (pack != 1 && pack != 2 && pack != 4) ||
       planes * pack < depth)
@@ -370,6 +387,8 @@ int gat_bwd_dst_launch(const void* a, const void* src_chunk, const void* occ,
   pl.h = h;
   pl.ch = ch;
   pl.normalized = normalized;
+  pl.n_rows = n_rows;
+  pl.dst_row0 = dst_row0;
   pl.slope = slope;
   const size_t row_bytes = (size_t)(hc + 2 * h) * 4;
   pl.vec = copy_width(payload, row_bytes, 16);
@@ -388,9 +407,11 @@ int gat_bwd_dst_launch(const void* a, const void* src_chunk, const void* occ,
   const size_t row2_bytes = (size_t)(hc + 3 * h) * 4;
   pl.wide2 = row2_bytes % 16 == 0 && copy_width(g2, 0, 16) == 16;
   const int cpl = (hc / v + 31) / 32;
+  const bool rect = n_rows != num_chunks * kChunk || dst_row0 != 0;
   cudaError_t err;
-#define GAT_BWD_DST_CASE(N, V) \
-  err = launch<N, V>(a8, sc, oc, gb, pay, ok, o, g, num_chunks, pl, s)
+#define GAT_BWD_DST_CASE(N, V)                                          \
+  err = rect ? launch<N, V, true>(a8, sc, oc, gb, pay, ok, o, g, num_chunks, pl, s)  \
+             : launch<N, V, false>(a8, sc, oc, gb, pay, ok, o, g, num_chunks, pl, s)
   if (v == 4) {
     if (cpl <= 1) GAT_BWD_DST_CASE(1, 4);
     else if (cpl <= 2) GAT_BWD_DST_CASE(2, 4);
@@ -402,6 +423,17 @@ int gat_bwd_dst_launch(const void* a, const void* src_chunk, const void* occ,
   else GAT_BWD_DST_CASE(16, 1);
 #undef GAT_BWD_DST_CASE
   return static_cast<int>(err);
+}
+
+// The whole graph: every tensor has the grid's rows.
+int gat_bwd_dst_launch(const void* a, const void* src_chunk, const void* occ,
+                       const void* gbar, const void* payload, const void* out_k,
+                       void* ct, void* g2, int num_chunks, int depth, int planes,
+                       int pack, int h, int ch, float slope, int normalized,
+                       void* stream) {
+  return gat_bwd_dst_launch_rect(a, src_chunk, occ, gbar, payload, out_k, ct, g2,
+                                 num_chunks, depth, planes, pack, h, ch,
+                                 num_chunks * kChunk, 0, slope, normalized, stream);
 }
 
 const char* gat_bwd_dst_error_string(int code) {

@@ -16,12 +16,18 @@
 // blocks that point at J itself. They read exactly like forward tables of
 // the reversed edges, so bsda_edges.cuh lists them unchanged.
 //
-// in:  payload [B*128, W] own rows: the forward's input [ xp | a_src | a_dst ],
+// in:  payload the own rows' [ xp | a_src | a_dst ] (the forward's input),
 //              of which xp and a_src are read,
-//      g2      [B*128, W2] streamed rows [ A (h*ch) | S (h) | a_dst (h) | m (h) ],
+//      g2      [n_rows, W2] streamed rows [ A (h*ch) | S (h) | a_dst (h) | m (h) ],
 //              W2 = h*ch + 3h: m is the forward's, so e is the forward's.
-// out: ct [B*128, W]: the d xp and d a_src columns (0 .. h*ch + h) of every
-//      row are written; the d a_dst columns belong to gat_bwd_dst.cu.
+// out: ct the own rows' d xp and d a_src columns (0 .. h*ch + h); the
+//      d a_dst columns belong to gat_bwd_dst.cu.
+//
+// The rectangular launch (gat_bwd_src_launch_rect): the grid's B chunks are
+// a run of source chunks, their rows payload (and ct) rows dst_row0 ...;
+// dst_chunk holds chunk ids of g2's n_rows rows. One rank's source rows over
+// the all-gathered G2 (GSPMD row sharding). The whole graph is the case
+// n_rows = B*128, dst_row0 = 0.
 //
 // Replaces elliptic_gnn_tpu/kernels/pallas_gat_bwd.py::_sweep_src_call. Not
 // carried over: the VMEM ring of G2 chunks, the 128-lane padding, the rank-1
@@ -88,6 +94,8 @@ struct Plan {
   int shuffle;   // head sums by xor shuffles (else a scratch row a group)
   int red;       // bytes of the groups' scratch rows (0 with shuffle)
   int wide;      // rows of payload and ct are 16-byte aligned
+  int n_rows;    // g2 rows the gathers may read
+  int dst_row0;  // payload (and ct) row of the grid's first row
 };
 
 // One source row's sums: the state of a thread, for its CPL runs.
@@ -101,7 +109,7 @@ struct RowSrcVjp {
   const float* payload;
   float* ct;
   float* red;  // the group's scratch row
-  size_t row0;  // the chunk's first row
+  size_t row0;  // the chunk's first row in payload and ct
   int stride_f, e0, hc, h, width, runs, n_runs, c, group;
   bool shuffle, wide;
   bool wide2;  // G2 rows are 16-byte aligned; else they are gathered by the
@@ -259,7 +267,7 @@ struct RowSrcVjp {
   }
 };
 
-template <int CPL, int V>
+template <int CPL, int V, bool kRect>
 __global__ void __launch_bounds__(kThreads, (CPL == 1 ? kMinBlocks : 1))
 gat_bwd_src_kernel(const uint8_t* __restrict__ a_t,        // [B, planes, C, C]
                    const int32_t* __restrict__ dst_chunk,  // [B, depth]
@@ -277,6 +285,9 @@ gat_bwd_src_kernel(const uint8_t* __restrict__ a_t,        // [B, planes, C, C]
   const EdgeList ed = make_list(smem + pl.area + pl.red, smem, pl.list_cap);
 
   const int b = blockIdx.x;
+  // the whole graph's launch (kRect false) takes its rows from the grid:
+  // the code it had before the rectangular form, and so its time
+  const size_t dst_row0 = kRect ? (size_t)pl.dst_row0 : 0;
   const int hc = pl.h * pl.ch;
   const int width = hc + 2 * pl.h;
   const int width2 = hc + 3 * pl.h;
@@ -293,7 +304,7 @@ gat_bwd_src_kernel(const uint8_t* __restrict__ a_t,        // [B, planes, C, C]
   const int gid = threadIdx.x / pl.group;
   const int c = threadIdx.x % pl.group;
   const int row_step = kThreads / pl.group;
-  const int n_rows = gridDim.x * kChunk;
+  const int n_rows = kRect ? pl.n_rows : gridDim.x * kChunk;
 
   RowSrcVjp<CPL, V> op;
   op.edge = ed.edge;
@@ -303,7 +314,7 @@ gat_bwd_src_kernel(const uint8_t* __restrict__ a_t,        // [B, planes, C, C]
   op.payload = payload;
   op.ct = ct;
   op.red = red_sm + gid * CPL * pl.group;
-  op.row0 = (size_t)b * kChunk;
+  op.row0 = dst_row0 + (size_t)b * kChunk;
   op.stride_f = pl.stride / 4;
   op.hc = hc;
   op.h = pl.h;
@@ -373,7 +384,7 @@ gat_bwd_src_kernel(const uint8_t* __restrict__ a_t,        // [B, planes, C, C]
   }
 }
 
-template <int CPL, int V>
+template <int CPL, int V, bool kRect>
 cudaError_t launch(const uint8_t* a_t, const int32_t* dst_chunk, const int32_t* occ,
                    const float* payload, const float* g2, float* ct, int num_chunks,
                    Plan pl, cudaStream_t stream) {
@@ -381,10 +392,10 @@ cudaError_t launch(const uint8_t* a_t, const int32_t* dst_chunk, const int32_t* 
   const size_t smem = (size_t)pl.area + pl.red + list_bytes(pl.list_cap, pl.depth);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gat_bwd_src_kernel<CPL, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gat_bwd_src_kernel<CPL, V, kRect>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  gat_bwd_src_kernel<CPL, V><<<num_chunks, kThreads, smem, stream>>>(
+  gat_bwd_src_kernel<CPL, V, kRect><<<num_chunks, kThreads, smem, stream>>>(
       a_t, dst_chunk, occ, payload, g2, ct, pl);
   return cudaGetLastError();
 }
@@ -393,13 +404,18 @@ cudaError_t launch(const uint8_t* a_t, const int32_t* dst_chunk, const int32_t* 
 
 extern "C" {
 
-// Returns the cudaError_t of the launch. occ may be null.
-int gat_bwd_src_launch(const void* a_t, const void* dst_chunk, const void* occ,
-                       const void* payload, const void* g2, void* ct,
-                       int num_chunks, int depth, int planes, int pack, int h,
-                       int ch, float slope, void* stream) {
+// The rectangular launch: num_chunks source chunks (a_t, dst_chunk and occ
+// at the first of them) whose rows are payload and ct rows dst_row0 ...,
+// reading g2's n_rows rows. Returns the cudaError_t of the launch. occ may
+// be null.
+int gat_bwd_src_launch_rect(const void* a_t, const void* dst_chunk, const void* occ,
+                            const void* payload, const void* g2, void* ct,
+                            int num_chunks, int depth, int planes, int pack, int h,
+                            int ch, int n_rows, int dst_row0, float slope,
+                            void* stream) {
   const int hc = h * ch;
-  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || depth <= 0 ||
+  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || n_rows <= 0 ||
+      n_rows > kMaxRows || dst_row0 < 0 || depth <= 0 ||
       depth > kMaxDepth || h <= 0 || ch <= 0 ||
       hc + 2 * h > kMaxCols || (pack != 1 && pack != 2 && pack != 4) ||
       planes * pack < depth)
@@ -417,6 +433,8 @@ int gat_bwd_src_launch(const void* a_t, const void* dst_chunk, const void* occ,
   pl.pack = pack;
   pl.h = h;
   pl.ch = ch;
+  pl.n_rows = n_rows;
+  pl.dst_row0 = dst_row0;
   pl.slope = slope;
   const size_t row2_bytes = (size_t)(hc + 3 * h) * 4;
   pl.vec = copy_width(g2, row2_bytes, 16);
@@ -433,8 +451,11 @@ int gat_bwd_src_launch(const void* a_t, const void* dst_chunk, const void* occ,
   const size_t row_bytes = (size_t)(hc + 2 * h) * 4;
   pl.wide = copy_width(payload, row_bytes, 16) == 16 && copy_width(ct, row_bytes, 16) == 16;
   const int cpl = (hc / v + 31) / 32;
+  const bool rect = n_rows != num_chunks * kChunk || dst_row0 != 0;
   cudaError_t err;
-#define GAT_BWD_SRC_CASE(N, V) err = launch<N, V>(a8, dc, oc, pay, g, o, num_chunks, pl, s)
+#define GAT_BWD_SRC_CASE(N, V)                                          \
+  err = rect ? launch<N, V, true>(a8, dc, oc, pay, g, o, num_chunks, pl, s)  \
+             : launch<N, V, false>(a8, dc, oc, pay, g, o, num_chunks, pl, s)
   if (v == 4) {
     if (cpl <= 1) GAT_BWD_SRC_CASE(1, 4);
     else if (cpl <= 2) GAT_BWD_SRC_CASE(2, 4);
@@ -446,6 +467,16 @@ int gat_bwd_src_launch(const void* a_t, const void* dst_chunk, const void* occ,
   else GAT_BWD_SRC_CASE(16, 1);
 #undef GAT_BWD_SRC_CASE
   return static_cast<int>(err);
+}
+
+// The whole graph: every tensor has the grid's rows.
+int gat_bwd_src_launch(const void* a_t, const void* dst_chunk, const void* occ,
+                       const void* payload, const void* g2, void* ct,
+                       int num_chunks, int depth, int planes, int pack, int h,
+                       int ch, float slope, void* stream) {
+  return gat_bwd_src_launch_rect(a_t, dst_chunk, occ, payload, g2, ct, num_chunks, depth,
+                                 planes, pack, h, ch, num_chunks * kChunk, 0, slope,
+                                 stream);
 }
 
 const char* gat_bwd_src_error_string(int code) {

@@ -6,10 +6,17 @@
 //     e_ij   = mult_ij * exp(lrelu(t_ij) - m_i)
 //     s_i    = sum_j e_ij,   acc_i = sum_j e_ij * xp_j
 //
-// in:  payload [B*128, W] f32 rows [ xp (h*ch) | a_src (h) | a_dst (h) ],
+// in:  payload [n_rows, W] f32 rows [ xp (h*ch) | a_src (h) | a_dst (h) ],
 //      W = h*ch + 2h
 // out: [B*128, W] f32 rows [ acc (h*ch) | m (h) | s (h) ], or with
 //      `normalize` acc / max(s, 1e-16) in the acc columns.
+//
+// The rectangular launch (gat_fwd_launch_rect): the grid's B chunks are a
+// run of destination chunks whose first row is payload row dst_row0 (their
+// a_dst is read there), src_chunk holds chunk ids of the payload's n_rows
+// rows, and out holds the grid's B*128 rows. One rank's rows under the GSPMD
+// row sharding, or one shard's over its halo-extended rows. The whole graph
+// (gat_fwd_launch) is the case n_rows = B*128, dst_row0 = 0.
 //
 // Replaces elliptic_gnn_tpu/kernels/pallas_gat.py::_flash_gat_call (occ
 // null: all D slots) and ::_flash_gat_call_gated (occ given: only the
@@ -84,6 +91,8 @@ struct Plan {
   int stride;    // bytes between two edges' segments in a buffer
   int group;     // threads that share a row
   int area;      // bytes of the two gather buffers, at least the list's items
+  int n_rows;    // payload rows the gathers may read
+  int dst_row0;  // payload row of the grid's first destination row
 };
 
 // One row's softmax sums: the state of a thread, for its CPL runs of V
@@ -185,7 +194,7 @@ struct RowSoftmax {
   }
 };
 
-template <int CPL, int V>
+template <int CPL, int V, bool kRect>
 __global__ void __launch_bounds__(kThreads, (CPL * V <= 4 ? kMinBlocks : 1))
 gat_fwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
                const int32_t* __restrict__ src_chunk,  // [B, depth]
@@ -203,6 +212,9 @@ gat_fwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
       reinterpret_cast<unsigned char*>(adst_sm + kChunk * pl.h), smem, pl.list_cap);
 
   const int b = blockIdx.x;
+  // the whole graph's launch (kRect false) takes its rows from the grid:
+  // the code it had before the rectangular form, and so its time
+  const size_t dst_row0 = kRect ? (size_t)pl.dst_row0 : 0;
   const int hc = pl.h * pl.ch;
   const int width = hc + 2 * pl.h;
   // slots at and beyond occ[b] are all zero: their planes are not read
@@ -212,8 +224,9 @@ gat_fwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
       a + (size_t)b * pl.planes * (size_t)kPlaneBytes);
   for (int idx = threadIdx.x; idx < kChunk * pl.h; idx += kThreads) {
     const int row = idx / pl.h;
-    cp_async<4>(adst_sm + idx, payload + ((size_t)b * kChunk + row) * width + hc +
-                                   pl.h + (idx - row * pl.h));
+    cp_async<4>(adst_sm + idx,
+                payload + (dst_row0 + (size_t)b * kChunk + row) * width + hc +
+                    pl.h + (idx - row * pl.h));
   }
   const ChunkCounts cc = count_rows(planes_b, n_planes, pl.pack,
                                     src_chunk + (size_t)b * pl.depth, pl.depth, ed);
@@ -223,7 +236,7 @@ gat_fwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   const int gid = threadIdx.x / pl.group;
   const int c = threadIdx.x % pl.group;
   const int row_step = kThreads / pl.group;
-  const int n_rows = gridDim.x * kChunk;
+  const int n_rows = kRect ? pl.n_rows : gridDim.x * kChunk;
 
   RowSoftmax<CPL, V> op;
   op.edge = ed.edge;
@@ -279,7 +292,7 @@ gat_fwd_kernel(const uint8_t* __restrict__ a,          // [B, planes, C, C]
   }
 }
 
-template <int CPL, int V>
+template <int CPL, int V, bool kRect>
 cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* occ,
                    const float* payload, float* out, int num_chunks, const Plan& pl,
                    cudaStream_t stream) {
@@ -287,10 +300,10 @@ cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* oc
                       list_bytes(pl.list_cap, pl.depth);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gat_fwd_kernel<CPL, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gat_fwd_kernel<CPL, V, kRect>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  gat_fwd_kernel<CPL, V><<<num_chunks, kThreads, smem, stream>>>(
+  gat_fwd_kernel<CPL, V, kRect><<<num_chunks, kThreads, smem, stream>>>(
       a, src_chunk, occ, payload, out, pl);
   return cudaGetLastError();
 }
@@ -299,13 +312,18 @@ cudaError_t launch(const uint8_t* a, const int32_t* src_chunk, const int32_t* oc
 
 extern "C" {
 
-// Returns the cudaError_t of the launch. occ may be null.
-int gat_fwd_launch(const void* a, const void* src_chunk, const void* occ,
-                   const void* payload, void* out, int num_chunks, int depth,
-                   int planes, int pack, int h, int ch, float slope,
-                   int normalize, void* stream) {
+// The rectangular launch: num_chunks destination chunks (a, src_chunk and
+// occ at the first of them), their rows from payload row dst_row0 on, read
+// the payload's n_rows rows and write out's num_chunks * 128 rows. Returns
+// the cudaError_t of the launch. occ may be null.
+int gat_fwd_launch_rect(const void* a, const void* src_chunk, const void* occ,
+                        const void* payload, void* out, int num_chunks, int depth,
+                        int planes, int pack, int h, int ch, int n_rows, int dst_row0,
+                        float slope, int normalize, void* stream) {
   const int hc = h * ch;
-  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || depth <= 0 ||
+  if (num_chunks <= 0 || num_chunks > kMaxRows / kChunk || n_rows <= 0 ||
+      n_rows > kMaxRows || dst_row0 < 0 ||
+      (long long)dst_row0 + (long long)num_chunks * kChunk > n_rows || depth <= 0 ||
       depth > kMaxDepth || h <= 0 || ch <= 0 ||
       hc + 2 * h > kMaxCols || (pack != 1 && pack != 2 && pack != 4) ||
       planes * pack < depth)
@@ -323,6 +341,8 @@ int gat_fwd_launch(const void* a, const void* src_chunk, const void* occ,
   pl.h = h;
   pl.ch = ch;
   pl.normalize = normalize;
+  pl.n_rows = n_rows;
+  pl.dst_row0 = dst_row0;
   pl.slope = slope;
   const size_t row_bytes = (size_t)(hc + 2 * h) * 4;
   pl.vec = copy_width(payload, row_bytes, 16);
@@ -334,8 +354,11 @@ int gat_fwd_launch(const void* a, const void* src_chunk, const void* occ,
   const int v = ch % 4 == 0 ? 4 : 1;  // adjacent columns a thread reads at once
   pl.group = group_size(hc / v);
   const int cpl = (hc / v + 31) / 32;
+  const bool rect = n_rows != num_chunks * kChunk || dst_row0 != 0;
   cudaError_t err;
-#define GAT_FWD_CASE(N, V) err = launch<N, V>(a8, sc, oc, pay, o, num_chunks, pl, s)
+#define GAT_FWD_CASE(N, V)                                          \
+  err = rect ? launch<N, V, true>(a8, sc, oc, pay, o, num_chunks, pl, s)  \
+             : launch<N, V, false>(a8, sc, oc, pay, o, num_chunks, pl, s)
   if (v == 4) {
     if (cpl <= 1) GAT_FWD_CASE(1, 4);
     else if (cpl <= 2) GAT_FWD_CASE(2, 4);
@@ -347,6 +370,16 @@ int gat_fwd_launch(const void* a, const void* src_chunk, const void* occ,
   else GAT_FWD_CASE(16, 1);
 #undef GAT_FWD_CASE
   return static_cast<int>(err);
+}
+
+// The whole graph: the payload has the grid's rows.
+int gat_fwd_launch(const void* a, const void* src_chunk, const void* occ,
+                   const void* payload, void* out, int num_chunks, int depth,
+                   int planes, int pack, int h, int ch, float slope,
+                   int normalize, void* stream) {
+  return gat_fwd_launch_rect(a, src_chunk, occ, payload, out, num_chunks, depth, planes,
+                             pack, h, ch, num_chunks * kChunk, 0, slope, normalize,
+                             stream);
 }
 
 const char* gat_fwd_error_string(int code) {

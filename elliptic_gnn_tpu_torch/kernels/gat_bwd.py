@@ -50,17 +50,19 @@ def dense_bwd_head(g: BsdaGraph, xp_h, asrc_h, adst_h, m_h, abar_h, sbar_h,
                    slope: float):
     """One head's dense-block gradients. xp_h, abar_h [N_pad, Ch]; asrc_h,
     adst_h, m_h, sbar_h [N_pad]. Returns (dxp [N_pad, Ch], dasrc [N_pad],
-    dadst [N_pad])."""
+    dadst [N_pad]). Rectangular where g's chunks are a run of destination
+    chunks (bsda_gat.dense_part's form): xp_h and asrc_h, and so dxp and
+    dasrc, hold every source row, the rest the run's rows."""
     b, c = g.num_chunks, g.chunk
     ch = xp_h.shape[1]
     src = g.src_chunk.long()
     abar3 = abar_h.reshape(b, c, ch)
 
     e, e_sig = _block_terms(
-        g.a.to(torch.float32), asrc_h.reshape(b, c)[src][:, :, None, :],
+        g.a.to(torch.float32), asrc_h.reshape(-1, c)[src][:, :, None, :],
         adst_h.reshape(b, c)[:, None, :, None],
         m_h.reshape(b, c)[:, None, :, None], slope)           # [B, D, Ci, Cj]
-    xp_g = xp_h.reshape(b, c, ch)[src]                        # [B, D, Cj, Ch]
+    xp_g = xp_h.reshape(-1, c, ch)[src]                       # [B, D, Cj, Ch]
     q = torch.einsum("bif,bdjf->bdij", abar3, xp_g)           # x_j . A_i
     dt = e_sig * (q + sbar_h.reshape(b, c)[:, None, :, None])
 
@@ -68,9 +70,10 @@ def dense_bwd_head(g: BsdaGraph, xp_h, asrc_h, adst_h, m_h, abar_h, sbar_h,
     # source-side sums scatter at chunk granularity; (b, d) -> src_chunk ids
     # may repeat, the segment sum adds them
     flat = src.reshape(-1)
-    dasrc = segment_sum(dt.sum(dim=2).reshape(-1, c), flat, b).reshape(-1)
+    n_src = xp_h.shape[0] // c
+    dasrc = segment_sum(dt.sum(dim=2).reshape(-1, c), flat, n_src).reshape(-1)
     dxp_bd = torch.einsum("bdij,bif->bdjf", e, abar3)         # [B, D, Cj, Ch]
-    dxp = segment_sum(dxp_bd.reshape(-1, c, ch), flat, b).reshape(-1, ch)
+    dxp = segment_sum(dxp_bd.reshape(-1, c, ch), flat, n_src).reshape(-1, ch)
     return dxp, dasrc, dadst
 
 
@@ -99,16 +102,17 @@ def sweep_dst_head(g: BsdaGraph, xp_h, asrc_h, abar_h, sbar_h, adst_h, m_h,
                    slope: float) -> torch.Tensor:
     """One head of the destination sweep over the FORWARD tables g: own
     rows i carry (A_bar, S_bar, a_dst, m), streamed rows j carry (xp,
-    a_src). Returns d a_dst [N_pad]."""
+    a_src). Returns d a_dst [N_pad]. Rectangular as dense_bwd_head: xp_h
+    and asrc_h hold every source row."""
     b, c = g.num_chunks, g.chunk
     ch = xp_h.shape[1]
     src = g.src_chunk.long()
     _, e_sig = _block_terms(
-        g.a.to(torch.float32), asrc_h.reshape(b, c)[src][:, :, None, :],
+        g.a.to(torch.float32), asrc_h.reshape(-1, c)[src][:, :, None, :],
         adst_h.reshape(b, c)[:, None, :, None],
         m_h.reshape(b, c)[:, None, :, None], slope)           # [B, D, Ci, Cj]
     q = torch.einsum("bif,bdjf->bdij", abar_h.reshape(b, c, ch),
-                     xp_h.reshape(b, c, ch)[src])
+                     xp_h.reshape(-1, c, ch)[src])
     dt = e_sig * (q + sbar_h.reshape(b, c)[:, None, :, None])
     return dt.sum(dim=(1, 3)).reshape(-1)
 
@@ -119,17 +123,19 @@ def sweep_src_head(g_t: BsdaGraph, xp_h, asrc_h, abar_h, sbar_h, adst_h, m_h,
     (a[J, slot, j, i]: row j = source j of chunk J, column i = destination
     i of chunk src_chunk[J, slot]; kernels/bsda.py::gat_block_transpose):
     own rows j carry (xp, a_src), streamed rows i carry (A_bar, S_bar,
-    a_dst, m). Returns (d xp [N_pad, Ch], d a_src [N_pad])."""
+    a_dst, m). Returns (d xp [N_pad, Ch], d a_src [N_pad]). Rectangular
+    where g_t's chunks are a run of source chunks: the streamed rows are
+    every row its ids index, xp_h and asrc_h the run's rows."""
     b, c = g_t.num_chunks, g_t.chunk
     ch = xp_h.shape[1]
     dst = g_t.src_chunk.long()                                # [B, DT] -> I
-    abar_g = abar_h.reshape(b, c, ch)[dst]                    # [B, DT, Ci, Ch]
+    abar_g = abar_h.reshape(-1, c, ch)[dst]                   # [B, DT, Ci, Ch]
     e, e_sig = _block_terms(
         g_t.a.to(torch.float32), asrc_h.reshape(b, c)[:, None, :, None],
-        adst_h.reshape(b, c)[dst][:, :, None, :],
-        m_h.reshape(b, c)[dst][:, :, None, :], slope)         # [B, DT, Cj, Ci]
+        adst_h.reshape(-1, c)[dst][:, :, None, :],
+        m_h.reshape(-1, c)[dst][:, :, None, :], slope)        # [B, DT, Cj, Ci]
     q = torch.einsum("bdif,bjf->bdji", abar_g, xp_h.reshape(b, c, ch))
-    dt = e_sig * (q + sbar_h.reshape(b, c)[dst][:, :, None, :])
+    dt = e_sig * (q + sbar_h.reshape(-1, c)[dst][:, :, None, :])
     dxp = torch.einsum("bdji,bdif->bjf", e, abar_g).reshape(-1, ch)
     return dxp, dt.sum(dim=(1, 3)).reshape(-1)
 

@@ -28,7 +28,9 @@ from torch import nn
 from ..graph.transform import add_self_loops
 from ..kernels import BsdaGraph, gat_aggregate, spmm
 from ..kernels.ell import build_ell_graph, gcn_norm_weights
-from ..kernels.packed_gat import packed_gat_forward, packed_gat_train_forward
+from ..kernels.packed_gat import (
+    packed_gat_forward, packed_gat_route, packed_gat_train_forward,
+)
 from ..parallel.mesh import psum
 from ..utils.common import dropout as _dropout
 
@@ -316,16 +318,17 @@ class GAT(nn.Module):
 
     On a BsdaGraph with CUDA tensors the whole stack runs packed through
     the flash kernels (kernels/packed_gat.py): eval through
-    packed_gat_forward, training through packed_gat_train_forward. On CPU
-    tensors it runs layer by layer through the plain formulation
-    (forward_plain), differentiated by autograd; on an EllGraph (the
-    explainer's subgraph) layer by layer through the ELL masked softmax on
-    either device, as the JAX model does; on a rank's share of a mesh run
-    (ShardedBsda of the halo path, RowShardedBsda or RowShardedEll of the
-    GSPMD row sharding) layer by layer through the plain attention of that
-    route, as the JAX model attends in XLA there. There is no switch between the
-    kernels and the plain version: `gat_fused_vjp: false`, the JAX
-    package's autodiff comparator, is refused."""
+    packed_gat_forward, training through packed_gat_train_forward; so does
+    a rank's BSDA share of a mesh run (ShardedBsda of the halo path,
+    RowShardedBsda of the GSPMD row sharding) through the kernels'
+    rectangular launches, on CPU tensors through their plain versions. A
+    BsdaGraph with CPU tensors runs layer by layer through the plain
+    formulation (forward_plain), differentiated by autograd; an EllGraph
+    (the explainer's subgraph) and a RowShardedEll layer by layer through
+    the ELL masked softmax on either device, as the JAX model does. There
+    is no switch between the kernels and the plain version:
+    `gat_fused_vjp: false`, the JAX package's autodiff comparator, is
+    refused."""
 
     uses_time_embed = False
 
@@ -352,7 +355,8 @@ class GAT(nn.Module):
     def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 row_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
-        if not (x.is_cuda and isinstance(g, BsdaGraph)):
+        packed = x.is_cuda if isinstance(g, BsdaGraph) else packed_gat_route(g) is not None
+        if not packed:
             return self.forward_plain(x, g, generator)
         params = [dict(w=l.w, a_src=l.a_src, a_dst=l.a_dst, b=l.b)
                   for l in self.layers]

@@ -16,15 +16,26 @@ is one autograd rule:
     this rank's slice of the transpose tables, whose destination chunks
     are this rank's source rows: the rank's own d x, with no
     reduce-scatter.
-  - ELL (RowShardedEll) and GAT on either encoding: the forward
-    all-gathers the rows and runs the ELL gather, or the plain chunk-pair
-    attention (kernels/bsda_gat.py) of this rank's destination chunks;
-    autograd differentiates it, and the all-gather's backward is a
-    reduce-scatter (SUM) of the whole rows' cotangent. GAT attends in plain
-    PyTorch here because the JAX package attends in XLA on this path.
+  - GAT on a RowShardedBsda (row_gat_attend_packed, the model's route):
+    the rank's packed payload rows [xp | a_src | a_dst] all-gathered, the
+    rectangular launch of the GAT forward kernel on the rank's destination
+    chunks (kernels/packed_gat.py, csrc/gat_fwd.cu), then the slice's
+    spill. The backward is one of two: the one-sweep kernel's cotangent of
+    every row, or with the two-sweep backward the destination sweep on the
+    rank's chunks, its G2 rows all-gathered, and the source sweep on the
+    rank's slice of the transpose tables for its own source rows (zero
+    elsewhere). Either way the all-gather's reduce-scatter (SUM) takes the
+    cotangent back to the rows' owners: it also carries the spill's, whose
+    sources may be any rank's rows.
+  - ELL (RowShardedEll), and the plain GAT attention (row_gat_attend: the
+    CPU yardstick of the kernels' route, and GAT on the ELL encoding): the
+    forward all-gathers the rows and runs the ELL gather, or the plain
+    chunk-pair attention (kernels/bsda_gat.py) of this rank's destination
+    chunks; autograd differentiates it, and the all-gather's backward is a
+    reduce-scatter (SUM) of the whole rows' cotangent.
 
-On CPU tensors the BSDA rule takes the kernel's plain version; on CUDA
-tensors it launches the kernel or raises. The training step (BatchNorm
+On CPU tensors the BSDA and GAT rules take the kernels' plain versions; on
+CUDA tensors they launch the kernels or raise. The training step (BatchNorm
 statistics, the loss and the gradients all-reduced) is the halo path's
 (train/train_gnn.py::_sharded_step); the rank and its process group travel
 with the encoding.
@@ -118,9 +129,10 @@ def bsda_row_slice(g: BsdaGraph, n_dev: int, rank: int) -> BsdaGraph:
 class RowShardedBsda:
     """One rank's BSDA encoding under the GSPMD row sharding: `fwd` the
     slice of destination chunks it owns (bsda_row_slice), `bwd` the same
-    slice of the transpose tables (the aggregation's backward; None for
-    GAT, which autograd differentiates), `n_rows` the rows of the whole
-    grid, the rank's place and its process `group` (None: the world)."""
+    slice of the transpose tables (the aggregation's backward; for GAT the
+    two-sweep backward's source sweep, None without it), `n_rows` the rows
+    of the whole grid, the rank's place and its process `group` (None: the
+    world)."""
 
     fwd: BsdaGraph
     bwd: Optional[BsdaGraph]
@@ -289,3 +301,19 @@ def row_gat_attend(rs, x_proj: torch.Tensor, alpha_src: torch.Tensor,
     else:
         out, _, _ = attend(rs.fwd, xp_all, asrc_all, alpha_dst.float(), negative_slope)
     return out.to(x_proj.dtype)
+
+
+def row_gat_attend_packed(rs: RowShardedBsda, payload: torch.Tensor, h: int, ch: int,
+                          negative_slope: float = 0.2) -> torch.Tensor:
+    """This rank's rows [n_loc, W] of [ val | m | s ] through the GAT
+    kernels, from its packed payload rows [n_loc, W] = [xp | a_src | a_dst]
+    ('gat' tables): the rows all-gathered (differentiably), the rectangular
+    forward of the rank's destination chunks (their first row rank *
+    n_loc), the slice's spill merged. The backward's G2 rows are
+    all-gathered for the source sweep on the rank's transpose slice."""
+    from ..kernels.packed_gat import DenseTables, attend_rows
+
+    row0 = rs.rank * rs.n_loc
+    d = DenseTables(rs.fwd, dst_row0=row0, g_t=rs.bwd, t_row0=row0,
+                    g2_rows=lambda g2: all_gather_rows(rs, g2))
+    return attend_rows(d, gather_rows_diff(rs, payload), h, ch, negative_slope)

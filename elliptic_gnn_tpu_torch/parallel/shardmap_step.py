@@ -20,6 +20,16 @@ elliptic_gnn_tpu/parallel/shardmap_step.py).
   - The backward runs the same kernel on the exact block transpose of the
     shard's table over the halo-extended grid, and sends the halo rows'
     cotangents back the reverse way round the ring.
+  - GAT (sharded_gat_attend_packed, the model's route): the shard's packed
+    payload rows [xp | a_src | a_dst] are ring-exchanged whole, and the
+    GAT kernels (kernels/packed_gat.py) run the shard's table at once over
+    the halo-extended rows: the rectangular launch, whose destinations are
+    the local rows in the middle of the buffer, then the shard's spill.
+    The one-sweep backward's cotangent covers the halo rows too; the
+    two-sweep backward's source sweep runs on the same block transpose over
+    the halo-extended grid (the `use_kernel` tables). The halo rows'
+    cotangents go back round the ring. sharded_gat_attend, the plain
+    chunk-pair attention, stays as the CPU yardstick.
 
 The training step that uses this (BatchNorm statistics and the loss
 all-reduced, one all-reduce of the flat gradient buffer) is in
@@ -36,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..kernels.bsda import BsdaGraph, bsda_dense_plain, pack_a_planes
+from ..kernels.ell import EllGraph
 
 # the BSDA kernel's group of destination chunks (kernels/bsda_spmm_cuda.py
 # _GROUP; the TPU kernel's pallas_bsda.GROUP): the transpose grid is padded
@@ -46,8 +57,8 @@ NEG_INF = -1e30
 _TENSOR_FIELDS = ("a", "src_local", "res_rows", "res_perm", "dst_scale",
                   "src_scale_ext", "rest_rows", "rest_perm", "a_loc", "src_loc",
                   "hal_a", "hal_src", "hal_dst", "a_t", "src_t", "ds_kern",
-                  "ss_kern", "a_loc_p", "a_t_p")
-_TUPLE_FIELDS = ("res_nbr", "res_w", "res_dst", "rest_nbr", "rest_w")
+                  "ss_kern", "a_loc_p", "a_t_p", "a_p", "src_ext", "occ", "occ_t")
+_TUPLE_FIELDS = ("res_nbr", "res_w", "res_dst", "rest_nbr", "rest_w", "res_cix")
 
 
 @dataclasses.dataclass
@@ -84,11 +95,20 @@ class ShardedBsda:
     ds_kern, ss_kern [n_dev, b_ext_pad*C]: dst scales at ext offset, src
                 scales over ext rows (the transpose's src and dst scales)
     a_loc_p, a_t_p: bit-packed planes of a_loc and a_t (a_pack > 1)
+    The GAT kernels' tables (the port's own; the whole shard table at once
+    over the ext rows): a_p [n_dev, B_loc, planes, C, C] the bit-packed
+    planes of `a` and a_p_pack its slots a byte (None and 1 where g has
+    none), src_ext [n_dev, B_loc, D] int32 src_local, occ [n_dev, B_loc]
+    the slot cover of `a` (g's slot_occ), occ_t [n_dev, b_ext_pad] the
+    filled slots of a_t (use_kernel).
+    res_cix:    tuple of [1, R_k] (a slice only): each spill bucket row's
+                place among res_rows, so that the spill reads as an ELL
+                residual (_gat_view)
 
     A slice of one rank (`shard_slice`) has a leading axis of length 1,
     the pads that the JAX package's scatters drop cut off, int64 index
-    tables (the kernel's src_loc/src_t stay int32), and carries `rank` and
-    the process `group` (None: the world).
+    tables (the kernel's src_loc/src_t/src_ext stay int32), and carries
+    `rank` and the process `group` (None: the world).
     """
 
     a: torch.Tensor
@@ -125,6 +145,12 @@ class ShardedBsda:
     a_loc_p: Optional[torch.Tensor] = None
     a_t_p: Optional[torch.Tensor] = None
     a_pack: int = 1
+    a_p: Optional[torch.Tensor] = None
+    a_p_pack: int = 1
+    src_ext: Optional[torch.Tensor] = None
+    occ: Optional[torch.Tensor] = None
+    occ_t: Optional[torch.Tensor] = None
+    res_cix: tuple = ()
     rank: Optional[int] = None
     group: Optional[dist.ProcessGroup] = None
 
@@ -225,8 +251,10 @@ def partition_bsda(g: BsdaGraph, n_dev: int,
     for graphs that are not banded enough.
 
     use_kernel: build the block transpose and its scales (the backward of
-    an aggregation: sage/gcn) and the bit-packed planes; GAT attends without
-    them. None = auto, on where CUDA is available."""
+    an aggregation: sage/gcn, and the GAT two-sweep backward's source
+    sweep) and the bit-packed planes. The GAT kernels' forward tables
+    (a_p, src_ext, occ) are cut from g's always. None = auto, on where
+    CUDA is available."""
     b = g.num_chunks
     if b % n_dev:
         raise ValueError(f"num_chunks {b} does not tile {n_dev} devices")
@@ -330,7 +358,7 @@ def partition_bsda(g: BsdaGraph, n_dev: int,
                 hal_a_np[dev, ki, si] = a[dev, l_i, d_i].astype(np.float32)
                 hal_src_np[dev, ki, si] = int(src_local[dev, l_i, d_i])
 
-    a_t = src_t = ds_kern = ss_kern = a_loc_p = a_t_p = None
+    a_t = src_t = ds_kern = ss_kern = a_loc_p = a_t_p = occ_t = None
     b_ext_pad = depth_t = 0
     if use_kernel:
         # the kernel's backward: the same kernel on the exact block
@@ -345,6 +373,7 @@ def partition_bsda(g: BsdaGraph, n_dev: int,
             for l_i, d_i in zip(ls, dis):
                 refs[dev][int(src_local[dev, l_i, d_i])].append((l_i, d_i))
         depth_t = max(1, max(len(r) for dev_r in refs for r in dev_r))
+        occ_t = np.array([[len(r) for r in dev_r] for dev_r in refs], np.int32)
         a_t_np = np.zeros((n_dev, b_ext_pad, depth_t, c, c), a.dtype)
         src_t_np = np.tile(np.arange(b_ext_pad, dtype=np.int32)[None, :, None],
                            (n_dev, 1, depth_t))
@@ -379,6 +408,12 @@ def partition_bsda(g: BsdaGraph, n_dev: int,
     def t(arr):
         return None if arr is None else torch.from_numpy(np.ascontiguousarray(arr))
 
+    a_p = occ = None
+    if g.a_packed is not None and g.a_pack > 1:
+        a_p = _np(g.a_packed).reshape((n_dev, b_loc) + tuple(g.a_packed.shape[1:]))
+    if g.slot_occ is not None:
+        occ = _np(g.slot_occ).reshape(n_dev, b_loc)
+
     return ShardedBsda(
         a=t(a), src_local=t(src_local.astype(np.int32)),
         res_nbr=res_nbr, res_w=res_w, res_dst=res_dst,
@@ -393,6 +428,8 @@ def partition_bsda(g: BsdaGraph, n_dev: int,
         use_kernel=bool(use_kernel), b_ext_pad=b_ext_pad, depth_t=depth_t,
         a_dtype_name=g.a_dtype_name, a_loc_p=t(a_loc_p), a_t_p=t(a_t_p),
         a_pack=g.a_pack if a_loc_p is not None else 1,
+        a_p=t(a_p), a_p_pack=g.a_pack if a_p is not None else 1,
+        src_ext=t(src_local.astype(np.int32)), occ=t(occ), occ_t=t(occ_t),
     )
 
 
@@ -412,12 +449,15 @@ def shard_slice(sg: ShardedBsda, d: int,
     k_hal = int((one.hal_dst[0] < b_loc).sum())
     k_res = int((one.res_rows[0] < n_loc).sum())
     k_rest = int((one.rest_rows[0] < n_ext).sum()) if one.rest_rows is not None else 0
+    res_rows = one.res_rows[:, :k_res].long()
     return dataclasses.replace(
         one,
         hal_dst=one.hal_dst[:, :k_hal].long(),
         hal_src=one.hal_src[:, :k_hal].long(),
         hal_a=one.hal_a[:, :k_hal].contiguous(),
-        res_rows=one.res_rows[:, :k_res].long(),
+        res_rows=res_rows,
+        res_cix=tuple(torch.searchsorted(res_rows[0], t[0].long().clamp(0, n_loc - 1))
+                      .clamp(max=max(k_res - 1, 0))[None] for t in one.res_dst),
         res_perm=one.res_perm[:, :k_res].long(),
         res_nbr=tuple(t.long() for t in one.res_nbr),
         res_dst=tuple(t.clamp(0, n_loc - 1).long() for t in one.res_dst),
@@ -468,6 +508,33 @@ def _transpose_view(sg: ShardedBsda) -> BsdaGraph:
         src_scale=None if sg.ds_kern is None else sg.ds_kern[0],
         a_packed=None if sg.a_t_p is None else sg.a_t_p[0],
         a_pack=sg.a_pack if sg.a_t_p is not None else 1,
+        slot_occ=None if sg.occ_t is None else sg.occ_t[0],
+    )
+
+
+def _gat_view(sg: ShardedBsda) -> BsdaGraph:
+    """BsdaGraph view of the shard's whole table for the GAT kernels'
+    rectangular launch over the halo-extended rows: its destination chunks
+    are the local rows (ext rows H*C ...), src_chunk holds ext chunk ids,
+    and the spill reads as an ELL residual (sources ext rows, residual_rows
+    the local rows)."""
+    c = sg.chunk
+    b_loc = sg.a.shape[1]
+    residual = residual_rows = None
+    if sg.res_rows.shape[1] and len(sg.res_nbr):
+        residual_rows = sg.res_rows[0]
+        residual = EllGraph(
+            nbrs=tuple(t[0] for t in sg.res_nbr), weights=tuple(t[0] for t in sg.res_w),
+            rows=tuple(t[0] for t in sg.res_cix), inv_perm=sg.res_perm[0], row_scale=(),
+            num_nodes=int(residual_rows.shape[0]),
+            widths=tuple(int(t.shape[2]) for t in sg.res_nbr), n_zero_deg=0)
+    return BsdaGraph(
+        a=sg.a[0], src_chunk=sg.src_ext[0], residual=residual,
+        residual_rows=residual_rows, num_nodes=b_loc * c, num_chunks=b_loc,
+        depth=sg.depth, n_pad=0, a_dtype_name=sg.a_dtype_name, chunk=c,
+        max_chunk_dist=sg.halo_chunks,
+        a_packed=None if sg.a_p is None else sg.a_p[0], a_pack=sg.a_p_pack,
+        slot_occ=None if sg.occ is None else sg.occ[0],
     )
 
 
@@ -677,11 +744,42 @@ def sharded_bsda_spmm(sg: ShardedBsda, x_local: torch.Tensor,
     return _split_local_aggregate(sg, xc, halo_l, halo_r, pending).to(out_dtype)
 
 
+def sharded_gat_attend_packed(sg: ShardedBsda, payload: torch.Tensor, h: int, ch: int,
+                              negative_slope: float = 0.2) -> torch.Tensor:
+    """This rank's rows [N_loc, W] of [ val | m | s ] through the GAT
+    kernels, from its packed payload rows [N_loc, W] = [xp | a_src | a_dst]
+    ('gat' tables): the ring exchange of the boundary rows (a_dst rides
+    along; halo rows are never destinations), then the shard's table at
+    once over the halo-extended rows [halo_L | local | halo_R] (zero rows
+    up to the transpose grid where the block transpose is built), its
+    destinations the local rows, and the shard's spill merged.
+    Differentiable: the cotangent of the halo rows goes back round the
+    ring; the two-sweep backward's source sweep runs the block transpose
+    over the ext grid, its G2 rows at their ext offset."""
+    from ..kernels.packed_gat import DenseTables, attend_rows
+
+    c = sg.chunk
+    hc = sg.halo_chunks * c
+    n_loc = sg.a.shape[1] * c
+    payload = payload.contiguous()
+    halo_l, halo_r = halo_exchange(sg, payload)
+    parts = [halo_l, payload, halo_r]
+    g_t = g2_rows = None
+    if sg.a_t is not None:
+        g_t = _transpose_view(sg)
+        tail = sg.b_ext_pad * c - n_loc - hc
+        parts.append(payload.new_zeros((tail - hc, payload.shape[1])))
+        g2_rows = lambda g2: torch.nn.functional.pad(g2, (0, 0, hc, tail))  # noqa: E731
+    d = DenseTables(_gat_view(sg), dst_row0=hc, g_t=g_t, g2_rows=g2_rows)
+    return attend_rows(d, torch.cat(parts, dim=0), h, ch, negative_slope)
+
+
 def sharded_gat_attend(sg: ShardedBsda, x_proj: torch.Tensor,
                        alpha_src: torch.Tensor, alpha_dst: torch.Tensor,
                        negative_slope: float = 0.2) -> torch.Tensor:
     """GAT segment-softmax attention of this rank's rows, in plain PyTorch
-    (the JAX package runs it in XLA, outside any Pallas kernel).
+    (the JAX package runs it in XLA, outside any Pallas kernel): the
+    yardstick of sharded_gat_attend_packed, the model's route.
 
     Every source of a local destination lies within the halo window, so
     the ring exchange of [x_proj | a_src] rows makes the softmax local;

@@ -45,15 +45,16 @@ rank (train_rank). Two routes, as in the JAX trainer:
   - the explicit halo path (parallel/shardmap_step.py), what `aggregation:
     auto` is on a mesh: the destination chunks split over the ranks, each
     rank's aggregation through the BSDA kernel on its split tables after a
-    ring exchange of the boundary rows (GAT attends in plain PyTorch per
-    shard, as JAX attends in XLA); `aggregation: shard_map` at
-    `mesh_devices: 1` runs it in a world of one;
+    ring exchange of the boundary rows (GAT through the GAT kernels'
+    rectangular launch over the shard's halo-extended rows);
+    `aggregation: shard_map` at `mesh_devices: 1` runs it in a world of
+    one;
   - the GSPMD row sharding (parallel/gspmd_step.py), for a pinned
     `aggregation: bsda|bsda_pallas|ell` on a mesh, and for `auto` where
     partition_bsda finds the graph not banded enough (the tables are then
     rebuilt with transpose tables): the rows all-gathered, each rank's
-    destination rows through the kernel's rectangular launch (ELL: the
-    gather; GAT: plain attention).
+    destination rows through the kernel's rectangular launch (GAT: the GAT
+    kernels' rectangular launch; ELL: the gather).
 BatchNorm statistics and the loss are all-reduced, the gradients
 all-reduced as one flat buffer before the clip and Adam; every rank takes
 the same decisions, and the primary rank alone writes the run dir.
@@ -374,12 +375,13 @@ def _shard(cfg: dict, data, gops, mesh):
     node arrays (_ShardInputs).
 
     The halo path (`aggregation` shard_map, or auto on a mesh): the tables
-    padded to tile the mesh, partitioned (the kernel route's tables for
-    sage/gcn; GAT attends in plain PyTorch) and sliced to this rank. A
-    graph that partition_bsda rejects raises its ValueError under an
-    explicit `aggregation: shard_map`; under `auto` the run falls back to
-    the GSPMD row sharding, as the JAX trainer does, on tables rebuilt with
-    the JAX trainer's fallback depth and, but for GAT, transpose tables.
+    padded to tile the mesh, partitioned (the block transpose for sage/gcn
+    and for GAT's two-sweep backward) and sliced to this rank. A graph
+    that partition_bsda rejects raises its ValueError under an explicit
+    `aggregation: shard_map`; under `auto` the run falls back to the GSPMD
+    row sharding, as the JAX trainer does, on tables rebuilt with the JAX
+    trainer's fallback depth and transpose tables (GAT: with the two-sweep
+    backward only).
 
     The GSPMD row sharding (a pinned bsda|bsda_pallas|ell): BSDA tables
     padded to tile the mesh, this rank's destination chunks of them and of
@@ -388,11 +390,12 @@ def _shard(cfg: dict, data, gops, mesh):
     (gspmd_step.RowShardedEll)."""
     kind = _kind(cfg)
     halo = _pick_aggregation(cfg, kind, mesh.size) == "shard_map"
+    transpose = kind != "gat" or use_two_sweep_backward()
     if isinstance(gops, BsdaGraph):
         gops = pad_bsda_chunks(gops, mesh.size)
     if halo:
         try:
-            sg = partition_bsda(gops, mesh.size, use_kernel=kind != "gat")
+            sg = partition_bsda(gops, mesh.size, use_kernel=transpose)
         except ValueError as exc:
             if str(cfg.get("aggregation", "auto")) == "shard_map":
                 raise
@@ -402,7 +405,7 @@ def _shard(cfg: dict, data, gops, mesh):
             gops = pad_bsda_chunks(build_bsda_for_kind(
                 data.edge_index, data.num_nodes, kind,
                 depth=int(cfg.get("bsda_depth", 3)), a_dtype="int8",
-                transpose=kind != "gat").to(gops.a.device), mesh.size)
+                transpose=transpose).to(gops.a.device), mesh.size)
     if halo:
         train_ops = shard_slice(sg, mesh.rank, mesh.group).to(mesh.device)
         arrays = shard_graph_inputs(mesh, data, gops)

@@ -5,7 +5,10 @@ widths one launch takes and wider (split into launches); and the trainer's
 K-epoch loop, its epoch captured as a CUDA graph and replayed, against the
 serial loop (K = 4 on a 6,000-node graph: per-epoch loss and val PR-AUC
 within 1e-4, the stop epoch, two-sweep GAT runs bit-equal, a failed capture
-raises). Every test here needs
+raises); the mesh paths' rectangular launches (BSDA and the four GAT
+kernels of every rank and shard against their plain versions and the whole
+graph) and their trainers as one NCCL rank against the single-device K
+loop. Every test here needs
 an NVIDIA GPU and skips without one; this file imports nothing of JAX so
 that it runs on a machine without it:
 
@@ -823,6 +826,111 @@ def test_rectangular_kernel_matches_plain_and_whole(cuda, n_dev, f, dtype):
             want = bsda.bsda_dense_plain(view, x, n_loc)
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(), **tol)
+
+
+def _band_gat_graph(n=2900, seed=5, n_band=600):
+    """tests/torch_port_ranks.py::band_graph's 'gat' tables (depth 3, with
+    the transpose): a symmetrized, BFS-renumbered synthetic graph plus
+    random edges both ways between nodes at most 250 rows apart."""
+    data = symmetrize_edges(synthetic.generate(num_nodes=n, num_timesteps=10, seed=seed))
+    data = data.renumber(bsda.bfs_order(data.edge_index, n, data.timestep))
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, n, n_band)
+    dst = np.clip(src + rng.integers(-250, 250, n_band), 0, n - 1)
+    ei = np.concatenate([data.edge_index, np.stack([src, dst]),
+                         np.stack([dst, src])], axis=1).astype(np.int64)
+    return bsda.build_bsda_for_kind(ei, n, "gat", depth=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dev", [4, 2])
+@pytest.mark.parametrize("h,ch", [(4, 8), (1, 2)])
+def test_rectangular_gat_kernels_match_plain_and_whole(cuda, n_dev, h, ch):
+    """GAT on a mesh: the rectangular launches of the four GAT kernels of
+    every GSPMD rank (its destination chunks over every payload row; the
+    source sweep on its transpose slice over every G2 row) and of every
+    halo shard (its table over its halo-extended rows; the source sweep on
+    the block transpose over the ext grid, G2 at its ext offset), on the
+    band graph of the multi-rank tests (tests/torch_port_ranks.py; a
+    spill, a halo of two chunks):
+    each against its plain version, and the ranks' forward rows, G2,
+    d a_dst and source-sweep rows bit for bit against the whole graph's
+    launch."""
+    from elliptic_gnn_tpu_torch.parallel import gspmd_step
+    from elliptic_gnn_tpu_torch.parallel import shardmap_step as sm
+
+    g = bsda.pad_bsda_chunks(_band_gat_graph(), n_dev)
+    n_rows = g.num_chunks * g.chunk
+    n_loc, hc = n_rows // n_dev, h * ch
+    width = gat_cuda.payload_width(h, ch)
+    pay, gbar = _randn((n_rows, width), 5, cuda), _randn((n_rows, width), 6, cuda)
+    gc = g.to(cuda)
+    out = gat_cuda.gat_fwd_cuda(gc, pay, h, ch, 0.2, True)
+    ct_d, g2 = gat_cuda.gat_bwd_dst_cuda(gc, gbar, pay, out, h, ch, 0.2, True)
+    src = gat_cuda.gat_bwd_src_cuda(gc.transpose, pay, g2, h, ch, 0.2)
+    sg = sm.partition_bsda(g, n_dev, use_kernel=True)
+    for d in range(n_dev):
+        own = slice(d * n_loc, (d + 1) * n_loc)
+        rs = gspmd_step.row_sharded_bsda(g, n_dev, d).to(cuda)
+        shard = sm.shard_slice(sg, d).to(cuda)
+        halo, rows_ext = shard.halo_chunks * 128, shard.b_ext_pad * 128
+        idx = (torch.arange(-halo, n_loc + halo, device=cuda) + d * n_loc) % n_rows
+        ext = torch.cat([pay[idx], pay.new_zeros((rows_ext - idx.numel(), width))])
+        g2_ext = torch.nn.functional.pad(g2[own], (0, 0, halo, rows_ext - halo - n_loc))
+        for fwd_g, src_g, p, g2_src, row0, t_row0, whole in (
+                (rs.fwd, rs.bwd, pay, g2, d * n_loc, d * n_loc, True),
+                (sm._gat_view(shard), sm._transpose_view(shard), ext, g2_ext, halo, 0, False)):
+            got = gat_cuda.gat_fwd_cuda(fwd_g, p, h, ch, 0.2, True, dst_row0=row0)
+            ct1 = gat_cuda.gat_bwd_cuda(fwd_g, gbar[own], p, got, h, ch, 0.2, True, row0)
+            dst_ct, dst_g2 = gat_cuda.gat_bwd_dst_cuda(fwd_g, gbar[own], p, got, h, ch, 0.2,
+                                                       True, None, row0)
+            src_ct = gat_cuda.gat_bwd_src_cuda(src_g, p, g2_src, h, ch, 0.2, None, t_row0)
+            torch.cuda.synchronize()
+            want = gat_cuda.gat_fwd_plain(fwd_g, p, h, ch, 0.2, True, row0)
+            for a, b in zip(_gauge_free(got, h, ch, True), _gauge_free(want, h, ch, True)):
+                np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **GAT_FWD)
+            np.testing.assert_allclose(
+                ct1.cpu().numpy(), gat_cuda.gat_bwd_plain(fwd_g, gbar[own], p, got, h, ch, 0.2,
+                                                          True, row0).cpu().numpy(), **GAT_BWD)
+            want_d, want_g2 = gat_cuda.gat_bwd_dst_fused_plain(fwd_g, gbar[own], p, got, h, ch,
+                                                               0.2, True, row0)
+            np.testing.assert_allclose(dst_ct.cpu().numpy(), want_d.cpu().numpy(), **GAT_BWD)
+            np.testing.assert_allclose(dst_g2.cpu().numpy(), want_g2.cpu().numpy(), **GAT_BWD)
+            np.testing.assert_allclose(
+                src_ct.cpu().numpy(), gat_cuda.gat_bwd_src_plain(
+                    src_g, p, g2_src, h, ch, 0.2, t_row0).cpu().numpy(), **GAT_BWD)
+            if whole:
+                assert torch.equal(got, out[own]) and torch.equal(dst_g2, g2[own])
+                assert torch.equal(dst_ct[own, hc + h:], ct_d[own, hc + h:])
+                assert torch.equal(src_ct[own, : hc + h], src[own, : hc + h])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_sweep", [False, True])
+@pytest.mark.parametrize("agg", ["shard_map", "bsda"])
+def test_gat_mesh_world_of_one_matches_single_device(cuda, tmp_path, kloop_graph,
+                                                     monkeypatch, agg, two_sweep):
+    """GAT at mesh_devices 1 as one NCCL rank (train_rank) on the halo path
+    (shard_map) and the GSPMD row sharding (bsda): the K loop captures the
+    packed route (on the GSPMD path its all-gathers too) and matches the
+    single-device run, dropout 0, per-epoch loss and val PR-AUC within
+    1e-4; the captured epoch launches the GAT kernels (the two sweeps with
+    the two-sweep backward, else the one-sweep kernel)."""
+    from elliptic_gnn_tpu_torch.train import train_gnn
+
+    if two_sweep:
+        monkeypatch.setenv("EGNN_GAT_ONE_SWEEP", "0")
+    m1, loss1, pr1, _ = _kloop_run(tmp_path, kloop_graph, "gat", 4, "one", dropout=0.0)
+    monkeypatch.setattr(train_gnn, "main",
+                        lambda cfg, init_params=None: train_gnn.train_rank(cfg, init_params))
+    mg, lossg, prg, _ = _kloop_run(tmp_path, kloop_graph, "gat", 4, f"mesh_{agg}",
+                                   aggregation=agg, dropout=0.0)
+    assert mg["mesh_devices"] == 1 and mg["epochs_run"] == m1["epochs_run"]
+    np.testing.assert_allclose(lossg, loss1, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(prg, pr1, rtol=0, atol=1e-4)
+    kernels = ("gat_fwd_gated", "gat_fwd") + (
+        ("gat_bwd_dst", "gat_bwd_src") if two_sweep else ("gat_bwd",))
+    assert all(mg["graph_launches"].get(k, 0) > 0 for k in kernels), mg["graph_launches"]
 
 
 @pytest.mark.cuda

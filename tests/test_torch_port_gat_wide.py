@@ -154,14 +154,14 @@ def test_packed_step_through_tiled_launches(graph, monkeypatch, cfg, limit, two_
     logits and parameter gradients against autograd through forward_plain."""
     launch = _plain_launches(graph)
 
-    def fwd(g, pay, h, ch, slope, normalize=False):
+    def fwd(g, pay, h, ch, slope, normalize=False, dst_row0=0):
         return gat_cuda.gat_fwd_tiled(launch["fwd"], pay, h, ch, normalize, limit)
 
-    def bwd(g, gbar, pay, out_k, h, ch, slope, normalized):
+    def bwd(g, gbar, pay, out_k, h, ch, slope, normalized, dst_row0=0):
         return gat_cuda.gat_bwd_tiled(launch["bwd"], gbar, pay, out_k, h, ch,
                                       normalized, limit)
 
-    def two(g, gbar, pay, out_k, h, ch, slope, normalized):
+    def two(g, gbar, pay, out_k, h, ch, slope, normalized, **rect):
         ct, g2 = gat_cuda.gat_bwd_dst_tiled(launch["dst"], gbar, pay, out_k, h, ch,
                                             normalized, max_width=limit)
         return gat_cuda.gat_bwd_src_tiled(launch["src"], pay, g2, h, ch, ct, limit)

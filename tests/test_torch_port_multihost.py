@@ -20,6 +20,14 @@ their jobs) runs:
     run dir.
 train_gnn.main with `mesh_devices: 2` on GAT starts its two ranks itself.
 
+Both worlds (4 ranks and 2) run GAT through the packed route, the model's
+route on a mesh (the GAT kernels' plain versions on CPU tensors), with the
+one-sweep and the two-sweep backward: each rank's rows of the halo path's
+sharded_gat_attend_packed and their gradients with respect to x_proj, a_src
+and a_dst against the JAX package's sharded_gat_attend under shard_map;
+each rank's rows of the GSPMD route's row_gat_attend_packed against the JAX
+package's attention of the whole graph and its vjp.
+
 The same worlds run the GSPMD row sharding (parallel/gspmd_step.py):
   - each rank's rows of kernels.spmm on its RowShardedBsda (sage and gcn
     int8 tables with transposes: the all-gather, the rectangular dense
@@ -64,6 +72,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from elliptic_gnn_tpu.graph import build_graph as jax_build_graph
 from elliptic_gnn_tpu.kernels import bsda as jax_bsda
+from elliptic_gnn_tpu.kernels import bsda_gat as jax_bsda_gat
 from elliptic_gnn_tpu.kernels import ell as jax_ell
 from elliptic_gnn_tpu.models import build_model as jax_build_model
 from elliptic_gnn_tpu.parallel import shardmap_step as jax_sm
@@ -175,6 +184,8 @@ def world4(processed, init_path, trainer_init_path, gspmd_inits, tmp_path_factor
     jobs = [("agg", {"kind": "sage"}),
             ("agg", {"kind": "gcn"}),
             ("gat", {}),
+            ("gat_packed", {}),
+            ("gspmd_gat", {}),
             ("step", {"cfg": _step_cfg(processed, out), "init_path": init_path})]
     jobs += [("main", {"cfg": _cfg(processed, out, run_name=f"m4_{arch}",
                                    mesh_devices=4, **extra)})
@@ -199,11 +210,11 @@ def _gather(root, pattern, n=4):
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0].files}
 
 
-def _jax_sharded(fn, g, *arrays):
-    """fn(sg_loc, *row arrays) under JAX shard_map at 4 virtual devices,
+def _jax_sharded(fn, g, *arrays, n=4):
+    """fn(sg_loc, *row arrays) under JAX shard_map at n virtual devices,
     with the gradient of sum(out * w) for the last argument w."""
-    mesh = jax_make_mesh(4)
-    sg = jax_sm.partition_bsda(jax_bsda.pad_bsda_chunks(g, 4), 4, use_pallas=False)
+    mesh = jax_make_mesh(n)
+    sg = jax_sm.partition_bsda(jax_bsda.pad_bsda_chunks(g, n), n, use_pallas=False)
     rows = [P(NODE_AXIS, *([None] * (a.ndim - 1))) for a in arrays[:-1]]
     out_spec = P(NODE_AXIS, *([None] * (arrays[0].ndim - 1)))
     run = shard_map(partial(fn), mesh=mesh,
@@ -250,6 +261,53 @@ def test_sharded_gat_matches_jax_shard_map(world4):
         np.testing.assert_allclose(got[name], ref, err_msg=name, **AGG)
 
 
+def _assert_gat_rows(got, want, grads, tag):
+    """The packed route's rows and gradients (`tag`: the backward) against
+    the JAX reference's, within AGG."""
+    np.testing.assert_allclose(got[f"out_{tag}"], want, err_msg=f"out {tag}", **AGG)
+    for name, ref in zip(("d_xp", "d_src", "d_dst"), grads):
+        np.testing.assert_allclose(got[f"{name}_{tag}"], ref, err_msg=f"{name} {tag}", **AGG)
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_packed_halo_gat_matches_jax_shard_map(world4, world2_step, n_ranks):
+    """Each rank's rows of the halo path's packed GAT route, forward and
+    the gradients of sum(val * w), with either backward, against the JAX
+    package's sharded_gat_attend under shard_map at as many devices; the
+    first call, as test_sharded_gat_matches_jax_shard_map holds it."""
+    root = world4[0] if n_ranks == 4 else world2_step
+    ei, n = ranks.band_graph()
+    g = jax_bsda.build_bsda_for_kind(ei, n, "gat", depth=3, a_dtype="int8",
+                                     transpose=False)
+    n_rows = -(-g.num_chunks // n_ranks) * n_ranks * g.chunk
+    xp, a_s, a_d, w = ranks.gat_inputs(n_rows)
+    want, grads = _jax_sharded(jax_sm.sharded_gat_attend, g, xp, a_s, a_d, w, n=n_ranks)
+    got = _gather(root, "gat_packed_r{r}.npz", n_ranks)
+    np.testing.assert_allclose(got["out_first"], want, rtol=AGG["rtol"],
+                               atol=4 * EXP_RTOL * np.abs(xp).max())
+    for tag in ("one", "two"):
+        _assert_gat_rows(got, want, grads, tag)
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_packed_gspmd_gat_matches_jax(world4, world2_step, n_ranks):
+    """Each rank's rows of the GSPMD route's packed GAT attention, forward
+    and the gradients of sum(val * w), with either backward, against the
+    JAX package's attention of the whole graph (bsda_gat_aggregate) and its
+    vjp; the padded rows (edge-free) stay 0."""
+    root = world4[0] if n_ranks == 4 else world2_step
+    ei, n = ranks.band_graph()
+    got = _gather(root, "gspmd_gat_r{r}.npz", n_ranks)
+    xp, a_s, a_d, w = ranks.gat_inputs(got["out_one"].shape[0])
+    g = jax_bsda.build_bsda_for_kind(ei, n, "gat", depth=3, a_dtype="int8")
+    out, vjp = jax.vjp(lambda *t: jax_bsda_gat.bsda_gat_aggregate(g, *t),
+                       *(jnp.asarray(v[:n]) for v in (xp, a_s, a_d)))
+    grads = [np.asarray(d) for d in vjp(jnp.broadcast_to(jnp.asarray(w), out.shape))]
+    for tag in ("one", "two"):
+        _assert_gat_rows({k: v[:n] for k, v in got.items()}, np.asarray(out), grads, tag)
+        assert not any(got[f"{k}_{tag}"][n:].any() for k in ("out", "d_xp", "d_src", "d_dst"))
+
+
 def test_torch_exp_spread_within_its_tolerance():
     """tests/torch_exp_spread.py in 6 processes at once, 2 threads each as
     the ranks run: every exp call within EXP_RTOL of the float64 exp."""
@@ -284,8 +342,9 @@ def _single_device_step(cfg, init_path):
 def world2_step(processed, init_path, gspmd_inits, tmp_path_factory):
     root = str(tmp_path_factory.mktemp("world2"))
     out = os.path.join(root, "out")
-    multihost.spawn_ranks(2, ranks.run_jobs, (root, [(
-        "step", {"cfg": _step_cfg(processed, out), "init_path": init_path})]
+    multihost.spawn_ranks(2, ranks.run_jobs, (root, [
+        ("gat_packed", {}), ("gspmd_gat", {}),
+        ("step", {"cfg": _step_cfg(processed, out), "init_path": init_path})]
         + _gspmd_step_jobs(processed, out, gspmd_inits)), "cpu")
     return root
 
@@ -359,7 +418,8 @@ def test_mesh_trainer_matches_jax_shard_map(processed, world4, tmp_path):
 
 def test_main_spawns_ranks_for_gat(processed, tmp_path):
     """train_gnn.main at mesh_devices: 2 starts two ranks itself and
-    returns rank 0's metrics; GAT attends per shard in plain PyTorch."""
+    returns rank 0's metrics; GAT attends per shard through the packed
+    route (the GAT kernels' plain versions on the CPU)."""
     m2 = train_gnn.main(_cfg(processed, tmp_path, run_name="gat2", mesh_devices=2,
                              **ARCHS["gat"]))
     one = train_gnn.main(_cfg(processed, tmp_path, run_name="gat1", **ARCHS["gat"]))

@@ -103,6 +103,80 @@ def job_gat(root: str, mesh) -> None:
              d_src=ts[1].grad.numpy(), d_dst=ts[2].grad.numpy())
 
 
+def _packed_gat(attend, n_loc: int, inputs, rows, w, first: bool):
+    """attend(payload) of this rank's packed rows [xp | a_src | a_dst] of
+    `inputs` (gat_inputs), at (GAT_HEADS, GAT_CH): the val columns as
+    [n_loc, H, Ch], and (with `first` False) the gradients of sum(val * w)
+    with respect to x_proj, a_src and a_dst."""
+    hc = GAT_HEADS * GAT_CH
+    xp, a_s, a_d = (torch.tensor(v[rows]) for v in inputs)
+    payload = torch.cat([xp.reshape(n_loc, hc), a_s, a_d], dim=1).requires_grad_(not first)
+    val = attend(payload)[:, :hc].reshape(n_loc, GAT_HEADS, GAT_CH)
+    if first:
+        return {"out_first": val.detach().numpy()}
+    (val * torch.from_numpy(w)).sum().backward()
+    d = payload.grad
+    return {"out": val.detach().numpy(), "d_xp": d[:, :hc].reshape(n_loc, GAT_HEADS, GAT_CH)
+            .numpy(), "d_src": d[:, hc: hc + GAT_HEADS].numpy(),
+            "d_dst": d[:, hc + GAT_HEADS:].numpy()}
+
+
+def _each_backward(fn) -> dict:
+    """fn() with the one-sweep and then the two-sweep GAT backward
+    (EGNN_GAT_ONE_SWEEP), its arrays keyed '<name>_one' and '<name>_two'."""
+    out = {}
+    for tag, flag in (("one", "1"), ("two", "0")):
+        os.environ["EGNN_GAT_ONE_SWEEP"] = flag
+        try:
+            out.update({f"{k}_{tag}": v for k, v in fn().items()})
+        finally:
+            os.environ.pop("EGNN_GAT_ONE_SWEEP")
+    return out
+
+
+def job_gat_packed(root: str, mesh) -> None:
+    """The halo path's packed GAT route (sharded_gat_attend_packed: the GAT
+    kernels' plain versions over this shard's halo-extended rows, the
+    block transpose built for the two-sweep backward) on this rank's rows
+    of gat_inputs: a forward alone (`out_first`, as job_gat), then with
+    both backwards the output and the gradients of sum(val * w)."""
+    ei, n = band_graph()
+    g = bsda.pad_bsda_chunks(bsda.build_bsda_for_kind(
+        ei, n, "gat", depth=3, a_dtype="int8", transpose=False), mesh.size)
+    sg = shardmap_step.shard_slice(
+        shardmap_step.partition_bsda(g, mesh.size, use_kernel=True), mesh.rank, mesh.group)
+    n_loc = sg.a.shape[1] * sg.chunk
+    rows = slice(mesh.rank * n_loc, (mesh.rank + 1) * n_loc)
+    *inputs, w = gat_inputs(g.num_chunks * g.chunk)
+
+    def attend(p):
+        return shardmap_step.sharded_gat_attend_packed(sg, p, GAT_HEADS, GAT_CH)
+
+    with torch.no_grad():
+        out = _packed_gat(attend, n_loc, inputs, rows, w, first=True)
+    out.update(_each_backward(lambda: _packed_gat(attend, n_loc, inputs, rows, w, False)))
+    np.savez(os.path.join(root, f"gat_packed_r{mesh.rank}.npz"), **out)
+
+
+def job_gspmd_gat(root: str, mesh) -> None:
+    """The GSPMD row sharding's packed GAT route (row_gat_attend_packed on
+    'gat' tables with their transpose slice) on this rank's rows of
+    gat_inputs, with both backwards: the output and the gradients of
+    sum(val * w)."""
+    ei, n = band_graph()
+    g = bsda.build_bsda_for_kind(ei, n, "gat", depth=3, a_dtype="int8", transpose=True)
+    rs = gspmd_step.row_sharded_bsda(bsda.pad_bsda_chunks(g, mesh.size), mesh.size,
+                                     mesh.rank, mesh.group)
+    rows = slice(mesh.rank * rs.n_loc, (mesh.rank + 1) * rs.n_loc)
+    *inputs, w = gat_inputs(rs.n_rows)
+
+    def attend(p):
+        return gspmd_step.row_gat_attend_packed(rs, p, GAT_HEADS, GAT_CH)
+
+    out = _each_backward(lambda: _packed_gat(attend, rs.n_loc, inputs, rows, w, False))
+    np.savez(os.path.join(root, f"gspmd_gat_r{mesh.rank}.npz"), **out)
+
+
 def job_step(root: str, mesh, cfg: dict, init_path: str) -> None:
     """One sage_resbn training step of the halo path from the JAX model's
     weights, dropout 0: the loss and every gradient after their
@@ -237,7 +311,8 @@ def job_fallback(root: str, mesh, cfg: dict) -> None:
 
 JOBS = {"agg": job_agg, "gat": job_gat, "step": job_step, "main": job_main,
         "gspmd_agg": job_gspmd_agg, "gspmd_step": job_gspmd_step,
-        "fallback": job_fallback}
+        "fallback": job_fallback, "gat_packed": job_gat_packed,
+        "gspmd_gat": job_gspmd_gat}
 
 
 def run_jobs(root: str, jobs: list) -> None:
