@@ -105,8 +105,11 @@ Phases (any failure exits non-zero before the result line):
      kernel launched, and predict reproducing its test scores; rec_k8 with
      `mini_batch: true` at its fanout and batch size for 3 epochs, and one
      sampled batch's forward, loss and gradients on the card against the
-     CPU; rec_k8 with `profile_dir` (auto K drops to the serial loop): the
-     Chrome trace of epochs 4-6 names bsda_spmm_kernel; sweep_gnn over two
+     CPU; rec_k8 with `profile_dir` (auto K stays 8): the Chrome trace of
+     the K loop's blocks 4-6 holds their `loop.*` annotations and
+     bsda_spmm_kernel, the spans beside it; and with `epochs_per_sync: 1`:
+     the serial loop's trace of epochs 4-6 names bsda_spmm_kernel, the
+     spans beside it; sweep_gnn over two
      learning rates of rec_k8, sequential and with two workers on the one
      card: the same ranks and run names, metrics within 2e-3; walls,
      sampling and step times printed;
@@ -151,7 +154,7 @@ Phases (any failure exits non-zero before the result line):
      `mini_batch: true`);
  12. prints the table of TPU kernels, the kernel line (each entry with its
      post-hoc launches; the rec_k8 rows also with those of the profile_dir
-     run, of the sequential sweep, of the shard phase (`shard_launches`),
+     runs (K loop and serial), of the sequential sweep, of the shard phase (`shard_launches`),
      of the mesh-1 runs (`mesh1_launches`), of the GSPMD kernel phase
      (`gspmd_launches`, with a rank's and the whole graph's ms under
      `gspmd_ms`) and of the GSPMD mesh-1 runs (`gspmd_mesh1_launches`), the
@@ -224,12 +227,14 @@ EXPLAIN_MASK_ATOL = 1e-4
 # sampled batch on the card against the CPU (logits within MB_RTOL of the
 # largest |logit|, the loss of itself, every gradient of the model's
 # largest gradient entry: f32 sums over 203,769 rows, BatchNorm's among
-# them, in another order), the profile_dir trace (epochs 4-6), and
-# the grid sweep, sequential against two workers (the BSDA spill's
+# them, in another order), the profile_dir traces (six blocks of K = 8, the
+# fourth to the sixth traced; six serial epochs, the fourth to the sixth
+# traced), and the grid sweep, sequential against two workers (the BSDA spill's
 # index_add_ is not bit-stable)
 MB_EPOCHS = 3
 MB_RTOL = 1e-4
-PROFILE_DIR_EPOCHS = 6
+PROFILE_DIR_EPOCHS = 48
+PROFILE_DIR_SERIAL_EPOCHS = 6
 SWEEP_TOL = 2e-3
 # the halo path: the per-shard kernel phase at these partitions and
 # (F, dtype) cases; bf16 shards against the whole-graph kernel relative to
@@ -2018,28 +2023,49 @@ def minibatch_phase(tmp, processed) -> dict:
     return run
 
 
-def profile_dir_phase(tmp, processed) -> dict:
-    """rec_k8 with `profile_dir`: `auto` K drops to the serial loop, the
-    Chrome trace of epochs 4-6 exists and names bsda_spmm_kernel (8 launches
-    an epoch). Returns the run's kernel launches."""
+def profile_dir_phase(tmp, processed) -> tuple:
+    """rec_k8 with `profile_dir`: `auto` K stays 8, the Chrome trace of the
+    K loop's blocks 4-6 holds three `loop.block` annotations and names
+    bsda_spmm_kernel (8 launches an epoch, 24 epochs), and
+    <run_name>.spans.json lies beside it; then with `epochs_per_sync: 1`,
+    the serial loop's trace of epochs 4-6 names bsda_spmm_kernel (3 epochs
+    x 8) and holds no `loop.block`, the spans beside it. Returns the two
+    runs' kernel launches (K loop, serial)."""
     prof_dir = os.path.join(tmp, "profile_dir")
-    run = slice_phase(tmp, processed, "rec_k8.yaml", "rec_k8_profiled",
-                      epochs=PROFILE_DIR_EPOCHS, profile_dir=prof_dir)
-    check_rec_k8_launches(run)
-    path = os.path.join(prof_dir, "rec_k8_profiled.trace.json")
-    if run["metrics"]["epochs_per_sync"] != 1 or not os.path.exists(path):
-        fail(f"profile_dir: K={run['metrics']['epochs_per_sync']}, trace "
-             f"{'written' if os.path.exists(path) else 'missing'}")
-    with open(path) as fh:
-        events = json.load(fh)["traceEvents"]
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    spmm = sum("bsda_spmm_kernel" in k for k in kernels)
-    log(f"profile_dir: {os.path.getsize(path)} bytes of Chrome trace, {len(events)} events, "
-        f"{len(kernels)} kernel events, bsda_spmm_kernel x{spmm} (3 epochs x 8 = 24); epoch "
-        f"walls {[round(1e3 * v, 2) for v in run['metrics']['epoch_seconds']]} ms (4-6 traced)")
-    if not spmm:
-        fail("the profile_dir trace names no bsda_spmm_kernel")
-    return run["launches"]
+    runs = []
+    for name, epochs, k, blocks_want, spmm_want, extra in (
+            ("rec_k8_profiled", PROFILE_DIR_EPOCHS, 8, 3, 192, {}),
+            ("rec_k8_profiled_serial", PROFILE_DIR_SERIAL_EPOCHS, 1, 0, 24,
+             {"epochs_per_sync": 1})):
+        run = slice_phase(tmp, processed, "rec_k8.yaml", name, epochs=epochs,
+                          profile_dir=prof_dir, **extra)
+        check_rec_k8_launches(run)
+        runs.append(run["launches"])
+        path = os.path.join(prof_dir, f"{name}.trace.json")
+        spans = os.path.join(prof_dir, f"{name}.spans.json")
+        if run["metrics"]["epochs_per_sync"] != k or not os.path.exists(path) \
+                or not os.path.exists(spans):
+            fail(f"profile_dir {name}: K={run['metrics']['epochs_per_sync']} (want {k}), "
+                 f"trace {'written' if os.path.exists(path) else 'missing'}, spans "
+                 f"{'written' if os.path.exists(spans) else 'missing'}")
+            continue
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        blocks = sum(e.get("cat") == "user_annotation" and e.get("name") == "loop.block"
+                     for e in events)
+        spmm = sum("bsda_spmm_kernel" in kn for kn in kernels)
+        walls = run["metrics"]["epoch_seconds"][::k]
+        log(f"profile_dir {name}: {os.path.getsize(path)} bytes of Chrome trace, "
+            f"{len(events)} events, {len(kernels)} kernel events, {blocks} loop.block "
+            f"annotations ({blocks_want}), bsda_spmm_kernel x{spmm} ({spmm_want}); "
+            f"{os.path.getsize(spans)} bytes of spans; "
+            f"{'block' if k > 1 else 'epoch'} walls {[round(1e3 * v, 2) for v in walls]} "
+            f"ms an epoch (4-6 traced)")
+        if spmm != spmm_want or blocks != blocks_want:
+            fail(f"the profile_dir trace of {name} names bsda_spmm_kernel x{spmm}, not "
+                 f"{spmm_want}, or holds {blocks} loop.block spans, not {blocks_want}")
+    return tuple(runs)
 
 
 def sweep_phase(tmp, processed) -> dict:
@@ -2519,7 +2545,9 @@ def drive(device) -> list:
         report_walls("rec_k8", (rec, rec_serial))
         rec_ell = ell_phase(tmp, processed)
         rec_mb = minibatch_phase(tmp, processed)
-        slice_launches = {"profile_dir_launches": profile_dir_phase(tmp, processed),
+        prof_k, prof_serial = profile_dir_phase(tmp, processed)
+        slice_launches = {"profile_dir_launches": prof_k,
+                          "profile_dir_serial_launches": prof_serial,
                           "sweep_launches": sweep_phase(tmp, processed)}
         gat = slice_phase(tmp, processed, "gat.yaml", epochs=KLOOP_EPOCHS)
         check_gat_launches(gat)

@@ -6,6 +6,10 @@ One library per source, compiled at first use and again when the source
 (or a header it includes) is newer than the library. Several sources build
 in parallel: one nvcc process each, all started together. There is no
 fallback: a missing compiler or a failed build raises.
+
+Span `setup.kernels` around each build (utils/trace.py) and counter
+`kernel_builds`, the nvcc processes started: where set-up is slow, a
+nonzero count says that nvcc ran.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import os
 import shutil
 import subprocess
 from typing import Dict, Sequence
+
+from ..utils import trace
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -59,6 +65,11 @@ def build(names: Sequence[str], verbose: bool = False) -> Dict[str, str]:
     """Compile the named sources that are stale, in parallel, and return
     {name: library path}. With `verbose`, ptxas reports registers, shared
     memory and spills of every kernel, and the output is printed."""
+    with trace.span("setup.kernels", names=list(names)):
+        return _build(names, verbose)
+
+
+def _build(names: Sequence[str], verbose: bool) -> Dict[str, str]:
     libs = {n: os.path.join(BUILD_DIR, f"lib{n}.so") for n in names}
     procs = []
     for name, lib_path in libs.items():
@@ -72,6 +83,7 @@ def build(names: Sequence[str], verbose: bool = False) -> Dict[str, str]:
         cmd += ["-o", tmp, source_path(name)]
         procs.append((name, tmp, lib_path, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        trace.count("kernel_builds")
     failed = []
     for name, tmp, lib_path, proc in procs:
         out, err = proc.communicate()

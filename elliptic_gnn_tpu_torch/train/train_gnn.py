@@ -33,8 +33,16 @@ The encoding follows `aggregation` as in the JAX trainer
 default, or the ELL gather (`aggregation: ell`, relabelled by
 renumber_for_ell unless `renumber: false`); `mini_batch: true` trains on
 sampled subgraphs (train/sampler.py) and scores the full graph through the
-ELL encoding. `profile_dir` traces three epochs of the serial loop with
-torch.profiler into a Chrome trace JSON.
+ELL encoding. `profile_dir` traces, with torch.profiler into a Chrome
+trace JSON, three blocks of the K loop after the capture (blocks 4-6), or
+epochs 4-6 of the serial loop, and writes the recorder's spans beside it.
+
+Spans and counters (utils/trace.py): `setup.prepare` (prepare_data),
+`setup.build` (build_train_state) around `setup.order` (the BFS or the ELL
+relabelling), `setup.tables` (the encoding and its upload) and
+`setup.model` (model, optimizer, loss); in the K loop one `loop.block` a
+block around `loop.launch` (with `loop.capture` in a call's first block on
+CUDA), `loop.sync` and `loop.tail`; counter `loop_calls`.
 
 Multi-device training: `mesh_devices: N` (or `all`) splits the node rows
 over N ranks of a torch.distributed group (NCCL on CUDA, gloo under
@@ -90,6 +98,7 @@ from ..parallel.mesh import NODE_AXIS, check_devices, make_mesh
 from ..parallel.sharded import shard_graph_inputs
 from ..parallel.shardmap_step import partition_bsda, shard_slice
 from ..utils import metrics as M
+from ..utils import trace
 from ..utils.common import (
     ensure_dir, log_device_info, resolve_device, save_json, set_seed, upload,
 )
@@ -166,49 +175,43 @@ def make_optimizer(model: torch.nn.Module, cfg: dict,
 
 def epochs_per_sync(cfg: dict, device: torch.device) -> int:
     """K of the K-epoch loop: `auto` is 8 on CUDA and 1 (serial) on the CPU,
-    as the JAX trainer takes 8 on its accelerator, and 1 where `profile_dir`
-    asks for a trace (only the serial loop has epochs on the host to
-    bracket); an integer pins K (with `profile_dir` too: then nothing is
-    traced) and 1 forces the serial loop."""
+    as the JAX trainer takes 8 on its accelerator; an integer pins K and 1
+    forces the serial loop."""
     k_cfg = cfg.get("epochs_per_sync", "auto")
     if k_cfg not in (None, "auto"):
         return int(k_cfg) or 1
-    k = 8 if device.type == "cuda" else 1
-    if cfg.get("profile_dir") and k > 1:
-        print("[PROFILE] profile_dir set: epochs_per_sync auto -> 1 "
-              "(serial loop; pin an integer K to override)")
-        k = 1
-    return k
+    return 8 if device.type == "cuda" else 1
 
 
 def prepare_data(cfg: dict):
     """Load the processed graph and apply the preprocessing pipeline:
     rolling window re-mask, scalar-time append, symmetrization."""
-    data = load_processed(cfg["processed_dir"])
-    if data.train_mask is None:
-        raise RuntimeError(
-            "Build graph first: python -m elliptic_gnn_tpu_torch.graph.build_graph "
-            "--config configs/split.yaml"
-        )
+    with trace.span("setup.prepare"):
+        data = load_processed(cfg["processed_dir"])
+        if data.train_mask is None:
+            raise RuntimeError(
+                "Build graph first: python -m elliptic_gnn_tpu_torch.graph.build_graph "
+                "--config configs/split.yaml"
+            )
 
-    window_k = cfg.get("train_window_k")
-    if window_k is not None:
-        train_ts = data.timestep[data.train_mask]
-        if train_ts.size == 0:
-            raise RuntimeError("Train mask is empty; cannot apply rolling window.")
-        val_ts = data.timestep[data.val_mask]
-        if val_ts.size == 0:
-            raise RuntimeError("Validation mask is empty; cannot infer t_val_end.")
-        data = make_temporal_masks(
-            data, int(train_ts.max()), int(val_ts.max()), int(window_k)
-        )
+        window_k = cfg.get("train_window_k")
+        if window_k is not None:
+            train_ts = data.timestep[data.train_mask]
+            if train_ts.size == 0:
+                raise RuntimeError("Train mask is empty; cannot apply rolling window.")
+            val_ts = data.timestep[data.val_mask]
+            if val_ts.size == 0:
+                raise RuntimeError("Validation mask is empty; cannot infer t_val_end.")
+            data = make_temporal_masks(
+                data, int(train_ts.max()), int(val_ts.max()), int(window_k)
+            )
 
-    if cfg.get("use_time_scalar", False) and int(cfg.get("time_embed_dim", 0) or 0) == 0:
-        data = append_scalar_time(data)
+        if cfg.get("use_time_scalar", False) and int(cfg.get("time_embed_dim", 0) or 0) == 0:
+            data = append_scalar_time(data)
 
-    if cfg.get("symmetrize_edges", False):
-        data = symmetrize_edges(data)
-    return data
+        if cfg.get("symmetrize_edges", False):
+            data = symmetrize_edges(data)
+        return data
 
 
 def build_tables(cfg: dict, edge_index: np.ndarray, num_nodes: int,
@@ -240,21 +243,29 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
     `aggregation: shard_map` (or `auto` on a mesh) builds the same tables
     without transpose tables (the trainer partitions them; the scoring pass,
     predict and rebuild_on use them whole, on one device).
-    A renumbered graph's artifacts translate back via data.orig_index."""
+    A renumbered graph's artifacts translate back via data.orig_index.
+    Spans: `setup.order` (the ordering and the relabelled graph) and
+    `setup.tables` (the encoding and its upload; ELL's in two parts, around
+    its relabelling)."""
     kind = _kind(cfg)
     agg = _pick_aggregation(cfg, kind)
     if agg == "ell":
-        gops = prepare_graph_ops(data.edge_index, data.num_nodes, kind)
+        with trace.span("setup.tables"):
+            gops = prepare_graph_ops(data.edge_index, data.num_nodes, kind)
         if bool(cfg.get("renumber", True)) and not cfg.get("mini_batch", False):
-            gops, rank = renumber_for_ell(gops)
-            data = data.renumber(rank)
-        return data, gops.to(device)
-    rank = bfs_order(data.edge_index, data.num_nodes, data.timestep)
-    data = data.renumber(rank)
-    gops = build_tables(
-        cfg, data.edge_index, data.num_nodes, device,
-        transpose=agg != "shard_map" and (
-            kind != "gat" or (training and use_two_sweep_backward())))
+            with trace.span("setup.order"):
+                gops, rank = renumber_for_ell(gops)
+                data = data.renumber(rank)
+        with trace.span("setup.tables"):
+            return data, gops.to(device)
+    with trace.span("setup.order"):
+        rank = bfs_order(data.edge_index, data.num_nodes, data.timestep)
+        data = data.renumber(rank)
+    with trace.span("setup.tables"):
+        gops = build_tables(
+            cfg, data.edge_index, data.num_nodes, device,
+            transpose=agg != "shard_map" and (
+                kind != "gat" or (training and use_two_sweep_backward())))
     return data, gops
 
 
@@ -262,16 +273,18 @@ def build_train_state(cfg: dict, data, seed: int, device: torch.device,
                       init_params=None):
     """(data, model, gops, optimizer, loss_fn) on `device`. `init_params` =
     (params, state) of a JAX model as numpy pytrees replaces the port's
-    own init."""
-    data, gops = build_graph_ops(cfg, data, device)
-    gen = torch.Generator().manual_seed(int(seed))
-    model = build_model(cfg["arch"], data.num_features, cfg, generator=gen)
-    if init_params is not None:
-        params_from_jax(init_params[0], init_params[1], model)
-    model = model.to(device)
-    opt = make_optimizer(model, cfg, capturable=device.type == "cuda")
-
-    loss_fn = make_loss_fn(cfg, *_loss_args(cfg, data), device)
+    own init. Spans: `setup.build` around `setup.order` and
+    `setup.tables` (build_graph_ops) and `setup.model`."""
+    with trace.span("setup.build", arch=cfg["arch"]):
+        data, gops = build_graph_ops(cfg, data, device)
+        with trace.span("setup.model"):
+            gen = torch.Generator().manual_seed(int(seed))
+            model = build_model(cfg["arch"], data.num_features, cfg, generator=gen)
+            if init_params is not None:
+                params_from_jax(init_params[0], init_params[1], model)
+            model = model.to(device)
+            opt = make_optimizer(model, cfg, capturable=device.type == "cuda")
+            loss_fn = make_loss_fn(cfg, *_loss_args(cfg, data), device)
     return data, model, gops, opt, loss_fn
 
 
@@ -468,7 +481,9 @@ def _train_loop_fullbatch(cfg, outdir, inputs, model, gops, opt, loss_fn,
     loop_info the K and, on CUDA, the replays of the captured epoch, the
     kernel launches captured in it (each replay launches them again) and
     replay_ms, per block the device time of one replayed epoch (CUDA events
-    around the block's replays). With a `mesh`, `gops` and `inputs` are
+    around the block's replays), and boundary_ms, per block after the
+    first, the device time from the previous block's last replay to its
+    first (both read from the blocks' spans). With a `mesh`, `gops` and `inputs` are
     this rank's shard and rows (_shard) and the epoch is the sharded step
     (_sharded_step)."""
     t_idx_arg = inputs.t if model.uses_time_embed else None
@@ -678,8 +693,9 @@ def _stop_trace(prof, profile_dir: str, run_name: str,
                 device: torch.device) -> None:
     """Stop the trace once the traced epochs have run on the device and
     write it as <profile_dir>/<run_name>.trace.json (Chrome trace format,
-    where the JAX trainer writes TensorBoard's profile layout); a failure
-    prints and the run goes on."""
+    where the JAX trainer writes TensorBoard's profile layout), the
+    recorder's spans beside it as <run_name>.spans.json; a failure prints
+    and the run goes on."""
     try:
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -687,9 +703,15 @@ def _stop_trace(prof, profile_dir: str, run_name: str,
         os.makedirs(profile_dir, exist_ok=True)
         path = os.path.join(profile_dir, f"{run_name}.trace.json")
         prof.export_chrome_trace(path)
+        trace.write(os.path.join(profile_dir, f"{run_name}.spans.json"))
         print(f"[PROFILE] trace written to {path}")
     except Exception as exc:
         print(f"[PROFILE] stop_trace failed: {exc}")
+
+
+# the K loop's blocks that `profile_dir` traces: the fourth to the sixth
+PROFILE_FROM_BLOCK = 3
+PROFILE_BLOCKS = 3
 
 
 def _snapshot_opt(opt: torch.optim.Adam) -> dict:
@@ -740,6 +762,22 @@ def _count_launches() -> dict:
     return {**bsda_spmm_cuda.launches, **gat_cuda.launches}
 
 
+def _first_epoch_and_capture(loop: _DeviceLoop, gen: torch.Generator):
+    """The K loop's first epoch eagerly, on a side stream as the capture
+    will run (a real epoch that also builds the kernels), then the capture,
+    which runs nothing: span `loop.capture`, its attrs the launches
+    captured. Returns _capture's (graph, launches)."""
+    with trace.span("loop.capture") as cap:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            loop.body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph, captured = _capture(loop, gen)
+        cap.attrs.update(captured)
+    return graph, captured
+
+
 def _capture(loop: _DeviceLoop, gen: torch.Generator):
     """loop.body as one CUDA graph (the dropout generator registered with
     it, so that each replay draws the next epoch's masks). Returns (graph,
@@ -763,7 +801,18 @@ def _k_loop(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
     """Blocks of K epochs with one host read each (see _DeviceLoop); the
     host then logs, prints and decides as the serial loop does, with the
     device-computed PR-AUC. Checkpoints land on the block boundaries that
-    cross a multiple of `checkpoint_every`, never after a stop."""
+    cross a multiple of `checkpoint_every`, never after a stop.
+
+    Each block is a `loop.block` span (attrs `call`, the loop's call in this
+    process; `block`; `epochs`; on CUDA `replays`, `replay_ms`, the device
+    ms of one replayed epoch, and `boundary_ms`, the device ms from the
+    previous block's last replay to this block's first) around `loop.launch`
+    (the report's zero_, the events, the replays' enqueue; in the call's
+    first block on CUDA `loop.capture`, the eager epoch and the capture),
+    `loop.sync` (the report's readback) and `loop.tail` (logging,
+    decisions, prints, checkpoint). `profile_dir` traces blocks
+    PROFILE_FROM_BLOCK on, PROFILE_BLOCKS of them, started and stopped at
+    block boundaries."""
     patience = int(cfg.get("patience", 20))
     ckpt_every = int(cfg.get("checkpoint_every", 0) or 0)
     max_ep = int(cfg["max_epochs"])
@@ -771,72 +820,89 @@ def _k_loop(cfg, outdir, model, opt, logger, device, gen, train_step, inputs,
     best_val = float(np.float32(best_val))
     loop = _DeviceLoop(model, train_step, inputs.y_val, patience, k, best,
                        best_val, bad, device)
-    graph, captured, replays, replay_ms = None, {}, 0, []
+    call = trace.count("loop_calls")
+    # the trace is the primary rank's, as all artifact IO
+    profile_dir = cfg.get("profile_dir") if multihost.is_primary() else None
+    prof = None
+    graph, captured, replays, blocks, prev_end = None, {}, 0, [], None
     epochs_run, epoch_seconds = 0, []
     ep, stopped = start_epoch, False
-    while ep <= max_ep and not stopped:
-        block_start = ep
-        n = min(k, max_ep - ep + 1)
-        t0 = time.time()
-        loop.slot.zero_()
-        loop.report.zero_()
-        if device.type != "cuda":
-            for _ in range(n):
-                loop.body()
-        else:
-            todo = n
-            if graph is None:
-                # the block's first epoch eagerly, on a side stream as the
-                # capture will run: a real epoch that also builds the
-                # kernels; then the capture, which runs nothing
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    loop.body()
-                torch.cuda.current_stream().wait_stream(side)
-                graph, captured = _capture(loop, gen)
-                todo -= 1
-            if todo:
-                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                events[0].record()
-                for _ in range(todo):
-                    graph.replay()
-                events[1].record()
-            replays += todo
-        # the block's one host sync
-        rh = multihost.replicate_to_all_hosts(loop.report).cpu().numpy()
-        wall = time.time() - t0
-        if device.type == "cuda" and todo:
-            replay_ms.append(events[0].elapsed_time(events[1]) / todo)
-        losses, prs, ran = rh[0], rh[1], rh[2] > 0.5
-        for i in range(n):
-            if not ran[i]:  # the device spent its patience: it ran no more
-                stopped = True
-                break
-            loss_f, pr_val = float(losses[i]), float(prs[i])
-            logger.log_epoch(ep, loss_f, pr_val)
-            epochs_run += 1
-            epoch_seconds.append(wall / n)
-            if pr_val > best_val:
-                best_val, bad = pr_val, 0
-            else:
-                bad += 1
-            if ep % 10 == 0 or ep == start_epoch:
-                print(f"Epoch {ep:4d} | loss {loss_f:.4f} | "
-                      f"val PR-AUC(illicit) {pr_val:.4f} (best {best_val:.4f})")
-            ep += 1
-            if bad >= patience:
-                print("Early stopping.")
-                stopped = True
-                break
-        if (ckpt_every and not stopped and multihost.is_primary()
-                and (ep - 1) // ckpt_every > (block_start - 1) // ckpt_every):
-            checkpoint.save_resume(outdir, model, opt.state, cfg, ep - 1, best_val,
-                                   bad, best=best, rng_state=gen.get_state())
+    try:
+        while ep <= max_ep and not stopped:
+            if profile_dir and len(blocks) == PROFILE_FROM_BLOCK:
+                prof = _start_trace(device)
+            block_start = ep
+            n = min(k, max_ep - ep + 1)
+            t0 = time.time()
+            with trace.span("loop.block", call=call, block=len(blocks), epochs=n) as blk:
+                blocks.append(blk)
+                todo = 0
+                with trace.span("loop.launch"):
+                    loop.slot.zero_()
+                    loop.report.zero_()
+                    if device.type != "cuda":
+                        for _ in range(n):
+                            loop.body()
+                    else:
+                        todo = n
+                        if graph is None:
+                            graph, captured = _first_epoch_and_capture(loop, gen)
+                            todo -= 1
+                        if todo:
+                            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                            events[0].record()
+                            for _ in range(todo):
+                                graph.replay()
+                            events[1].record()
+                        replays += todo
+                # the block's one host sync
+                with trace.span("loop.sync"):
+                    rh = multihost.replicate_to_all_hosts(loop.report).cpu().numpy()
+                    if todo:
+                        blk.attrs.update(replays=todo,
+                                         replay_ms=events[0].elapsed_time(events[1]) / todo)
+                        if prev_end is not None:
+                            blk.attrs["boundary_ms"] = prev_end.elapsed_time(events[0])
+                        prev_end = events[1]
+                wall = time.time() - t0
+                with trace.span("loop.tail"):
+                    losses, prs, ran = rh[0], rh[1], rh[2] > 0.5
+                    for i in range(n):
+                        if not ran[i]:  # the device spent its patience: it ran no more
+                            stopped = True
+                            break
+                        loss_f, pr_val = float(losses[i]), float(prs[i])
+                        logger.log_epoch(ep, loss_f, pr_val)
+                        epochs_run += 1
+                        epoch_seconds.append(wall / n)
+                        if pr_val > best_val:
+                            best_val, bad = pr_val, 0
+                        else:
+                            bad += 1
+                        if ep % 10 == 0 or ep == start_epoch:
+                            print(f"Epoch {ep:4d} | loss {loss_f:.4f} | "
+                                  f"val PR-AUC(illicit) {pr_val:.4f} (best {best_val:.4f})")
+                        ep += 1
+                        if bad >= patience:
+                            print("Early stopping.")
+                            stopped = True
+                            break
+                    if (ckpt_every and not stopped and multihost.is_primary()
+                            and (ep - 1) // ckpt_every > (block_start - 1) // ckpt_every):
+                        checkpoint.save_resume(outdir, model, opt.state, cfg, ep - 1, best_val,
+                                               bad, best=best, rng_state=gen.get_state())
+            if prof is not None and len(blocks) == PROFILE_FROM_BLOCK + PROFILE_BLOCKS:
+                _stop_trace(prof, profile_dir, cfg["run_name"], device)
+                prof = None
+    finally:
+        if prof is not None:  # the run ended inside the traced blocks
+            _stop_trace(prof, profile_dir, cfg["run_name"], device)
     info = {"epochs_per_sync": k}
     if device.type == "cuda":
         info.update(graph_replays=replays, graph_launches=captured,
-                    replay_ms=replay_ms)
+                    replay_ms=[b.attrs["replay_ms"] for b in blocks if "replay_ms" in b.attrs],
+                    boundary_ms=[b.attrs["boundary_ms"] for b in blocks
+                                 if "boundary_ms" in b.attrs])
     return best, best_val, epochs_run, epoch_seconds, info
 
 

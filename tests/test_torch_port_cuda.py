@@ -789,6 +789,29 @@ def test_k_loop_captured_matches_serial(cuda, tmp_path, kloop_graph, arch):
 
 
 @pytest.mark.cuda
+def test_k_loop_spans_on_the_card(cuda, tmp_path, kloop_graph):
+    """The captured K loop's spans (utils/trace.py): one `loop.block` a
+    block, `loop.capture` (its attrs the launches captured) under the first
+    block's `loop.launch`, replay_ms and boundary_ms in metrics.json read
+    from the block spans (a boundary from the second block on), and device
+    boundaries that are positive."""
+    from elliptic_gnn_tpu_torch.utils import trace
+
+    trace.reset()
+    m, loss, _, _ = _kloop_run(tmp_path, kloop_graph, "sage_resbn", 4, "spans",
+                               patience=50, max_epochs=18)
+    blocks = trace.spans("loop.block")
+    assert [b.attrs["block"] for b in blocks] == list(range(5)) and len(loss) == 18
+    assert m["replay_ms"] == [b.attrs["replay_ms"] for b in blocks]
+    assert m["boundary_ms"] == [b.attrs["boundary_ms"] for b in blocks[1:]]
+    assert "boundary_ms" not in blocks[0].attrs and all(v > 0 for v in m["boundary_ms"])
+    (cap,) = trace.spans("loop.capture")
+    launch = next(s for s in trace.spans("loop.launch") if s.parent == blocks[0].id)
+    assert cap.parent == launch.id and cap.attrs == m["graph_launches"]
+    assert trace.totals()["loop.capture"]["count"] == 1 and trace.counters()["loop_calls"] == 1
+
+
+@pytest.mark.cuda
 def test_k_loop_two_sweep_gat_bit_reproducible(cuda, tmp_path, kloop_graph, monkeypatch):
     """Two K-loop GAT runs with the two-sweep backward: the same bits."""
     monkeypatch.setenv("EGNN_GAT_ONE_SWEEP", "0")

@@ -12,8 +12,9 @@ labelled nodes:
     embedding and gat: loss rtol 1e-4, val PR-AUC and test metrics atol
     2e-3, test scores atol 2e-3 (test_torch_port_train.py's tolerances);
   - predict on that port run dir reproduces its scores within 1e-6;
-  - profile_dir writes a Chrome trace of epochs 4-6, and `auto` K drops to
-    the serial loop where a trace is asked for.
+  - profile_dir writes a Chrome trace of the K loop's blocks 4-6 with the
+    `loop.*` spans' annotations and the spans beside it, and `auto` K stays
+    8 on the card where a trace is asked for.
 Both packages' native libraries are pinned to one state
 (tests/port_native_pin.py): build_csr sorts through them."""
 import csv
@@ -167,22 +168,59 @@ def test_ell_trainer_matches_jax_and_predict(processed, tmp_path, arch):
                                atol=1e-6)
 
 
-def test_profile_dir_writes_trace(processed, tmp_path, capsys):
+def test_profile_dir_writes_trace(processed, tmp_path):
+    """The K loop (K = 2 pinned; on the CPU its body runs eagerly) traces
+    its fourth to sixth blocks: the trace holds the host's ATen ops and the
+    `loop.*` spans' annotations, <run_name>.spans.json the recorder's spans
+    with the set-up's. On the card `auto` stays K = 8 under a trace."""
     prof_dir = tmp_path / "prof"
-    cfg = _cfg(processed, tmp_path, run_name="traced", max_epochs=7,
+    cfg = _cfg(processed, tmp_path, run_name="traced", max_epochs=12, epochs_per_sync=2,
                profile_dir=str(prof_dir), **ARCHS["sage_resbn"])
     train_gnn.main(cfg)
     with open(prof_dir / "traced.trace.json") as f:
-        trace = json.load(f)
-    names = {e.get("name", "") for e in trace["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names)
+    blocks = [e for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") == "loop.block"]
+    assert len(blocks) == 3
+    assert {"loop.launch", "loop.sync", "loop.tail"} <= names
+    with open(prof_dir / "traced.spans.json") as f:
+        spans = json.load(f)["spans"]
+    mine = [s for s in spans if s["name"] in ("setup.build", "setup.order", "setup.tables",
+                                               "setup.model", "setup.prepare")]
+    build = [s for s in mine if s["name"] == "setup.build"][-1]
+    assert {s["name"] for s in mine if s["parent"] == build["id"]} == {
+        "setup.order", "setup.tables", "setup.model"}
+    assert any(s["name"] == "setup.prepare" for s in mine)
+    assert [s["attrs"]["block"] for s in spans if s["name"] == "loop.block"][-3:] == [3, 4, 5]
     with open(tmp_path / "gnn" / "traced" / "training_log.csv") as f:
-        assert len(f.read().splitlines()) == 1 + 7
-    # on the card `auto` is K = 8; a trace asks for the serial loop there,
-    # an integer K is kept (and then nothing is traced)
-    capsys.readouterr()
+        assert len(f.read().splitlines()) == 1 + 12
+    # on the card `auto` is K = 8, a trace asked for or not; an integer pins K
     cuda = torch.device("cuda")
-    assert train_gnn.epochs_per_sync({"profile_dir": "p"}, cuda) == 1
-    assert "[PROFILE] profile_dir set: epochs_per_sync auto -> 1" in capsys.readouterr().out
+    assert train_gnn.epochs_per_sync({"profile_dir": "p"}, cuda) == 8
     assert train_gnn.epochs_per_sync({}, cuda) == 8
     assert train_gnn.epochs_per_sync({"profile_dir": "p", "epochs_per_sync": 4}, cuda) == 4
+
+
+def test_profile_dir_serial_writes_trace(processed, tmp_path):
+    """The serial loop (`epochs_per_sync: 1`) traces its fourth to sixth
+    epochs: the trace holds the host's ATen ops and no `loop.*` annotation,
+    <run_name>.spans.json the set-up's spans and no `loop.block`."""
+    prof_dir = tmp_path / "prof"
+    cfg = _cfg(processed, tmp_path, run_name="serial", max_epochs=7, epochs_per_sync=1,
+               profile_dir=str(prof_dir), **ARCHS["sage_resbn"])
+    assert train_gnn.main(cfg)["epochs_per_sync"] == 1
+    with open(prof_dir / "serial.trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)
+    assert not any(n.startswith("loop.") for n in names)
+    with open(prof_dir / "serial.spans.json") as f:
+        spans = json.load(f)["spans"]
+    build = [s for s in spans if s["name"] == "setup.build"][-1]
+    assert {s["name"] for s in spans if s["parent"] == build["id"]} == {
+        "setup.order", "setup.tables", "setup.model"}
+    assert not any(s["name"] == "loop.block" and s["start_ns"] > build["end_ns"]
+                   for s in spans)
+    with open(tmp_path / "gnn" / "serial" / "training_log.csv") as f:
+        assert len(f.read().splitlines()) == 1 + 7
