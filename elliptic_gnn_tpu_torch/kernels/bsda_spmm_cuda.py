@@ -51,7 +51,8 @@ def reset_launches() -> None:
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = cuda_build.load("bsda_spmm")
+        # a SAGE-ResBN step needs the epilogue too: one parallel nvcc batch
+        lib = ctypes.CDLL(cuda_build.build(("bsda_spmm", "resbn_epilogue"))["bsda_spmm"])
         p = ctypes.c_void_p
         i = ctypes.c_int
         lib.bsda_spmm_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]

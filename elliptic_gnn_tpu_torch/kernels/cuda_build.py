@@ -1,6 +1,6 @@
 """Builds the package's CUDA sources (kernels/csrc/*.cu) with nvcc for
 sm_90a into shared libraries with a plain C interface under
-<repo>/build/torch_ext, and loads them with ctypes.
+<repo>/build/torch_ext; each wrapper opens its library with ctypes.
 
 One library per source, compiled at first use and again when the source
 (or a header it includes) is newer than the library. Several sources build
@@ -13,7 +13,6 @@ nonzero count says that nvcc ran.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 import shutil
 import subprocess
@@ -34,6 +33,7 @@ SOURCES: Dict[str, Sequence[str]] = {
     "gat_bwd": ("bsda_edges.cuh",),
     "gat_bwd_dst": ("bsda_edges.cuh",),
     "gat_bwd_src": ("bsda_edges.cuh",),
+    "resbn_epilogue": (),
 }
 
 
@@ -96,8 +96,3 @@ def _build(names: Sequence[str], verbose: bool) -> Dict[str, str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
-
-
-def load(name: str) -> ctypes.CDLL:
-    """Build `name` if needed and load its library."""
-    return ctypes.CDLL(build([name])[name])

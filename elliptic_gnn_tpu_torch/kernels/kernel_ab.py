@@ -237,7 +237,7 @@ def main() -> None:
 
     sys.path.insert(0, HERE)  # chip_smoke.py: the tables, the timer, the gauge
     import chip_smoke as cs
-    from . import bsda_spmm_cuda, gat_cuda
+    from . import bsda_spmm_cuda, cuda_build, gat_cuda
     from .gat_bwd import grad_payload
 
     if not torch.cuda.is_available():
@@ -253,19 +253,15 @@ def main() -> None:
 
     def use(name, variant):
         """Puts one library behind the package's wrapper."""
+        saved = cuda_build.build
+        cuda_build.build = lambda names: {n: paths[(name, variant)] for n in names}
         if name == "bsda_spmm":
             bsda_spmm_cuda._lib = None
-            saved = bsda_spmm_cuda.cuda_build.load
-            bsda_spmm_cuda.cuda_build.load = lambda _n: ctypes.CDLL(paths[(name, variant)])
             bsda_spmm_cuda._load()
-            bsda_spmm_cuda.cuda_build.load = saved
         else:
             gat_cuda._libs.pop(name, None)
-            saved = gat_cuda.cuda_build.build
-            gat_cuda.cuda_build.build = lambda names: {
-                n: paths[(name, variant)] for n in names}
             gat_cuda._load(name)
-            gat_cuda.cuda_build.build = saved
+        cuda_build.build = saved
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     variants = {n: [v for (m, v) in paths if m == n and v not in ("this", "parent")]

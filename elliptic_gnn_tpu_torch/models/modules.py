@@ -31,6 +31,7 @@ from ..kernels.ell import build_ell_graph, gcn_norm_weights
 from ..kernels.packed_gat import (
     packed_gat_forward, packed_gat_route, packed_gat_train_forward,
 )
+from ..kernels.resbn_epilogue import resbn_epilogue
 from ..parallel.mesh import psum
 from ..utils.common import dropout as _dropout
 
@@ -222,7 +223,9 @@ def sinusoid_time_embed(t_idx: torch.Tensor, dim: int,
 class SageResBN(nn.Module):
     """SAGE-ResBN: per hidden layer SAGEConv -> BN -> ReLU -> dropout ->
     + residual (identity or linear projection); final SAGEConv -> logits.
-    `use_bn`/`residual` select the sage_bn / sage_res variants."""
+    `use_bn`/`residual` select the sage_bn / sage_res variants. A hidden
+    layer's epilogue after the convolution runs through the fused kernels
+    on CUDA tensors, as PyTorch ops on CPU tensors (`epilogue`)."""
 
     def __init__(self, in_dim: int, cfg: dict,
                  generator: Optional[torch.Generator] = None):
@@ -274,15 +277,39 @@ class SageResBN(nn.Module):
                 row_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
         h = self._inject_time(x, t_idx)
         for li in range(len(self.layers) - 1):
-            h_in = h
-            h = self.layers[li](h, g, self.compute_dtype)
-            if self.use_bn:
-                h = self.bns[li](h, row_mask, group)
-            h = torch.relu(h)
-            h = _dropout(h, self.dropout, self.training, generator)
-            if self.residual:
-                h = h + self.res_projs[li](h_in)
+            z = self.layers[li](h, g, self.compute_dtype)
+            res = self.res_projs[li](h) if self.residual else None
+            h = self.epilogue(li, z, res, generator, row_mask, group)
         return self.layers[-1](h, g, self.compute_dtype)
+
+    def epilogue(self, li: int, z: torch.Tensor, res: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator] = None,
+                 row_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+        """Hidden layer li's dropout(relu(BN(z))) + res: the hand-written
+        kernels (kernels/resbn_epilogue.py) for CUDA tensors, epilogue_plain
+        for CPU tensors. The dropout's uniform draw is the one _dropout
+        makes, from `generator`, layer after layer."""
+        if not z.is_cuda:
+            return self.epilogue_plain(li, z, res, generator, row_mask, group)
+        u = None
+        if self.training and self.dropout > 0.0:
+            u = torch.rand(z.shape, generator=generator, device=z.device)
+        if not self.use_bn:
+            return resbn_epilogue(z, res, u=u, keep=1.0 - self.dropout)
+        bn = self.bns[li]
+        if row_mask is not None:
+            row_mask = row_mask.to(z.dtype)
+        return resbn_epilogue(z, res, bn.scale, bn.bias, (bn.mean, bn.var, bn.count), u,
+                              1.0 - self.dropout, bn.training, row_mask, group)
+
+    def epilogue_plain(self, li: int, z: torch.Tensor, res: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator] = None,
+                       row_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+        """The epilogue as PyTorch ops (BatchNorm, relu, _dropout, the
+        residual add): the CPU's path and the kernels' yardstick."""
+        h = self.bns[li](z, row_mask, group) if self.use_bn else z
+        h = _dropout(torch.relu(h), self.dropout, self.training, generator)
+        return h if res is None else h + res
 
 
 class GatLayer(nn.Module):

@@ -86,7 +86,7 @@ import yaml
 
 from ..graph import load_processed, make_temporal_masks
 from ..graph.transform import append_scalar_time, remove_hub_edges, symmetrize_edges
-from ..kernels import bsda_spmm_cuda, gat_cuda
+from ..kernels import bsda_spmm_cuda, gat_cuda, resbn_epilogue
 from ..kernels.bsda import BsdaGraph, bfs_order, build_bsda_for_kind, pad_bsda_chunks
 from ..kernels.ell import EllGraph, renumber_for_ell
 from ..kernels.packed_gat import use_two_sweep_backward
@@ -759,7 +759,7 @@ class _DeviceLoop:
 
 
 def _count_launches() -> dict:
-    return {**bsda_spmm_cuda.launches, **gat_cuda.launches}
+    return {**bsda_spmm_cuda.launches, **gat_cuda.launches, **resbn_epilogue.launches}
 
 
 def _first_epoch_and_capture(loop: _DeviceLoop, gen: torch.Generator):

@@ -8,7 +8,9 @@ within 1e-4, the stop epoch, two-sweep GAT runs bit-equal, a failed capture
 raises); the mesh paths' rectangular launches (BSDA and the four GAT
 kernels of every rank and shard against their plain versions and the whole
 graph) and their trainers as one NCCL rank against the single-device K
-loop. Every test here needs
+loop; the SAGE-ResBN epilogue's kernels against its plain version (each
+variant, widths 64 and 128, training and eval, with and without a row
+mask), bit for bit twice, and their input checks. Every test here needs
 an NVIDIA GPU and skips without one; this file imports nothing of JAX so
 that it runs on a machine without it:
 
@@ -145,6 +147,165 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         bsda_dense_cuda(g_float, torch.zeros((3000, 8), device=cuda))
     with pytest.raises(ValueError, match="tables on"):
         bsda_dense_cuda(g, torch.zeros((3000, 8), device=cuda))
+
+
+# ---------------- the SAGE-ResBN epilogue ----------------
+
+EPILOGUE_VARIANTS = {"sage_resbn": dict(use_bn=True, residual=True),
+                     "sage_bn": dict(use_bn=True, residual=False),
+                     "sage_res": dict(use_bn=False, residual=True)}
+
+
+def _epilogue_case(cuda, variant, width, training, masked, n=3000, seed=0):
+    """A SageResBN of `width` on the card, its first hidden layer's inputs
+    (z, the projected residual, both requiring grad; row_mask over the last
+    rows where `masked`) and the cotangent of the output."""
+    cfg = {"hidden_dim": width, "layers": 3, "dropout": 0.25,
+           **EPILOGUE_VARIANTS[variant]}
+    model = build_model("sage_resbn", 40, cfg,
+                        generator=torch.Generator().manual_seed(seed)).to(cuda)
+    model.train(training)
+    with torch.no_grad():
+        if model.use_bn:  # parameters and running statistics away from 1 and 0
+            for bn in model.bns:
+                bn.scale.copy_(_randn((width,), seed + 1, cuda) * 0.5 + 1.0)
+                bn.bias.copy_(_randn((width,), seed + 2, cuda) * 0.3)
+                bn.mean.copy_(_randn((width,), seed + 3, cuda) * 0.2)
+                bn.var.copy_(_randn((width,), seed + 4, cuda).abs() + 0.5)
+    z = (_randn((n, width), seed + 5, cuda) * 1.5 + 0.4).requires_grad_(True)
+    res = _randn((n, width), seed + 6, cuda).requires_grad_(True) if model.residual else None
+    row_mask = (torch.arange(n, device=cuda) < n - 137).float() if masked else None
+    ct = _randn((n, width), seed + 7, cuda)
+    return model, z, res, row_mask, ct
+
+
+def _epilogue_run(model, li, z, res, row_mask, ct, plain):
+    """out, the gradients of z, res and the BatchNorm's scale and bias, and
+    the running statistics after one call (dropout seeded)."""
+    zc = z.detach().clone().requires_grad_(True)
+    rc = None if res is None else res.detach().clone().requires_grad_(True)
+    for p in model.parameters():
+        p.grad = None
+    gen = torch.Generator(device=z.device).manual_seed(11)
+    fn = model.epilogue_plain if plain else model.epilogue
+    out = fn(li, zc, rc, gen, row_mask)
+    (out * ct).sum().backward()
+    got = {"out": out.detach(), "dz": zc.grad, "dres": None if rc is None else rc.grad}
+    if model.use_bn:
+        bn = model.bns[li]
+        got.update(dscale=bn.scale.grad, dbias=bn.bias.grad, mean=bn.mean.clone(),
+                   var=bn.var.clone(), count=bn.count.clone())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(EPILOGUE_VARIANTS))
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("training", [True, False])
+def test_epilogue_matches_plain(cuda, variant, width, masked, training):
+    """The fused epilogue (kernels/resbn_epilogue.py) against the plain
+    version on the card: output, the gradients of z, the residual, scale
+    and bias, and the running statistics, in training (batch statistics,
+    dropout, row_mask) and eval (running statistics; inputs requiring
+    grad, as the explainer backpropagates). f32, the sums in another order
+    (F32); the gradients of scale and bias sum 3,000 rows (rtol 1e-4)."""
+    import copy
+
+    from elliptic_gnn_tpu_torch.kernels import resbn_epilogue
+
+    model, z, res, row_mask, ct = _epilogue_case(cuda, variant, width, training, masked)
+    plain = copy.deepcopy(model)
+    resbn_epilogue.reset_launches()
+    got = _epilogue_run(model, 0, z, res, row_mask, ct, plain=False)
+    launched = dict(resbn_epilogue.launches)
+    want = _epilogue_run(plain, 0, z, res, row_mask, ct, plain=True)
+    assert got.keys() == want.keys()
+    for k in got:
+        if got[k] is None:
+            assert want[k] is None, k
+            continue
+        tol = dict(rtol=1e-4, atol=1e-5) if k in ("dscale", "dbias") else F32
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(), **tol,
+                                   err_msg=k)
+    bn = model.use_bn
+    assert launched == {"resbn_stats": int(bn and training),
+                        "resbn_finalize": 2 * int(bn and training) + int(bn and not training),
+                        "resbn_fwd": int(training), "resbn_eval": int(not training),
+                        "resbn_bwd_sums": int(bn), "resbn_bwd": 1}, launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["sage_resbn", "sage_res"])
+def test_epilogue_repeats_bit_for_bit(cuda, variant):
+    """Two launches on the same inputs: the same bits in every output,
+    gradient and running statistic (no float atomics)."""
+    import copy
+
+    model, z, res, row_mask, ct = _epilogue_case(cuda, variant, 64, True, True, n=5000)
+    twin = copy.deepcopy(model)
+    a = _epilogue_run(model, 1, z, res, row_mask, ct, plain=False)
+    b = _epilogue_run(twin, 1, z, res, row_mask, ct, plain=False)
+    for k in a:
+        assert (a[k] is None and b[k] is None) or torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_epilogue_follows_the_module_formula_bit_for_bit(cuda):
+    """Given the kernels' batch statistics, the apply pass computes the
+    module's formula bit for bit: BatchNorm.forward's mean, variance and
+    normalisation, relu, the dropout's where(u < keep, h / keep, 0), the
+    residual add, and the running statistics' update."""
+    from elliptic_gnn_tpu_torch.kernels import resbn_epilogue as rk
+    from elliptic_gnn_tpu_torch.models.modules import BN_EPS, BN_MOMENTUM
+
+    n, c, keep = 3000, 64, 0.8
+    z = _randn((n, c), 0, cuda) * 1.5 + 0.4
+    res, u = _randn((n, c), 1, cuda), torch.rand((n, c), device=cuda)
+    scale, bias = _randn((c,), 2, cuda) * 0.5 + 1.0, _randn((c,), 3, cuda) * 0.3
+    running = (_randn((c,), 4, cuda) * 0.2, _randn((c,), 5, cuda).abs() + 0.5,
+               torch.zeros((), device=cuda))
+    want_mean, want_var, want_count = (t.clone() for t in running)
+    stats = rk.batch_stats(z)
+    out, keep_mask = rk.apply(z, res, scale, bias, stats, running, u, keep)
+
+    s_n, s, sq = stats[0], stats[1: 1 + c], stats[1 + c:]
+    mean = s / s_n
+    var = torch.clamp(sq / s_n - mean * mean, min=0.0)
+    unbiased = var * s_n / torch.clamp(s_n - 1.0, min=1.0)
+    want_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+    want_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * unbiased)
+    want_count.add_(1.0)
+    h = torch.relu((z - mean) * torch.rsqrt(var + BN_EPS) * scale + bias)
+    mask = u < keep
+    want = torch.where(mask, h / keep, torch.zeros((), device=cuda)) + res
+    assert torch.equal(out, want) and torch.equal(keep_mask.bool(), mask)
+    for got, w in zip(running, (want_mean, want_var, want_count)):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+def test_epilogue_rejects_what_it_does_not_take(cuda):
+    from elliptic_gnn_tpu_torch.kernels.resbn_epilogue import resbn_epilogue
+
+    z = _randn((300, 64), 0, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        resbn_epilogue(z.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        resbn_epilogue(z.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        resbn_epilogue(_randn((64, 300), 1, cuda).t())
+    with pytest.raises(ValueError, match="float32"):
+        resbn_epilogue(z, res=z.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="width"):
+        resbn_epilogue(_randn((300, 1028), 2, cuda))
+    with pytest.raises(ValueError, match="width"):
+        resbn_epilogue(_randn((300, 258), 3, cuda))
+    shifted = torch.zeros(300 * 64 + 1, device=cuda)[1:].view(300, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        resbn_epilogue(shifted)
+    with pytest.raises(ValueError, match="16 bytes"):
+        resbn_epilogue(z, res=shifted)
 
 
 # ---------------- flash-GAT kernels ----------------
