@@ -6,7 +6,7 @@ NVIDIA GPU. Run from the repository root:
 
 Phases (any failure exits non-zero before the result line):
   1. device: the card's name and power limit;
-  2. build: compiles the six kernel sources of kernels/csrc with nvcc, in
+  2. build: compiles the seven kernel sources of kernels/csrc with nvcc, in
      parallel, and prints what ptxas says of each kernel;
   3. BSDA kernel vs plain: on the Elliptic-scale synthetic graph (203,769
      nodes, 234,355 edges before symmetrization, 166 features, 49 timesteps,
@@ -15,8 +15,9 @@ Phases (any failure exits non-zero before the result line):
      bit-packed (pack 4) and int8 (pack 1) tables, at F=168 f32, F=168 bf16
      and F=64 bf16; CUDA-event medians of kernel, plain version and the
      torch.sparse yardstick; then on the same graph directed, the GCN
-     tables (self-looped, dst and src scales together) at F=128 and F=2 and
-     the SAGE tables at F=167 and F=128, bf16, kernel against plain version;
+     tables (self-looped, dst and src scales together) at F=128 and F=2
+     bf16 and at F=256 f32 (egcn_o.yaml's aggregation) and the SAGE tables
+     at F=167 and F=128 bf16, kernel against plain version;
      every launch shape twice, the two results equal bit for bit; one line
      per shape with kernel, bound and library ms and their ratios; then the
      halo path's shards: the rec_k8 tables padded (pad_bsda_chunks) and
@@ -39,6 +40,10 @@ Phases (any failure exits non-zero before the result line):
      main path's [203,769 x 64] f32: its training forward, backward and eval
      forward against the plain version (epilogue_plain) on the card, twice
      bit for bit, each timed against its bound and the plain version;
+     then EvolveGCN-O's weight evolution (egcn_evolve.cu) at d -> 256 for
+     d = 166 and 256 over 49 steps, forward and backward through time
+     against the plain chain, twice bit for bit, its steps and whole
+     chains timed against their bounds and the plain chain;
   4. GAT kernels vs plain: on the same graph, directed and self-looped,
      depth 4: the forward at (h, ch) = (4, 8) with the slot cover and
      (1, 2) without, normalize on and off, compared on val = acc / s and
@@ -86,7 +91,8 @@ Phases (any failure exits non-zero before the result line):
      the kernels (the K-epoch loop's replays counted as the launches
      captured in its graph times its replays), losses and scores finite,
      the artifacts present and best.ckpt an npz in the JAX package's key
-     layout (read with numpy alone). rec_k8 and gat.yaml run 16 epochs with
+     layout (read with numpy alone; EvolveGCN-O, which the JAX package
+     lacks, in its own). rec_k8 and gat.yaml run 16 epochs with
      `epochs_per_sync: auto` (K = 8, the epoch a replayed CUDA graph) and,
      interleaved, with 1 (serial): loss and val PR-AUC per epoch within 1e-4;
      then both loops with the patience at which the stop falls inside a
@@ -100,7 +106,11 @@ Phases (any failure exits non-zero before the result line):
      (EGNN_GAT_ONE_SWEEP=0): only the two sweeps may run the backward, the
      two runs' scores_test.npy must be equal bit for bit, and loss and val
      PR-AUC per epoch must agree with the one-sweep run (loss rtol 1e-4,
-     PR-AUC atol 2e-3); gcn.yaml and sage.yaml 5 epochs, K loop. Epoch
+     PR-AUC atol 2e-3); gcn.yaml and sage.yaml 5 epochs, K loop;
+     egcn_o.yaml 16 epochs, K loop, every epoch through the weight
+     evolution's kernels (egcn_*) and bsda_spmm at F = 256 f32, its
+     best.ckpt in its own flat layout (models/convert.py), and
+     predict.predict on its run dir reproducing its scores_test.npy. Epoch
      walls of K and serial runs and the device time of one replayed epoch
      are printed;
   8. the trainer's other single-device paths, on the same CSV build:
@@ -168,7 +178,9 @@ Phases (any failure exits non-zero before the result line):
      gcn row with its two mesh-1 runs', the GAT rows with the GAT mesh
      phase's launches (`mesh_kernel_launches`, a rank's, a shard's and the
      whole graph's ms under `mesh_ms`) and those of the mesh-1 runs of
-     both routes), the card line, and the result line
+     both routes, the egcn_evolve row with the egcn_o.yaml run's launches
+     and those of its captured epoch (`captured_epoch_launches`)), the card
+     line, and the result line
      {"ok": true, "device": {...}}.
 
 With `--multicard`, on a host of two cards or more, it runs only the
@@ -411,11 +423,11 @@ def kernel_phase(device, flush_buf):
 
 
 def spmm_entry(label, t, x, r, flush_buf):
-    """Kernel-line numbers of one bf16 launch shape of the BSDA kernel on
-    the bit-packed tables `t`: r's measured error and times, the bound from
+    """Kernel-line numbers of one launch shape of the BSDA kernel on the
+    bit-packed tables `t`: r's measured error and times, the bound from
     this call's bytes (planes, src_chunk, the scale vectors present, x read
-    and the output written once) and nonzeros, and the torch.sparse.mm
-    yardstick on the same weights."""
+    and the output written once) and nonzeros at x's dtype's peak, and the
+    torch.sparse.mm yardstick on the same weights."""
     import torch
 
     f = x.shape[1]
@@ -423,7 +435,7 @@ def spmm_entry(label, t, x, r, flush_buf):
     try:
         library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x), flush_buf)
     except RuntimeError as exc:  # no bf16 sparse product on this build
-        log(f"torch.sparse.mm yardstick unavailable for bf16: {exc}")
+        log(f"torch.sparse.mm yardstick unavailable for {x.dtype}: {exc}")
         library_ms = None
     del csr
     scales = [v for v in (t.dst_scale, t.src_scale) if v is not None]
@@ -431,7 +443,7 @@ def spmm_entry(label, t, x, r, flush_buf):
                    + sum(v.numel() * 4 for v in scales)
                    + 2 * x.numel() * x.element_size())
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * nnz * f / PEAK_OPS["bfloat16"] * 1e3
+    ops_ms = 2.0 * nnz * f / PEAK_OPS[str(x.dtype).replace("torch.", "")] * 1e3
     entry = dict(
         max_abs_err=r["max_abs"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=max(bytes_ms, ops_ms),
@@ -558,6 +570,137 @@ def epilogue_phase(device, flush_buf) -> dict:
                     f"(kernels / bound {ms[k] / entry['bound_ms'][k]:.2f}, plain / kernels "
                     f"{plain_ms[k] / ms[k]:.2f})" for k in ms)
         + f"; the module's training forward with its draw {module_ms:.4f} ms")
+    return entry
+
+
+EGCN_STEPS = 49           # EvolveGCN-O's snapshots: the chain's steps
+EGCN_WIDTHS = (166, 256)  # a GRCU layer's input width d; its output c = 256
+EGCN_FWD_TOL = dict(rtol=1e-4, atol=1e-5)  # 49 dependent f32 steps, other sums
+EGCN_GRAD_REL = 1e-4      # each gradient against its largest entry
+
+
+def graphed(fn):
+    """fn captured as a CUDA graph (after three runs on a side stream);
+    returns the graph's replay."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def egcn_phase(device, flush_buf) -> dict:
+    """EvolveGCN-O's weight evolution (kernels/egcn_evolve.py) at the
+    configuration's widths, d -> 256 for d = 166 and 256, 49 steps: the
+    kernels' chain, forward and backward through time, against the plain
+    chain (evolve_plain, autograd) on the card, twice bit for bit; then
+    each timed (median of TIMING_ITERS CUDA-event runs): one forward step
+    (egcn_gates + egcn_update), one backward step (egcn_bwd_gate +
+    egcn_bwd_dq), the gradient sums (egcn_wgrad + egcn_bias_sum), and the
+    whole chain, captured as a CUDA graph and replayed as the K loop runs
+    it, in the eval forward and in the training forward with its backward,
+    beside the plain chain's (graphed too) and the bound (a forward step's
+    six products, a backward step's six, the gradient sums' four a step,
+    at the f32 peak, or the bytes at HBM_BYTES_PER_S: the six [d, d]
+    weights, the [d, c] operands read and written). No PyTorch call
+    computes a step: no library time. Returns the kernel line's entry
+    (its launches are the main path's, counted in the egcn_o.yaml slice)."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.kernels import egcn_evolve as ek
+
+    steps, c = EGCN_STEPS, 256
+    entry = {"shape": {"steps": steps, "d": list(EGCN_WIDTHS), "c": c}, "ms": {},
+             "plain_ms": {}, "bound_ms": {}, "bound_by": "operations", "library_ms": None,
+             "max_rel_err": 0.0}
+    for d in EGCN_WIDTHS:
+        gen = torch.Generator(device=device).manual_seed(d)
+        p = {}
+        for k in ek.PARAMS:
+            shape = (d, c) if k in ("q0", "b_u", "b_r", "b_h") else (d, d)
+            lim = (6.0 / sum(shape)) ** 0.5
+            p[k] = ((torch.rand(shape, generator=gen, device=device) * 2 - 1) * lim
+                    ).requires_grad_()
+        ct = torch.randn((steps, d, c), generator=gen, device=device)
+        params = list(p.values())
+
+        def run():
+            qs = ek.evolve(p, steps)
+            return qs.detach(), torch.autograd.grad(qs, params, ct)
+
+        got, g_got = run()
+        again, g_again = run()
+        same = torch.equal(got, again) and all(torch.equal(a, b) for a, b in zip(g_got, g_again))
+        want = ek.evolve_plain(p, steps)
+        g_want = torch.autograd.grad(want, params, ct)
+        rel = {k: float((a - b).abs().max() / b.abs().max())
+               for k, a, b in zip(p, g_got, g_want)}
+        want = want.detach()
+        rel["forward"] = float((got - want).abs().max() / want.abs().max())
+        entry["max_rel_err"] = max(entry["max_rel_err"], max(rel.values()))
+        ok = within(got, want, EGCN_FWD_TOL) and all(
+            v <= EGCN_GRAD_REL for k, v in rel.items() if k != "forward")
+        log(f"EvolveGCN-O chain d={d} c={c}, {steps} steps, kernels vs plain: max rel err "
+            + ", ".join(f"{k}={v:.2e}" for k, v in rel.items())
+            + f" {'ok' if ok else 'MISMATCH'}; twice {'bit-equal' if same else 'DIFFER'}")
+        if not ok or not same:
+            fail("the EvolveGCN-O step kernels disagree with the plain chain or do not repeat")
+
+        pd = {k: v.detach() for k, v in p.items()}
+        q = pd["q0"]
+        u, r, ph, h, qn, dah, dau, dar, dqp, dq = (torch.empty_like(q) for _ in range(10))
+        stack = torch.randn((steps, d, c), generator=gen, device=device)
+        ms = {"fwd_step": cuda_ms(lambda: (ek.gates(pd, q, u, r, ph),
+                                           ek.update(pd["u_h"], q, r, u, ph, h, qn)), flush_buf),
+              "bwd_step": cuda_ms(lambda: (ek.bwd_gate(pd["u_h"], qn, u, h, q, r, dah, dau, dar,
+                                                       dqp),
+                                           ek.bwd_dq(pd, dah, dau, dar, dqp, qn, dq)), flush_buf),
+              "grad_sums": cuda_ms(lambda: (ek.wgrad(stack, stack, stack, stack, stack),
+                                            ek.bias_sum(stack, stack, stack)), flush_buf)}
+        # the chains as the K loop runs them: captured once, replayed (the
+        # host's 98 to 200 launches a chain would otherwise set the pace)
+        def eval_k():
+            with torch.no_grad():
+                return ek.evolve(pd, steps)
+
+        def eval_p():
+            with torch.no_grad():
+                return ek.evolve_plain(pd, steps)
+
+        ms["eval_chain"] = cuda_ms(graphed(eval_k), flush_buf)
+        ms["train_chain"] = cuda_ms(graphed(lambda: torch.autograd.grad(
+            ek.evolve(p, steps), params, ct)), flush_buf)
+        plain = {"eval_chain": cuda_ms(graphed(eval_p), flush_buf),
+                 "train_chain": cuda_ms(graphed(lambda: torch.autograd.grad(
+                     ek.evolve_plain(p, steps), params, ct)), flush_buf)}
+
+        def bound(products, operands):
+            return 1e3 * max(2.0 * products * d * d * c / PEAK_OPS["float32"],
+                             4.0 * (6 * d * d + operands * d * c) / HBM_BYTES_PER_S)
+
+        b = {"fwd_step": bound(6, 5), "bwd_step": bound(6, 7),
+             "grad_sums": 1e3 * max(8.0 * d * d * steps * c / PEAK_OPS["float32"],
+                                    4.0 * (4 * steps * d * c + 6 * d * d + 3 * d * c)
+                                    / HBM_BYTES_PER_S),
+             "eval_chain": steps * bound(6, 5),
+             "train_chain": steps * (bound(6, 8) + bound(10, 7))}
+        for k, v in ms.items():
+            entry["ms"][f"{k}_d{d}"] = v
+        for k, v in plain.items():
+            entry["plain_ms"][f"{k}_d{d}"] = v
+        for k, v in b.items():
+            entry["bound_ms"][f"{k}_d{d}"] = v
+        log(f"EvolveGCN-O chain d={d} c={c} ms, kernels / bound / plain: "
+            + "; ".join(f"{k} {v:.4f} / {b.get(k, float('nan')):.4f} / "
+                        f"{plain.get(k, float('nan')):.4f}" for k, v in ms.items())
+            + f" | {CARD}")
     return entry
 
 
@@ -777,25 +920,28 @@ def gspmd_kernel_phase(device, flush_buf, g):
 def arch_kernel_phase(device, flush_buf):
     """The BSDA kernel at the launch shapes of gcn.yaml (self-looped
     directed tables with dst and src scales together; F = 128 and the F = 2
-    logits) and sage.yaml (directed tables; F = 167 and 128), bf16 under
-    amp, forward and transpose tables against the plain version. Returns
-    the kernel-line entries by (kind, F), timed on the forward tables."""
+    logits, bf16 under amp), egcn_o.yaml (the same tables, F = 256 f32) and
+    sage.yaml (directed tables; F = 167 and 128, bf16), forward and
+    transpose tables against the plain version. Returns the kernel-line
+    entries by (kind, F), timed on the forward tables."""
     import torch
 
     from elliptic_gnn_tpu_torch.kernels import bsda, bsda_spmm_cuda
 
     gen = torch.Generator(device=device).manual_seed(3)
-    tol = TOL["bfloat16"]
     entries, failures = {}, []
-    for kind, widths in (("gcn", (128, 2)), ("sage", (167, 128))):
+    bf16, f32 = torch.bfloat16, torch.float32
+    for kind, widths in (("gcn", ((128, bf16), (2, bf16), (256, f32))),
+                         ("sage", ((167, bf16), (128, bf16)))):
         g = elliptic_tables(device, kind, symmetrize=False)
         scales = "+".join(n for n in ("dst_scale", "src_scale")
                           if getattr(g, n) is not None)
         log(f"{kind} tables (directed): chunks={g.num_chunks} depth={g.depth} "
             f"pack={g.a_pack} scales={scales}")
-        for f in widths:
-            x = torch.randn((g.num_nodes, f), generator=gen,
-                            device=device).to(torch.bfloat16)
+        for f, dtype in widths:
+            dname = str(dtype).replace("torch.", "")
+            tol = TOL[dname]
+            x = torch.randn((g.num_nodes, f), generator=gen, device=device).to(dtype)
             errs = []
             for table in (g, g.transpose):
                 got = bsda_spmm_cuda.bsda_dense_cuda(table, x)
@@ -806,15 +952,16 @@ def arch_kernel_phase(device, flush_buf):
                 errs.append(float(diff.max()))
                 if not same or not bool(
                         (diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all()):
-                    failures.append(f"{kind} F={f}{'' if same else ' (two launches differ)'}")
+                    failures.append(f"{kind} F={f} {dname}"
+                                    f"{'' if same else ' (two launches differ)'}")
             r = dict(max_abs=max(errs),
                      ms=cuda_ms(lambda: bsda_spmm_cuda.bsda_dense_cuda(g, x), flush_buf),
                      plain_ms=cuda_ms(lambda: bsda.bsda_dense_plain(g, x), flush_buf))
-            log(f"kernel vs plain [{kind} F={f} bf16, {scales}]: max_abs forward "
+            log(f"kernel vs plain [{kind} F={f} {dname}, {scales}]: max_abs forward "
                 f"{errs[0]:.3e}, transpose {errs[1]:.3e} (tol rtol={tol['rtol']:.3g} "
                 f"atol={tol['atol']:.3g})")
             entries[(kind, f)] = spmm_entry(
-                f"{kind}.yaml shape F={f} bf16, forward tables", g, x, r, flush_buf)
+                f"{kind} tables' shape F={f} {dname}, forward tables", g, x, r, flush_buf)
         del g
     if failures:
         fail(f"BSDA kernel disagrees with its plain version: {failures}")
@@ -1721,7 +1868,8 @@ def slice_phase(tmp, processed, config_name, run_name=None, epochs=EPOCHS,
     import numpy as np
     import yaml
 
-    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, gat_cuda, resbn_epilogue
+    from elliptic_gnn_tpu_torch.kernels import (bsda_spmm_cuda, egcn_evolve, gat_cuda,
+                                                resbn_epilogue)
     from elliptic_gnn_tpu_torch.train import train_gnn
 
     with open(os.path.join(HERE, "configs", config_name)) as fh:
@@ -1730,7 +1878,7 @@ def slice_phase(tmp, processed, config_name, run_name=None, epochs=EPOCHS,
                max_epochs=epochs, **overrides)
     if run_name is not None:
         cfg["run_name"] = run_name
-    counters = (bsda_spmm_cuda, gat_cuda, resbn_epilogue)
+    counters = (bsda_spmm_cuda, gat_cuda, resbn_epilogue, egcn_evolve)
     for mod in counters:
         mod.reset_launches()
     t0 = time.time()
@@ -1926,8 +2074,11 @@ def check_jax_ckpt(outdir, cfg) -> None:
     npz whose keys are the '/'-joined paths of the JAX model's params and
     state (params/layers/<i>/<name>, params/bns/<i>/..., state/bns/<i>/...,
     params/res_projs/<i>/w, params/time_emb), dense weights [d_in, d_out],
-    BN counts 0-d."""
+    BN counts 0-d. EvolveGCN-O, which the JAX package lacks, in the same
+    flat form (models/convert.py): params/grcu/<i>/<name>, params/cls/<i>/{w,b}."""
     import numpy as np
+
+    from elliptic_gnn_tpu_torch.kernels.egcn_evolve import PARAMS as EGCN_PARAMS
 
     with np.load(os.path.join(outdir, "best.ckpt"), allow_pickle=False) as z:
         shapes = {k: z[k].shape for k in z.files}
@@ -1935,6 +2086,11 @@ def check_jax_ckpt(outdir, cfg) -> None:
     per_layer = {"gat": ("w", "a_src", "a_dst", "b"), "gcn": ("w", "b")}.get(
         arch, ("w_l", "b_l", "w_r"))
     want = {f"params/layers/{i}/{n}" for i in range(layers) for n in per_layer}
+    final = f"params/layers/{layers - 1}/{per_layer[0]}"
+    if arch == "egcn_o":
+        want = ({f"params/grcu/{i}/{n}" for i in range(layers) for n in EGCN_PARAMS}
+                | {f"params/cls/{i}/{n}" for i in range(2) for n in ("w", "b")})
+        final, hidden = "params/cls/1/w", int(cfg.get("cls_feats", hidden))
     optional = set()
     if arch in ("sage_resbn", "sage_bn", "sage_res"):
         if cfg.get("use_bn", True):
@@ -1943,12 +2099,12 @@ def check_jax_ckpt(outdir, cfg) -> None:
                                          ("state", ("mean", "var", "count")))
                      for n in names}
         optional = {f"params/res_projs/{i}/w" for i in range(layers - 1)} | {"params/time_emb"}
-    last = shapes.get(f"params/layers/{layers - 1}/{per_layer[0]}", ())
+    last = shapes.get(final, ())
     ok = (want <= set(shapes) and set(shapes) - want <= optional
           and len(last) >= 2 and last[0] == hidden and last[-1] == 2
           and all(shapes[k] == () for k in shapes if k.endswith("/count")))
     log(f"best.ckpt of {cfg['run_name']}: npz of {len(shapes)} arrays in the JAX layout "
-        f"{'ok' if ok else 'WRONG'} (final layer {per_layer[0]} {last})")
+        f"{'ok' if ok else 'WRONG'} (final layer {final} {last})")
     if not ok:
         fail(f"best.ckpt of {cfg['run_name']} is not in the JAX npz layout: {shapes}")
 
@@ -2004,6 +2160,26 @@ def check_conv_launches(name, run, per_epoch, scoring) -> None:
              f"{launches}, want {want}")
 
 
+def check_egcn_launches(run) -> None:
+    """egcn_o.yaml: per epoch on the device, each GRCU layer's chain of
+    `max_timestep` steps runs forward twice (training, val eval: egcn_gates
+    and egcn_update a step) and backward through time once (egcn_bwd_gate
+    and egcn_bwd_dq a step, then egcn_wgrad and egcn_bias_sum); each layer
+    aggregates at F = 256 (`banded`) forward, on the transpose tables and
+    in the val eval. The scoring pass adds one forward. No other kernel
+    launches."""
+    cfg, epochs = run["cfg"], device_epochs(run["metrics"])
+    chains = int(cfg["layers"])
+    steps = chains * int(cfg["max_timestep"])
+    want = {"egcn_gates": 2 * steps * epochs + steps, "egcn_update": 2 * steps * epochs + steps,
+            "egcn_bwd_gate": steps * epochs, "egcn_bwd_dq": steps * epochs,
+            "egcn_wgrad": chains * epochs, "egcn_bias_sum": chains * epochs,
+            "banded": 3 * chains * epochs + chains}
+    if {k: v for k, v in run["launches"].items() if k in want or v} != want:
+        fail(f"egcn_o.yaml did not run every epoch through the weight evolution's kernels "
+             f"and bsda_spmm alone: {run['launches']}, want {want}")
+
+
 def check_two_sweep_runs(one, two_a, two_b) -> None:
     """Two gat.yaml runs with the two-sweep backward give the same bits, and
     agree per epoch with the one-sweep run within the stated tolerances."""
@@ -2031,15 +2207,16 @@ def predict_check(outdir, want_launches) -> None:
     count 0)."""
     import numpy as np
 
-    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, gat_cuda
+    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, egcn_evolve, gat_cuda
     from elliptic_gnn_tpu_torch.train import predict
 
-    bsda_spmm_cuda.reset_launches()
-    gat_cuda.reset_launches()
+    counters = (bsda_spmm_cuda, gat_cuda, egcn_evolve)
+    for mod in counters:
+        mod.reset_launches()
     t0 = time.time()
     node_idx, probs, flags, thr, data = predict.predict(outdir)
     wall = time.time() - t0
-    launches = {**bsda_spmm_cuda.launches, **gat_cuda.launches}
+    launches = {k: v for mod in counters for k, v in mod.launches.items()}
     idx = np.load(os.path.join(outdir, "node_idx_test.npy"))
     want = np.load(os.path.join(outdir, "scores_test.npy"))
     if not np.array_equal(node_idx, np.arange(data.num_nodes)):
@@ -2764,6 +2941,7 @@ def drive(device) -> list:
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     entries, rec_tables = kernel_phase(device, flush_buf)
     epilogue_entry = epilogue_phase(device, flush_buf)
+    egcn_entry = egcn_phase(device, flush_buf)
     shard_launches = shard_kernel_phase(device, flush_buf, rec_tables)
     gspmd_launches, gspmd_times = gspmd_kernel_phase(device, flush_buf, rec_tables)
     del rec_tables
@@ -2824,6 +3002,12 @@ def drive(device) -> list:
         check_conv_launches("sage.yaml", sage,
                             per_epoch={"ring": 3, "banded": 2},
                             scoring={"ring": 1, "banded": 1})
+        egcn = slice_phase(tmp, processed, "egcn_o.yaml", epochs=KLOOP_EPOCHS)
+        check_egcn_launches(egcn)
+        chains = int(egcn["cfg"]["layers"])
+        predict_check(egcn["outdir"], {"banded": chains,
+                                       "egcn_gates": chains * EGCN_STEPS,
+                                       "egcn_update": chains * EGCN_STEPS})
         mesh1_launches = mesh1_phase(tmp, processed, rec, gcn, gat, gat2)
         gspmd1_launches = gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell)
         multicard_phase(tmp, processed, rec, gat)
@@ -2870,6 +3054,8 @@ def drive(device) -> list:
                    sage["launches"]["banded"], arch_entries[("sage", 167)]),
         kernel_row("bsda_spmm[ring: sage F=128 bf16]", ring_row,
                    sage["launches"]["ring"], arch_entries[("sage", 128)]),
+        kernel_row("bsda_spmm[banded: egcn_o F=256 f32, dst and src scales]", banded_row,
+                   egcn["launches"]["banded"], arch_entries[("gcn", 256)]),
     ]
     # the rec_k8 rows' launches on the ninth slice's BSDA paths, in the
     # halo path's shard phase and in its mesh-1 runs (K and serial) too;
@@ -2924,6 +3110,16 @@ def drive(device) -> list:
                     "source": CSRC + "resbn_epilogue.cu", "replaces": None,
                     "launches": {k: v for k, v in rec["launches"].items()
                                  if k.startswith("resbn")}, **epilogue_entry})
+    # replaces no TPU kernel: the JAX package has no temporal model;
+    # launches an egcn_o.yaml run and a captured epoch of it
+    kernels.append({"name": "egcn_evolve[egcn_o d=166, 256 -> c=256 f32, 49 steps]",
+                    "route": "cuda", "source": CSRC + "egcn_evolve.cu", "replaces": None,
+                    **egcn_entry,
+                    "launches": {k: v for k, v in egcn["launches"].items()
+                                 if k.startswith("egcn")},
+                    "captured_epoch_launches": {
+                        k: v for k, v in egcn["metrics"]["graph_launches"].items()
+                        if k.startswith("egcn")}})
     if any((sum(k["launches"].values()) if isinstance(k["launches"], dict)
             else k["launches"]) <= 0 for k in kernels):
         fail(f"a kernel of the main paths was never launched: {kernels}")

@@ -34,6 +34,7 @@ SOURCES: Dict[str, Sequence[str]] = {
     "gat_bwd_dst": ("bsda_edges.cuh",),
     "gat_bwd_src": ("bsda_edges.cuh",),
     "resbn_epilogue": (),
+    "egcn_evolve": (),
 }
 
 

@@ -11,7 +11,10 @@ SAGE-ResBN:
 JAX stores dense weights as [d_in, d_out]; nn.Linear holds [d_out, d_in].
 GAT: params = {"layers": [{"w" [F, H, Ch], "a_src", "a_dst" [H, Ch], "b"}]},
 no state; the port keeps the same shapes. GCN: {"layers": [{"w", "b"}]};
-SAGE: {"layers": [{"w_l", "b_l", "w_r"}]}; no state either.
+SAGE: {"layers": [{"w_l", "b_l", "w_r"}]}; no state either. EvolveGCN-O,
+which the JAX package lacks, in the same flat layout: params = {"grcu":
+[{"q0", "w_u", "u_u", "b_u", "w_r", "u_r", "b_r", "w_h", "u_h", "b_h"}],
+"cls": [{"w", "b"}]} (each GRCU tensor as the port holds it), no state.
 
 Both take an optional map from each of the module's tensors (parameter or
 BN buffer) to the tensor read or written in its place, so that the same
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels.egcn_evolve import PARAMS as EGCN_PARAMS
+from .egcn import EvolveGCNO
 from .modules import GAT, GCN, SAGE, SageResBN
 
 
@@ -46,6 +51,16 @@ def params_from_jax(params_np: dict, state_np, model: nn.Module,
     else:
         _copy = _copy_into
     with torch.no_grad():
+        if isinstance(model, EvolveGCNO):
+            if len(params_np["grcu"]) != len(model.grcu):
+                raise ValueError("GRCU layer count differs between checkpoint and model")
+            for layer, p in zip(model.grcu, params_np["grcu"]):
+                for name in EGCN_PARAMS:
+                    _copy(getattr(layer, name), p[name])
+            for lin, p in zip(model.cls, params_np["cls"]):
+                _copy(lin.weight, p["w"], transpose=True)
+                _copy(lin.bias, p["b"])
+            return model
         if len(params_np["layers"]) != len(model.layers):
             raise ValueError("layer count differs between JAX params and model")
         if isinstance(model, GAT):
@@ -101,6 +116,11 @@ def params_to_jax(model: nn.Module, take=None):
             return _np_of(take(t), transpose)
     else:
         _np = _np_of
+    if isinstance(model, EvolveGCNO):
+        return {"grcu": [{name: _np(getattr(layer, name)) for name in EGCN_PARAMS}
+                         for layer in model.grcu],
+                "cls": [{"w": _np(lin.weight, True), "b": _np(lin.bias)}
+                        for lin in model.cls]}, {}
     if isinstance(model, GAT):
         return {"layers": [{name: _np(getattr(layer, name))
                             for name in ("w", "a_src", "a_dst", "b")}

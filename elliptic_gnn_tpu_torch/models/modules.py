@@ -1,5 +1,6 @@
 """GCN, SAGE, the SAGE-ResBN family and GAT as nn.Modules (port of
-elliptic_gnn_tpu/models/modules.py).
+elliptic_gnn_tpu/models/modules.py); build_model also builds EvolveGCN-O
+(models/egcn.py), which the JAX package does not have.
 
     model = build_model("sage_resbn", in_dim, cfg, generator=gen)
     logits = model(x, g, t_idx, generator=dropout_gen)
@@ -42,6 +43,7 @@ MODEL_GRAPH_KIND = {
     "sage_resbn": "sage",
     "sage_bn": "sage",
     "sage_res": "sage",
+    "egcn_o": "gcn",
 }
 SAGE_RESBN_ARCHS = ("sage_resbn", "sage_bn", "sage_res")
 
@@ -413,4 +415,8 @@ def build_model(arch: str, in_dim: int, cfg: dict,
         return SageResBN(in_dim, cfg, generator)
     if arch in _ARCH_CLASS:
         return _ARCH_CLASS[arch](in_dim, cfg, generator)
+    if arch == "egcn_o":
+        from .egcn import EvolveGCNO
+
+        return EvolveGCNO(in_dim, cfg, generator)
     raise ValueError(f"Unknown arch {arch!r}")

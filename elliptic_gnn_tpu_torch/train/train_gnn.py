@@ -44,6 +44,11 @@ relabelling), `setup.tables` (the encoding and its upload) and
 block around `loop.launch` (with `loop.capture` in a call's first block on
 CUDA), `loop.sync` and `loop.tail`; counter `loop_calls`.
 
+EvolveGCN-O (`arch: egcn_o`, models/egcn.py) trains on this full-batch
+path alone, over the BSDA tables: the model takes each row's timestep, and
+its weight-evolution kernels (kernels/egcn_evolve.py) are counted with the
+others in a capture's launches. ELL, `mini_batch` and meshes refuse it.
+
 Multi-device training: `mesh_devices: N` (or `all`) splits the node rows
 over N ranks of a torch.distributed group (NCCL on CUDA, gloo under
 `device: cpu`), one process per rank. Without the EGNN_* variables (or
@@ -86,11 +91,11 @@ import yaml
 
 from ..graph import load_processed, make_temporal_masks
 from ..graph.transform import append_scalar_time, remove_hub_edges, symmetrize_edges
-from ..kernels import bsda_spmm_cuda, gat_cuda, resbn_epilogue
+from ..kernels import bsda_spmm_cuda, egcn_evolve, gat_cuda, resbn_epilogue
 from ..kernels.bsda import BsdaGraph, bfs_order, build_bsda_for_kind, pad_bsda_chunks
 from ..kernels.ell import EllGraph, renumber_for_ell
 from ..kernels.packed_gat import use_two_sweep_backward
-from ..models import MODEL_GRAPH_KIND, build_model, prepare_graph_ops
+from ..models import MODEL_GRAPH_KIND, build_model, egcn, prepare_graph_ops
 from ..models.convert import params_from_jax
 from ..models.losses import class_weights, make_loss_fn, make_loss_parts
 from ..parallel import multihost
@@ -246,9 +251,13 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
     A renumbered graph's artifacts translate back via data.orig_index.
     Spans: `setup.order` (the ordering and the relabelled graph) and
     `setup.tables` (the encoding and its upload; ELL's in two parts, around
-    its relabelling)."""
+    its relabelling). EvolveGCN-O takes the BSDA tables alone
+    (models/egcn.py::check_route) and checks its snapshots on the renumbered
+    graph (check_snapshots)."""
     kind = _kind(cfg)
     agg = _pick_aggregation(cfg, kind)
+    if cfg["arch"] == egcn.ARCH:
+        egcn.check_route(cfg, agg, mesh_size(cfg))
     if agg == "ell":
         with trace.span("setup.tables"):
             gops = prepare_graph_ops(data.edge_index, data.num_nodes, kind)
@@ -261,6 +270,8 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
     with trace.span("setup.order"):
         rank = bfs_order(data.edge_index, data.num_nodes, data.timestep)
         data = data.renumber(rank)
+        if cfg["arch"] == egcn.ARCH:
+            egcn.check_snapshots(data, int(cfg.get("max_timestep", 49)))
     with trace.span("setup.tables"):
         gops = build_tables(
             cfg, data.edge_index, data.num_nodes, device,
@@ -306,6 +317,8 @@ def main(cfg: dict, init_params=None) -> dict:
     multihost.maybe_initialize(cfg, device.type)
     n_mesh = 1 if cfg.get("mini_batch", False) else mesh_size(cfg, device.type)
     n_proc = multihost.process_count()
+    if cfg["arch"] == egcn.ARCH:
+        egcn.check_route(cfg, _pick_aggregation(cfg, _kind(cfg), n_mesh), max(n_mesh, n_proc))
     if n_mesh > 1 and n_proc == 1:
         return _launch_ranks(cfg, n_mesh, device, init_params)
     if n_proc > 1 and n_mesh != n_proc:
@@ -323,7 +336,9 @@ def train_rank(cfg: dict, init_params=None, device: Optional[torch.device] = Non
     of one where none is up): the function a rank process runs. The route
     follows `aggregation` on the mesh's size (_shard): the halo path, or
     the GSPMD row sharding for a pinned single-device encoding, also on a
-    mesh of one."""
+    mesh of one. EvolveGCN-O runs on no mesh (models/egcn.py::check_route)."""
+    if cfg["arch"] == egcn.ARCH:
+        egcn.check_route(cfg, "shard_map", 1)
     if device is None:
         device = resolve_device(cfg.get("device", "auto"))
     with multihost.world_of_one(device.type):
@@ -759,7 +774,8 @@ class _DeviceLoop:
 
 
 def _count_launches() -> dict:
-    return {**bsda_spmm_cuda.launches, **gat_cuda.launches, **resbn_epilogue.launches}
+    return {**bsda_spmm_cuda.launches, **gat_cuda.launches, **resbn_epilogue.launches,
+            **egcn_evolve.launches}
 
 
 def _first_epoch_and_capture(loop: _DeviceLoop, gen: torch.Generator):

@@ -10,7 +10,10 @@ kernels of every rank and shard against their plain versions and the whole
 graph) and their trainers as one NCCL rank against the single-device K
 loop; the SAGE-ResBN epilogue's kernels against its plain version (each
 variant, widths 64 and 128, training and eval, with and without a row
-mask), bit for bit twice, and their input checks. Every test here needs
+mask), bit for bit twice, and their input checks; EvolveGCN-O's step
+kernels against the plain chain (49 steps at the published widths,
+forward and backward), the model on the card against the CPU, and its
+captured K loop. Every test here needs
 an NVIDIA GPU and skips without one; this file imports nothing of JAX so
 that it runs on a machine without it:
 
@@ -1140,6 +1143,109 @@ def test_gspmd_world_of_one_matches_single_device(cuda, tmp_path, kloop_graph, a
     np.testing.assert_allclose(prg, pr1, rtol=0, atol=1e-4)
     launched = sum(mg["graph_launches"].get(k, 0) for k in ("ring", "banded"))
     assert (launched > 0) == (agg == "bsda"), mg["graph_launches"]
+
+
+# ---------------- EvolveGCN-O's weight evolution ----------------
+
+EGCN_STEPS = 49
+# the chain against its plain version: 49 dependent steps of f32 products
+# summed in another order; gradients against the largest entry of each
+EGCN_FWD = dict(rtol=1e-4, atol=1e-5)
+EGCN_GRAD_REL = 1e-4
+
+
+def _egcn_params(cuda, d, c, seed=0):
+    from elliptic_gnn_tpu_torch.kernels import egcn_evolve
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k in egcn_evolve.PARAMS:
+        shape = (d, c) if k in ("q0", "b_u", "b_r", "b_h") else (d, d)
+        lim = (6.0 / sum(shape)) ** 0.5
+        v = (torch.rand(shape, generator=gen) * 2 - 1) * lim
+        out[k] = v.to(cuda).requires_grad_()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [166, 256])
+def test_egcn_step_kernels_match_plain_chain(cuda, d):
+    """The step kernels (kernels/egcn_evolve.py) over the published chain,
+    49 steps at d -> 256, forward and backward through time, against the
+    chain in ATen ops (evolve_plain, autograd); twice bit for bit; the
+    launches of one forward and one backward."""
+    from elliptic_gnn_tpu_torch.kernels import egcn_evolve
+
+    c = 256
+    p = _egcn_params(cuda, d, c)
+    ct = _randn((EGCN_STEPS, d, c), 3, cuda)
+
+    def run():
+        qs = egcn_evolve.evolve(p, EGCN_STEPS)
+        return qs.detach(), torch.autograd.grad(qs, list(p.values()), ct)
+
+    egcn_evolve.reset_launches()
+    got, g_got = run()
+    assert egcn_evolve.launches == {
+        "egcn_gates": EGCN_STEPS, "egcn_update": EGCN_STEPS, "egcn_bwd_gate": EGCN_STEPS,
+        "egcn_bwd_dq": EGCN_STEPS, "egcn_wgrad": 1, "egcn_bias_sum": 1}
+    again, g_again = run()
+    assert torch.equal(got, again) and all(torch.equal(a, b) for a, b in zip(g_got, g_again))
+    want = egcn_evolve.evolve_plain(p, EGCN_STEPS)
+    g_want = torch.autograd.grad(want, list(p.values()), ct)
+    torch.testing.assert_close(got, want.detach(), **EGCN_FWD)
+    for k, a, b in zip(p, g_got, g_want):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= EGCN_GRAD_REL, (k, err)
+    with torch.no_grad():
+        torch.testing.assert_close(egcn_evolve.evolve(p, EGCN_STEPS), got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_egcn_model_on_cuda_matches_cpu(cuda):
+    """EvolveGCN-O on the trainer's tables: the kernels' path on the card
+    (chain kernels, grouped products, bsda_spmm f32) against forward_plain
+    on the CPU, logits and every parameter's gradient (rtol 1e-4 of each
+    tensor's largest entry: f32 sums in other orders through 16 steps)."""
+    from elliptic_gnn_tpu_torch.kernels import egcn_evolve
+    from elliptic_gnn_tpu_torch.train.train_gnn import build_graph_ops
+
+    data = synthetic.generate(num_nodes=4000, num_features=12, num_timesteps=16, seed=2)
+    cfg = {"arch": "egcn_o", "hidden_dim": 32, "cls_feats": 24, "layers": 2,
+           "max_timestep": 16}
+    data, g = build_graph_ops(cfg, data, torch.device("cpu"))
+    x = torch.from_numpy(data.x)
+    t = torch.from_numpy(data.timestep.astype(np.int32))
+    ct = _randn((data.num_nodes, 2), 5, "cpu")
+    model = build_model("egcn_o", 12, cfg, generator=torch.Generator().manual_seed(0))
+    out = model(x, g, t)
+    want = [out.detach()] + list(torch.autograd.grad(out, list(model.parameters()), ct))
+    model = model.to(cuda)
+    egcn_evolve.reset_launches()
+    out = model(x.to(cuda), g.to(cuda), t.to(cuda))
+    got = [out.detach()] + list(torch.autograd.grad(out, list(model.parameters()), ct.to(cuda)))
+    assert egcn_evolve.launches["egcn_gates"] == 2 * 16
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_egcn_k_loop_captures_the_chain(cuda, tmp_path, kloop_graph):
+    """EvolveGCN-O through the K loop (K = 4, the epoch captured) against
+    the serial loop, per-epoch loss and val PR-AUC within 1e-4; the captured
+    epoch's launches: each layer's 16 steps in the training and the eval
+    forward, 16 backward steps and one gradient sum each."""
+    kw = {"hidden_dim": 32, "cls_feats": 24, "dropout": 0.0, "amp": False,
+          "symmetrize_edges": False, "time_embed_dim": 0, "use_time_scalar": False,
+          "train_window_k": None, "max_epochs": 12, "patience": 50}
+    m1, loss1, pr1, _ = _kloop_run(tmp_path, kloop_graph, "egcn_o", 1, "egcn_serial", **kw)
+    m4, loss4, pr4, _ = _kloop_run(tmp_path, kloop_graph, "egcn_o", 4, "egcn_k4", **kw)
+    np.testing.assert_allclose(loss4, loss1, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(pr4, pr1, rtol=0, atol=1e-4)
+    launched = {k: v for k, v in m4["graph_launches"].items() if k.startswith("egcn_")}
+    assert launched == {"egcn_gates": 64, "egcn_update": 64, "egcn_bwd_gate": 32,
+                        "egcn_bwd_dq": 32, "egcn_wgrad": 2, "egcn_bias_sum": 2}
+    assert m4["graph_launches"].get("ring", 0) + m4["graph_launches"].get("banded", 0) > 0
 
 
 @pytest.mark.cuda
