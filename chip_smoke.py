@@ -42,8 +42,11 @@ Phases (any failure exits non-zero before the result line):
      bit for bit, each timed against its bound and the plain version;
      then EvolveGCN-O's weight evolution (egcn_evolve.cu) at d -> 256 for
      d = 166 and 256 over 49 steps, forward and backward through time
-     against the plain chain, twice bit for bit, its steps and whole
-     chains timed against their bounds and the plain chain;
+     against the plain chain, twice bit for bit, the eval forward equal to
+     the kept one; the persistent passes (training forward, eval forward,
+     backward, one launch each) timed against their bounds and against
+     the step kernels' graphed passes, the step kernels' steps and the
+     whole chains against their bounds and the plain chain;
   4. GAT kernels vs plain: on the same graph, directed and self-looped,
      depth 4: the forward at (h, ch) = (4, 8) with the slot cover and
      (1, 2) without, normalize on and off, compared on val = acc / s and
@@ -600,27 +603,36 @@ def egcn_phase(device, flush_buf) -> dict:
     """EvolveGCN-O's weight evolution (kernels/egcn_evolve.py) at the
     configuration's widths, d -> 256 for d = 166 and 256, 49 steps: the
     kernels' chain, forward and backward through time, against the plain
-    chain (evolve_plain, autograd) on the card, twice bit for bit; then
-    each timed (median of TIMING_ITERS CUDA-event runs): one forward step
-    (egcn_gates + egcn_update), one backward step (egcn_bwd_gate +
+    chain (evolve_plain, autograd) on the card, twice bit for bit, the
+    forward without a gradient to come equal to the kept one; the same for
+    the step kernels' passes (forward_steps, backward_steps, then the
+    gradient sums), which the card runs past CHAIN_MAX_D; then each
+    timed (median of TIMING_ITERS CUDA-event runs): the persistent passes,
+    one launch each (egcn_chain_fwd with the stacks kept, as the training
+    forward runs it, and without, as the eval; egcn_chain_bwd), each
+    against the step kernels' same pass captured as a CUDA graph (98 launches
+    a forward, 98 a backward) and against its bound; one forward step of the
+    step kernels (egcn_gates + egcn_update), one backward step (egcn_bwd_gate +
     egcn_bwd_dq), the gradient sums (egcn_wgrad + egcn_bias_sum), and the
-    whole chain, captured as a CUDA graph and replayed as the K loop runs
-    it, in the eval forward and in the training forward with its backward,
-    beside the plain chain's (graphed too) and the bound (a forward step's
-    six products, a backward step's six, the gradient sums' four a step,
-    at the f32 peak, or the bytes at HBM_BYTES_PER_S: the six [d, d]
-    weights, the [d, c] operands read and written). No PyTorch call
-    computes a step: no library time. Returns the kernel line's entry
-    (its launches are the main path's, counted in the egcn_o.yaml slice)."""
+    whole chain, captured and replayed as the K loop runs it, in the eval
+    forward and in the training forward with its backward, beside the plain
+    chain's (graphed too). Bounds: a forward step's six products, a backward
+    step's six, the gradient sums' four a step, at the f32 peak, or the
+    bytes at HBM_BYTES_PER_S (the six [d, d] weights, the [d, c] operands
+    read and written). No PyTorch call computes a step: no library time.
+    Returns the kernel line's entry (its launches are the main path's,
+    counted in the egcn_o.yaml slice)."""
     import torch
 
     from elliptic_gnn_tpu_torch.kernels import egcn_evolve as ek
 
     steps, c = EGCN_STEPS, 256
     entry = {"shape": {"steps": steps, "d": list(EGCN_WIDTHS), "c": c}, "ms": {},
-             "plain_ms": {}, "bound_ms": {}, "bound_by": "operations", "library_ms": None,
-             "max_rel_err": 0.0}
+             "plain_ms": {}, "steps_ms": {}, "bound_ms": {}, "bound_by": "operations",
+             "library_ms": None, "max_rel_err": 0.0}
     for d in EGCN_WIDTHS:
+        if not ek.persistent(d, c):
+            fail(f"the EvolveGCN-O chain at d={d} c={c} should run one launch a pass")
         gen = torch.Generator(device=device).manual_seed(d)
         p = {}
         for k in ek.PARAMS:
@@ -635,37 +647,71 @@ def egcn_phase(device, flush_buf) -> dict:
             qs = ek.evolve(p, steps)
             return qs.detach(), torch.autograd.grad(qs, params, ct)
 
-        got, g_got = run()
-        again, g_again = run()
-        same = torch.equal(got, again) and all(torch.equal(a, b) for a, b in zip(g_got, g_again))
+        pd = {k: v.detach() for k, v in p.items()}
+
+        def run_steps():
+            qs, kept = ek.forward_steps(pd, steps, keep=True)
+            dq, dah, dau, dar = ek.backward_steps(pd, ct, qs, *kept)
+            g = {"q0": dq, **ek.wgrad(dah, dau, dar, qs[:steps], kept[1]),
+                 **ek.bias_sum(dah, dau, dar)}
+            return qs[1:], [g[k] for k in p]
+
+        def eval_steps():
+            return ek.forward_steps(pd, steps, keep=False)[0][1:]
+
         want = ek.evolve_plain(p, steps)
         g_want = torch.autograd.grad(want, params, ct)
-        rel = {k: float((a - b).abs().max() / b.abs().max())
-               for k, a, b in zip(p, g_got, g_want)}
         want = want.detach()
-        rel["forward"] = float((got - want).abs().max() / want.abs().max())
-        entry["max_rel_err"] = max(entry["max_rel_err"], max(rel.values()))
-        ok = within(got, want, EGCN_FWD_TOL) and all(
-            v <= EGCN_GRAD_REL for k, v in rel.items() if k != "forward")
-        log(f"EvolveGCN-O chain d={d} c={c}, {steps} steps, kernels vs plain: max rel err "
-            + ", ".join(f"{k}={v:.2e}" for k, v in rel.items())
-            + f" {'ok' if ok else 'MISMATCH'}; twice {'bit-equal' if same else 'DIFFER'}")
-        if not ok or not same:
-            fail("the EvolveGCN-O step kernels disagree with the plain chain or do not repeat")
+        for path, fn, fn_eval in (("persistent", run, lambda: ek.evolve(pd, steps)),
+                                  ("step kernels", run_steps, eval_steps)):
+            got, g_got = fn()
+            again, g_again = fn()
+            same = torch.equal(got, again) and all(
+                torch.equal(a, b) for a, b in zip(g_got, g_again))
+            with torch.no_grad():
+                same = same and torch.equal(fn_eval(), got)
+            rel = {k: float((a - b).abs().max() / b.abs().max())
+                   for k, a, b in zip(p, g_got, g_want)}
+            rel["forward"] = float((got - want).abs().max() / want.abs().max())
+            entry["max_rel_err"] = max(entry["max_rel_err"], max(rel.values()))
+            ok = within(got, want, EGCN_FWD_TOL) and all(
+                v <= EGCN_GRAD_REL for k, v in rel.items() if k != "forward")
+            log(f"EvolveGCN-O chain d={d} c={c}, {steps} steps, {path} vs plain: max rel err "
+                + ", ".join(f"{k}={v:.2e}" for k, v in rel.items())
+                + f" {'ok' if ok else 'MISMATCH'}; twice and eval "
+                + ('bit-equal' if same else 'DIFFER'))
+            if not ok or not same:
+                fail(f"the EvolveGCN-O {path} chain disagrees with the plain chain or does "
+                     "not repeat")
 
-        pd = {k: v.detach() for k, v in p.items()}
         q = pd["q0"]
         u, r, ph, h, qn, dah, dau, dar, dqp, dq = (torch.empty_like(q) for _ in range(10))
         stack = torch.randn((steps, d, c), generator=gen, device=device)
-        ms = {"fwd_step": cuda_ms(lambda: (ek.gates(pd, q, u, r, ph),
+        kept_qs, kept = ek.forward_chain(pd, steps, keep=True)
+        ms = {"train_fwd_pass": cuda_ms(lambda: ek.forward_chain(pd, steps, keep=True),
+                                        flush_buf),
+              "eval_fwd_pass": cuda_ms(lambda: ek.forward_chain(pd, steps, keep=False),
+                                       flush_buf),
+              "bwd_pass": cuda_ms(lambda: ek.backward_chain(pd, ct, kept_qs, *kept), flush_buf),
+              "fwd_step": cuda_ms(lambda: (ek.gates(pd, q, u, r, ph),
                                            ek.update(pd["u_h"], q, r, u, ph, h, qn)), flush_buf),
               "bwd_step": cuda_ms(lambda: (ek.bwd_gate(pd["u_h"], qn, u, h, q, r, dah, dau, dar,
                                                        dqp),
                                            ek.bwd_dq(pd, dah, dau, dar, dqp, qn, dq)), flush_buf),
               "grad_sums": cuda_ms(lambda: (ek.wgrad(stack, stack, stack, stack, stack),
                                             ek.bias_sum(stack, stack, stack)), flush_buf)}
-        # the chains as the K loop runs them: captured once, replayed (the
-        # host's 98 to 200 launches a chain would otherwise set the pace)
+        # the same passes a step at a time, captured as the K loop would (the
+        # host's 98 launches a pass would otherwise set the pace)
+        step_qs, step_kept = ek.forward_steps(pd, steps, keep=True)
+        by_steps = {
+            "train_fwd_pass": cuda_ms(graphed(lambda: ek.forward_steps(pd, steps, keep=True)),
+                                      flush_buf),
+            "eval_fwd_pass": cuda_ms(graphed(lambda: ek.forward_steps(pd, steps, keep=False)),
+                                     flush_buf),
+            "bwd_pass": cuda_ms(graphed(lambda: ek.backward_steps(pd, ct, step_qs, *step_kept)),
+                                flush_buf)}
+
+        # the chains as the K loop runs them: captured once, replayed
         def eval_k():
             with torch.no_grad():
                 return ek.evolve(pd, steps)
@@ -685,7 +731,8 @@ def egcn_phase(device, flush_buf) -> dict:
             return 1e3 * max(2.0 * products * d * d * c / PEAK_OPS["float32"],
                              4.0 * (6 * d * d + operands * d * c) / HBM_BYTES_PER_S)
 
-        b = {"fwd_step": bound(6, 5), "bwd_step": bound(6, 7),
+        b = {"train_fwd_pass": steps * bound(6, 8), "eval_fwd_pass": steps * bound(6, 5),
+             "bwd_pass": steps * bound(6, 7), "fwd_step": bound(6, 5), "bwd_step": bound(6, 7),
              "grad_sums": 1e3 * max(8.0 * d * d * steps * c / PEAK_OPS["float32"],
                                     4.0 * (4 * steps * d * c + 6 * d * d + 3 * d * c)
                                     / HBM_BYTES_PER_S),
@@ -695,12 +742,18 @@ def egcn_phase(device, flush_buf) -> dict:
             entry["ms"][f"{k}_d{d}"] = v
         for k, v in plain.items():
             entry["plain_ms"][f"{k}_d{d}"] = v
+        for k, v in by_steps.items():
+            entry["steps_ms"][f"{k}_d{d}"] = v
         for k, v in b.items():
             entry["bound_ms"][f"{k}_d{d}"] = v
-        log(f"EvolveGCN-O chain d={d} c={c} ms, kernels / bound / plain: "
+        log(f"EvolveGCN-O chain d={d} c={c} ms, kernels / bound / step kernels graphed / plain: "
             + "; ".join(f"{k} {v:.4f} / {b.get(k, float('nan')):.4f} / "
+                        f"{by_steps.get(k, float('nan')):.4f} / "
                         f"{plain.get(k, float('nan')):.4f}" for k, v in ms.items())
             + f" | {CARD}")
+        if any(ms[k] >= by_steps[k] for k in by_steps):
+            fail(f"a persistent pass of the EvolveGCN-O chain at d={d} is not faster than the "
+                 f"step kernels' graphed pass: {ms} against {by_steps}")
     return entry
 
 
@@ -2162,17 +2215,15 @@ def check_conv_launches(name, run, per_epoch, scoring) -> None:
 
 def check_egcn_launches(run) -> None:
     """egcn_o.yaml: per epoch on the device, each GRCU layer's chain of
-    `max_timestep` steps runs forward twice (training, val eval: egcn_gates
-    and egcn_update a step) and backward through time once (egcn_bwd_gate
-    and egcn_bwd_dq a step, then egcn_wgrad and egcn_bias_sum); each layer
-    aggregates at F = 256 (`banded`) forward, on the transpose tables and
-    in the val eval. The scoring pass adds one forward. No other kernel
-    launches."""
+    `max_timestep` steps runs forward twice (training, val eval: one
+    egcn_chain_fwd each) and backward through time once (egcn_chain_bwd,
+    then egcn_wgrad and egcn_bias_sum); each layer aggregates at F = 256
+    (`banded`) forward, on the transpose tables and in the val eval. The
+    scoring pass adds one forward. No other kernel launches: no step
+    kernel."""
     cfg, epochs = run["cfg"], device_epochs(run["metrics"])
     chains = int(cfg["layers"])
-    steps = chains * int(cfg["max_timestep"])
-    want = {"egcn_gates": 2 * steps * epochs + steps, "egcn_update": 2 * steps * epochs + steps,
-            "egcn_bwd_gate": steps * epochs, "egcn_bwd_dq": steps * epochs,
+    want = {"egcn_chain_fwd": 2 * chains * epochs + chains, "egcn_chain_bwd": chains * epochs,
             "egcn_wgrad": chains * epochs, "egcn_bias_sum": chains * epochs,
             "banded": 3 * chains * epochs + chains}
     if {k: v for k, v in run["launches"].items() if k in want or v} != want:
@@ -3005,9 +3056,7 @@ def drive(device) -> list:
         egcn = slice_phase(tmp, processed, "egcn_o.yaml", epochs=KLOOP_EPOCHS)
         check_egcn_launches(egcn)
         chains = int(egcn["cfg"]["layers"])
-        predict_check(egcn["outdir"], {"banded": chains,
-                                       "egcn_gates": chains * EGCN_STEPS,
-                                       "egcn_update": chains * EGCN_STEPS})
+        predict_check(egcn["outdir"], {"banded": chains, "egcn_chain_fwd": chains})
         mesh1_launches = mesh1_phase(tmp, processed, rec, gcn, gat, gat2)
         gspmd1_launches = gspmd_mesh1_phase(tmp, processed, rec, gcn, gat, rec_ell)
         multicard_phase(tmp, processed, rec, gat)

@@ -16,15 +16,71 @@
 // [d, d] by a [d, c] matrix (d 166 or 256, c 256: 85 or 201 MFLOP), too
 // small to fill the card, and no step can start before the last has ended.
 //
-// Design: one launch a stage, each over tiles of 16 x 32 outputs, so that a
-// step has 48 to 128 tiles for the 132 SMs. A block is several warps; each
-// warp computes one product of its tile over a fixed range of its depth,
-// chunks of 32 staged in the warp's own shared memory (no block barrier in
-// the depth loop), a lane 4 x 4 outputs from one float4 of A and one of B a
-// depth step, so that shared memory serves 16 multiply-adds per two reads.
-// The warps' sums meet in shared memory and are added in a fixed order in
-// the epilogue, which also applies the gates. No atomics: two launches on
-// the same inputs give the same bits.
+// The chain's passes, one persistent launch each (egcn_chain_fwd_kernel,
+// egcn_chain_bwd_kernel). Every product of a step is a [d, d] matrix times
+// a [d, c] one and every other op acts entry by entry, so column strip j of
+// Q_t, R o Q, H~, dA_* and dQ_t depends only on strip j of the step
+// before, through all the steps, forward and backward: strips never meet.
+// A strip of CN = 40 columns is one thread block cluster of ceil(d / 16)
+// CTAs of TM = 16 rows (the last one's rows past d masked; columns past c
+// zero). 40 and not 32: a CTA's shared memory takes an SM, and the H100
+// holds at most 7 clusters of 9 to 16 such CTAs at once (15 of 8), so c =
+// 256 has to be 7 strips, or an eighth cluster would run after the rest.
+// A CTA keeps its rows of the six weights in shared memory for the whole
+// pass, depth-major (forward: rows i0.. of W_u, U_u, W_r, U_r, W_h stacked
+// as wg [d][80], of U_h as wu [d][16]; backward: the same rows of the
+// transposes, columns of U_h and W_h, of W_u and U_u, of W_r and U_r, three
+// [d][32]), and the cluster's whole strip of each operand a product takes
+// as B ([d][40]).
+//
+// A step's stages hand each other a strip: a CTA computes its 16 rows,
+// writes them into its own copy and into a staging buffer in global memory,
+// and one thread multicasts them from there into every other CTA of the
+// cluster (cp.async.bulk ... multicast::cluster: one L2 read for all; the
+// SM-to-SM network moved the 40 KB a CTA takes in at ~13 B a cycle, 2,500
+// to 5,500 cycles an exchange at d = 256). Each block lands on an mbarrier
+// of its own, and a warp waits only for the blocks of its depth range, so
+// the products start on the first. Forward step: the gates (the five
+// products over Q_t), R o Q to the cluster, the update (U_h (R o Q)), Q_{t+1}
+// to the cluster. Backward step, from the last: dA_h (entry by entry) to the
+// cluster; U_h^T dA_h and W_h^T dA_h; dA_u, dA_r and dQ's direct part, dA_u
+// and dA_r to the cluster; the four products through W_u, U_u, W_r, U_r, and
+// dQ_{t-1} = the direct part + the five products + the cotangent of
+// Q_{t-1}'s own use, kept in registers (dQ enters the step before entry by
+// entry, so it is not exchanged). No barrier across the cluster in the
+// loop: a CTA sends a strip's next blocks only after it has every block of
+// the other strip of the step, which each CTA sends only once it is done
+// reading the first, so no block lands where it is still read. Each step
+// writes what the rest of the epoch reads: Q_t, with a gradient to come U,
+// R and H~; dA_h, dA_u and dA_r, and dQ_0. No CTA waits on another
+// cluster, so clusters that do not fit on the card at once run later.
+//
+// Inside a CTA, 8 warps. A product splits the depth among the warps, a
+// lane holding a register tile: the gates' 80 stacked rows x one half of
+// the columns, 10 x 5 a lane, four depth splits (50 multiply-adds per five
+// shared-memory reads); the other products R x 5 a lane over 16 or 32 rows.
+// The splits' partial sums meet in shared memory, over the strip the
+// products have just read (no other CTA writes it before this CTA's next
+// send), and are added in a fixed order. Shared memory: forward 96 d +
+// max(40 d, 2 x 80 x 44) + max(40 d, 8 x 640) floats, 176 KB at d = 256;
+// backward 96 d + max(40 d, 8 x 1280) + max(80 d, 8 x 1280), 216 KB (a block
+// may take 227). **Limit**: d <= 256, a cluster of at most 16 CTAs (sm_90's
+// non-portable maximum). Past it the wrapper takes the per-step kernels
+// below, by shape alone. Bound of a step at d = 256 on 112 SMs: the six
+// products' 16 x 40 x 6 x 256 multiply-adds a CTA, 7,680 cycles of an SM's
+// 128 FMA lanes (~3.9 us at 1.98 GHz). Measured (H100, clock stamps): ~19,500
+// cycles a step at d = 256, ~15,400 at 166: the products at ~55-60% of the
+// FMA rate (the lane tiles' shared-memory reads), each exchange's latency
+// through the L2 (~1,500-2,000 cycles), the epilogues and the splits' sums.
+//
+// The per-step kernels (shapes past the limit): one launch a stage, each
+// over tiles of 16 x 32 outputs. A block is several warps; each warp
+// computes one product of its tile over a fixed range of its depth, chunks
+// of 32 staged in the warp's own shared memory (no block barrier in the
+// depth loop), a lane 4 x 4 outputs as above. The warps' sums meet in
+// shared memory and are added in a fixed order in the epilogue, which also
+// applies the gates. No atomics anywhere: two launches on the same inputs
+// give the same bits.
 //
 //   forward   egcn_gates_kernel   five products (W_u Q, U_u Q, W_r Q, U_r Q,
 //                                 W_h Q), four warps each over the depth;
@@ -41,22 +97,28 @@
 //                                 U_r^T dA_r, added to the direct part (and
 //                                 to the cotangent Q_{t-1} takes from its
 //                                 own use, where given): dQ
-//             egcn_wgrad_kernel   once after the chain: the weights'
-//                                 gradients, sums over all steps at once
-//                                 (depth steps x c): dW_h = sum dA_h Q^T,
-//                                 dU_h = sum dA_h (R o Q)^T, dW_u = dU_u =
-//                                 sum dA_u Q^T, dW_r = dU_r = sum dA_r Q^T
+// Both paths, once after the chain's backward:
+//             egcn_wgrad_kernel   the weights' gradients, sums over all
+//                                 steps at once (depth steps x c): dW_h =
+//                                 sum dA_h Q^T, dU_h = sum dA_h (R o Q)^T,
+//                                 dW_u = dU_u = sum dA_u Q^T, dW_r = dU_r =
+//                                 sum dA_r Q^T
 //             egcn_bias_sum_kernel  dB_* = sum over the steps of dA_*
 //
 // Numerics: each product sums in f32 with fused multiply-adds, the warps'
-// partial sums added in order; sigmoid as 1 / (1 + expf(-x)) and tanhf, as
-// ATen computes them on the card. Only the order of the sums differs from
-// cuBLAS's.
+// partial sums added in order; the products and the terms added as the
+// plain twins add them (W_u Q + U_u Q, never (W_u + U_u) Q); sigmoid as
+// 1 / (1 + expf(-x)) and tanhf, as ATen computes them on the card. Only the
+// order of the sums differs from cuBLAS's. The forward without a gradient
+// to come runs the same code with its stacks' stores off: the same bits.
 //
 // Plain C interface, loaded with ctypes (kernels/egcn_evolve.py).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -532,6 +594,585 @@ __global__ void egcn_bias_sum_kernel(const float* __restrict__ dah, const float*
   }
 }
 
+// ---- the persistent chain: one launch a pass, a cluster a column strip ----
+
+constexpr int CN = 40;          // a strip's columns: 7 strips cover c = 256
+constexpr int CTILE = TM * CN;  // a CTA's entries of one [d, c] matrix
+constexpr int ROW_BYTES = CN * 4;
+constexpr int CHAIN_WARPS = 8;
+constexpr int CHAIN_THREADS = CHAIN_WARPS * WARP;
+constexpr int PER_THREAD = (CTILE + CHAIN_THREADS - 1) / CHAIN_THREADS;  // entries a thread
+constexpr int CHAIN_MAX_CTAS = 16;                 // sm_90's largest (non-portable) cluster
+constexpr int CHAIN_MAX_D = CHAIN_MAX_CTAS * TM;   // 256
+constexpr int GATE_ROWS = 5 * TM;                  // the gates' products stacked: 80 rows
+constexpr int SLOT_ROW = CN + 4;                   // a gates slot's row: no bank conflicts
+constexpr int GATE_SLOT = GATE_ROWS * SLOT_ROW;
+constexpr int GATE_SLOTS = 2 * GATE_SLOT;          // their partial sums, halved twice
+constexpr int SPLIT_SLOTS = CHAIN_WARPS * 2 * CTILE;  // a warp's 32 x 40 partial sums each
+
+// Shared memory in floats: the six weights' rows, then two regions each
+// holding a strip [d][CN] (the backward's second: two) and, while no other
+// CTA writes there, the stages' partial sums.
+__host__ __device__ constexpr int at_least(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int fwd_region1(int d) { return at_least(d * CN, GATE_SLOTS); }
+__host__ __device__ constexpr int fwd_region2(int d) {
+  return at_least(d * CN, CHAIN_WARPS * CTILE);
+}
+__host__ __device__ constexpr int bwd_region1(int d) { return at_least(d * CN, SPLIT_SLOTS); }
+__host__ __device__ constexpr int bwd_region2(int d) { return at_least(2 * d * CN, SPLIT_SLOTS); }
+// after the floats, an mbarrier for each block (source CTA) of each exchanged strip
+constexpr int BARRIER_BYTES = 3 * CHAIN_MAX_CTAS * 8;
+__host__ __device__ constexpr int chain_fwd_bytes(int d) {
+  return 4 * (6 * TM * d + fwd_region1(d) + fwd_region2(d)) + BARRIER_BYTES;
+}
+__host__ __device__ constexpr int chain_bwd_bytes(int d) {
+  return 4 * (6 * TM * d + bwd_region1(d) + bwd_region2(d)) + BARRIER_BYTES;
+}
+static_assert(chain_bwd_bytes(CHAIN_MAX_D) <= 232448 && chain_fwd_bytes(CHAIN_MAX_D) <= 232448,
+              "a CTA's shared memory at d = 256");
+
+// ---- the exchange: a block staged in global memory, multicast to the cluster ----
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(saddr(bar)) : "memory");
+}
+// This CTA's arrival for the barrier's current phase, which then completes
+// once `bytes` more have landed.
+__device__ __forceinline__ void bar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(saddr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(saddr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` from global memory at `src` into the shared memory of every CTA
+// of the cluster named in `mask`, at this CTA's offset `dst`, counted there
+// on the mbarrier at this CTA's offset `bar`: one read of the L2 for all.
+__device__ __forceinline__ void copy_to_all(void* dst, const float* src, unsigned bytes,
+                                            unsigned long long* bar, unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;" ::"r"(saddr(dst)),
+      "l"(src), "r"(bytes), "r"(saddr(bar)), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ int block_rows(int d, int b) { return min(TM, d - b * TM); }
+
+// A CTA's own block of the cluster's strip at `strip` (its [rows][CN] rows,
+// written by its threads there and, as the same [d][CN] layout, at `stage`
+// in global memory) to every other CTA of the cluster, counted there on the
+// mbarrier of this block, bars[me]; and, where given, the same for strip2.
+// Arms this CTA's barriers of the other blocks, which then complete as those
+// land (each warp waits for the blocks it reads, so that the products start
+// on the first to land). The copies have read the staged blocks before this
+// returns, so they may be written again.
+__device__ __forceinline__ void send(float* strip, const float* stage, unsigned long long* bars,
+                                     float* strip2, const float* stage2,
+                                     unsigned long long* bars2, int ctas, int d) {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  __syncthreads();
+  const int me = static_cast<int>(blockIdx.x), r = static_cast<int>(threadIdx.x);
+  if (r < ctas && r != me) {  // lane r of warp 0: the barrier of block r
+    const unsigned in = static_cast<unsigned>(block_rows(d, r) * ROW_BYTES);
+    bar_expect(bars + r, in);
+    if (strip2 != nullptr) bar_expect(bars2 + r, in);
+  }
+  if (r == me && ctas > 1) {
+    const unsigned short others = static_cast<unsigned short>(((1u << ctas) - 1) & ~(1u << me));
+    const unsigned bytes = static_cast<unsigned>(block_rows(d, me) * ROW_BYTES);
+    const int at = me * TM * CN;
+    copy_to_all(strip + at, stage + at, bytes, bars + me, others);
+    if (strip2 != nullptr) copy_to_all(strip2 + at, stage2 + at, bytes, bars2 + me, others);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+// Depths [k0, k1) of a product whose strip lands block by block on `bars`
+// (null: all here): f(lo, hi) over each block's part once it has landed.
+template <class F>
+__device__ __forceinline__ void by_block(int k0, int k1, const unsigned long long* bars,
+                                         unsigned parity, F f) {
+  for (int b = k0 / TM; b * TM < k1; ++b) {
+    if (bars != nullptr && b != static_cast<int>(blockIdx.x))
+      bar_wait(const_cast<unsigned long long*>(bars + b), parity);
+    f(max(k0, b * TM), min(k1, (b + 1) * TM));
+  }
+}
+
+// ---- the products ----
+
+// Rows i0.. of W_p into dst[k * stride + ii] = W_p[i0 + ii][k], or with TRANS
+// W_p[k][i0 + ii] (rows of W_p^T), ii < TM, zero past row d; six such.
+struct RowsOf {
+  const float* w[6];
+  int off[6];  // dst of each, in floats from the weights' base
+  int stride[6];
+};
+template <bool TRANS>
+__device__ __forceinline__ void load_rows(float* __restrict__ base, const RowsOf& rs, int i0,
+                                          int d) {
+  for (int e = threadIdx.x; e < 6 * d; e += blockDim.x) {
+    const int p = e / d, k = e % d;
+    const float* __restrict__ src = rs.w[p];
+    float v[TM];
+#pragma unroll
+    for (int ii = 0; ii < TM; ++ii) {
+      const int i = i0 + ii;
+      v[ii] = i < d ? (TRANS ? src[static_cast<long long>(k) * d + i]
+                             : src[static_cast<long long>(i) * d + k])
+                    : 0.f;
+    }
+    float4* dst = reinterpret_cast<float4*>(base + rs.off[p] + k * rs.stride[p]);
+#pragma unroll
+    for (int m = 0; m < TM / 4; ++m)
+      dst[m] = make_float4(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3]);
+  }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float2 lds2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// The gates' products stacked, A = wg [d][80] (W_u, U_u, W_r, U_r, W_h: 16
+// rows each) times the strip B [d][CN], over depths [k0, k1), one half of
+// the columns (h): a lane's 10 x 5 outputs, rows 8 rg .. 8 rg + 7 and
+// 64 + 2 rg, + 1 (rg < 8), columns 16 h + 4 cg .. + 3 and 32 + 4 h + cg
+// (cg < 4): 50 multiply-adds per five shared-memory reads.
+__device__ __forceinline__ int gate_row(int rg, int i) {
+  return i < 8 ? 8 * rg + i : 64 + 2 * rg + i - 8;
+}
+
+__device__ __forceinline__ void mac_gates(const float* __restrict__ A, const float* __restrict__ B,
+                                          int k0, int k1, int rg, int cg, int h,
+                                          float (&acc)[10][5]) {
+  const float* a = A + 8 * rg;
+  const float* a2 = A + 64 + 2 * rg;
+  const float* b = B + 16 * h + 4 * cg;
+  const float* b1 = B + 32 + 4 * h + cg;
+#pragma unroll 2
+  for (int k = k0; k < k1; ++k) {
+    const float4 a0 = lds4(a + k * GATE_ROWS), a1 = lds4(a + k * GATE_ROWS + 4);
+    const float2 a3 = lds2(a2 + k * GATE_ROWS);
+    const float4 b0 = lds4(b + k * CN);
+    const float x[10] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a3.x, a3.y};
+    const float y[5] = {b0.x, b0.y, b0.z, b0.w, b1[k * CN]};
+#pragma unroll
+    for (int i = 0; i < 10; ++i)
+#pragma unroll
+      for (int j = 0; j < 5; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  }
+}
+
+// A gates slot's row of stacked row R (= 8 rg + i or 64 + 2 rg + i - 8):
+// a lane's eight first rows interleaved with the next lane group's, so that
+// a quarter warp writes rows SLOT_ROW apart, on other banks.
+__host__ __device__ __forceinline__ int slot_row(int R) {
+  return R < 64 ? (R % 8) * 8 + R / 8 : R;
+}
+
+// A lane's 10 x 5 tile into (ADD: onto) a [80][SLOT_ROW] slot.
+template <bool ADD>
+__device__ __forceinline__ void tile_gates(float* slot, float (&acc)[10][5], int rg, int cg,
+                                           int h) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    float* r = slot + slot_row(gate_row(rg, i)) * SLOT_ROW;
+    float4* c0 = reinterpret_cast<float4*>(r + 16 * h + 4 * cg);
+    float* c1 = r + 32 + 4 * h + cg;
+    if (ADD) {
+      const float4 v = *c0;
+      acc[i][0] += v.x;
+      acc[i][1] += v.y;
+      acc[i][2] += v.z;
+      acc[i][3] += v.w;
+      acc[i][4] += *c1;
+    } else {
+      *c0 = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *c1 = acc[i][4];
+    }
+  }
+}
+
+// The gates' four depth splits s of each column half h (warp 4 h + s),
+// summed in halves: slot 0 and slot 1 end up holding (s0 + s2) and (s1 +
+// s3) (every thread calls it; the first barrier so that the slots may
+// overlay the strip just read).
+__device__ __forceinline__ void reduce_gates(float* slots, float (&acc)[10][5], int s, int rg,
+                                             int cg, int h) {
+  __syncthreads();
+  if (s >= 2) tile_gates<false>(slots + (s - 2) * GATE_SLOT, acc, rg, cg, h);
+  __syncthreads();
+  if (s < 2) {
+    tile_gates<true>(slots + s * GATE_SLOT, acc, rg, cg, h);
+    tile_gates<false>(slots + s * GATE_SLOT, acc, rg, cg, h);
+  }
+  __syncthreads();
+}
+
+// A product with a tile of R = 4 or 8 rows (A [d][4 R] of R-row groups, 4
+// of them: 16 or 32 rows) times the strip B [d][CN], over depths [k0, k1):
+// a lane's R x 5 outputs, rows R rg .. R rg + R - 1 (rg < 4), columns 4 cg ..
+// 4 cg + 3 and 32 + cg (cg < 8).
+template <int R>
+__device__ __forceinline__ void mac_rows(const float* __restrict__ A, const float* __restrict__ B,
+                                         int k0, int k1, int rg, int cg, float (&acc)[R][5]) {
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    const float* a = A + k * 4 * R + R * rg;
+    const float* b = B + k * CN;
+    float x[R];
+#pragma unroll
+    for (int m = 0; m < R / 4; ++m) {
+      const float4 v = lds4(a + 4 * m);
+      x[4 * m] = v.x;
+      x[4 * m + 1] = v.y;
+      x[4 * m + 2] = v.z;
+      x[4 * m + 3] = v.w;
+    }
+    const float4 b0 = lds4(b + 4 * cg);
+    const float y[5] = {b0.x, b0.y, b0.z, b0.w, b[32 + cg]};
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 5; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  }
+}
+
+// A warp's R x 5 lane tiles, its [4 R][CN] partial sums, into `slot`.
+template <int R>
+__device__ __forceinline__ void tile_rows(float* slot, const float (&acc)[R][5], int rg, int cg) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float* r = slot + (R * rg + i) * CN;
+    *reinterpret_cast<float4*>(r + 4 * cg) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    r[32 + cg] = acc[i][4];
+  }
+}
+
+// Split s of S over the depth d: [k0, k1).
+__device__ __forceinline__ void split(int d, int S, int s, int& k0, int& k1) {
+  const int per = (d + S - 1) / S;
+  k0 = min(d, s * per);
+  k1 = min(d, k0 + per);
+}
+
+// Entry `at` of the S slots from `first` (each `size` floats), added in
+// order.
+__device__ __forceinline__ float sum_slots(const float* slots, int first, int S, int size,
+                                           int at) {
+  float v = slots[first * size + at];
+  for (int s = 1; s < S; ++s) v += slots[(first + s) * size + at];
+  return v;
+}
+
+// The entries a thread holds in the epilogues: e = tid + 256 m of the
+// CTA's 16 x 40 (m < PER_THREAD).
+struct Entries {
+  int e[PER_THREAD];     // index in the tile
+  bool row[PER_THREAD];  // a row of Q (i < d)
+  bool own[PER_THREAD];  // and a column of it (j < c): an entry the pass writes
+  long long x[PER_THREAD];  // index in a [d, c] matrix
+  __device__ Entries(int d, int c) {
+#pragma unroll
+    for (int m = 0; m < PER_THREAD; ++m) {
+      e[m] = threadIdx.x + m * CHAIN_THREADS;
+      const int i = blockIdx.x * TM + e[m] / CN, j = blockIdx.y * CN + e[m] % CN;
+      row[m] = e[m] < CTILE && i < d;
+      own[m] = row[m] && j < c;
+      x[m] = static_cast<long long>(i) * c + j;
+    }
+  }
+};
+
+struct ChainFwdArgs {
+  RowsOf w;   // W_u, U_u, W_r, U_r, W_h into wg [d][80]; U_h into wu [d][16]
+  const float* bu;
+  const float* br;
+  const float* bh;
+  const float* q0;
+  float* qs;  // [steps + 1, d, c]: Q_0 .. Q_steps
+  float* us;  // [steps, d, c] each, or all three null (no gradient to come)
+  float* rs;
+  float* hs;
+  float* stage;  // [2, strips, d, CN]: each CTA's rows of Q_t and of R o Q_t for the others
+  int steps, d, c;
+};
+
+__global__ void __launch_bounds__(CHAIN_THREADS, 1) egcn_chain_fwd_kernel(ChainFwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int d = a.d, c = a.c, ctas = gridDim.x, i0 = blockIdx.x * TM, j0 = blockIdx.y * CN;
+  float* wg = reinterpret_cast<float*>(smem);  // [d][80]
+  float* wu = wg + GATE_ROWS * d;               // [d][16]
+  float* qst = wu + TM * d;                     // Q_t's strip; the gates' slots
+  float* rqs = qst + fwd_region1(d);            // (R o Q_t)'s strip; the update's slots
+  unsigned long long* bar_q = reinterpret_cast<unsigned long long*>(rqs + fwd_region2(d));
+  unsigned long long* bar_rq = bar_q + CHAIN_MAX_CTAS;
+  const long long strip_floats = static_cast<long long>(d) * CN;
+  float* stq = a.stage + blockIdx.y * strip_floats;       // Q_t's strip, staged
+  float* strq = stq + gridDim.y * strip_floats;          // (R o Q_t)'s
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < ctas; ++b) {
+      bar_init(bar_q + b);
+      bar_init(bar_rq + b);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  load_rows<false>(wg, a.w, i0, d);
+  for (int e = threadIdx.x; e < d * CN; e += blockDim.x) {
+    const int j = j0 + e % CN;
+    qst[e] = j < c ? a.q0[static_cast<long long>(e / CN) * c + j] : 0.f;
+  }
+  const Entries en(d, c);
+  const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const long long dc = static_cast<long long>(d) * c;
+  // an entry's Q_t, and its biases, the same every step
+  float q[PER_THREAD], bu[PER_THREAD], br[PER_THREAD], bh[PER_THREAD];
+#pragma unroll
+  for (int m = 0; m < PER_THREAD; ++m) {
+    q[m] = bu[m] = br[m] = bh[m] = 0.f;
+    if (en.own[m]) {
+      q[m] = a.q0[en.x[m]];
+      bu[m] = a.bu[en.x[m]];
+      br[m] = a.br[en.x[m]];
+      bh[m] = a.bh[en.x[m]];
+      a.qs[en.x[m]] = q[m];
+    }
+  }
+  cl.sync();  // every CTA of the cluster runs, its barriers set and Q_0's strip loaded
+  int k0, k1, g0, g1;
+  split(d, CHAIN_WARPS, w, k0, k1);
+  split(d, 4, w % 4, g0, g1);  // the gates': four depth splits of each column half
+  for (int t = 0; t < a.steps; ++t) {
+    {  // the gates: the five stacked products, two column halves x four depth splits
+      float acc[10][5] = {};
+      by_block(g0, g1, t > 0 ? bar_q : nullptr, (t - 1) & 1, [&](int lo, int hi) {
+        mac_gates(wg, qst, lo, hi, lane / 4, lane % 4, w / 4, acc);
+      });
+      reduce_gates(qst, acc, w % 4, lane / 4, lane % 4, w / 4);
+    }
+    float u[PER_THREAD], ph[PER_THREAD];
+#pragma unroll
+    for (int m = 0; m < PER_THREAD; ++m) {
+      u[m] = ph[m] = 0.f;
+      if (!en.row[m]) continue;
+      float r = 0.f;
+      if (en.own[m]) {
+        const int ii = en.e[m] / CN, jj = en.e[m] % CN;
+        float z[5];
+#pragma unroll
+        for (int p = 0; p < 5; ++p) {
+          const int at = slot_row(p * TM + ii) * SLOT_ROW + jj;
+          z[p] = qst[at] + qst[GATE_SLOT + at];
+        }
+        u[m] = sigmoid_f(z[0] + z[1] + bu[m]);
+        r = sigmoid_f(z[2] + z[3] + br[m]);
+        ph[m] = z[4] + bh[m];
+        if (a.us != nullptr) {
+          a.us[t * dc + en.x[m]] = u[m];
+          a.rs[t * dc + en.x[m]] = r;
+        }
+      }
+      rqs[i0 * CN + en.e[m]] = strq[i0 * CN + en.e[m]] = r * q[m];
+    }
+    send(rqs, strq, bar_rq, nullptr, nullptr, nullptr, ctas, d);
+    {  // the update: U_h (R o Q), eight depth splits, a warp's partial sums a slot
+      float acc[4][5] = {};
+      by_block(k0, k1, bar_rq, t & 1, [&](int lo, int hi) {
+        mac_rows<4>(wu, rqs, lo, hi, lane / 8, lane % 8, acc);
+      });
+      __syncthreads();
+      tile_rows<4>(rqs + w * CTILE, acc, lane / 8, lane % 8);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int m = 0; m < PER_THREAD; ++m) {
+      if (!en.row[m]) continue;
+      float qn = 0.f;
+      if (en.own[m]) {
+        const float h = tanhf(ph[m] + sum_slots(rqs, 0, CHAIN_WARPS, CTILE, en.e[m]));
+        qn = (1.f - u[m]) * q[m] + u[m] * h;
+        a.qs[(t + 1) * dc + en.x[m]] = qn;
+        if (a.hs != nullptr) a.hs[t * dc + en.x[m]] = h;
+      }
+      qst[i0 * CN + en.e[m]] = stq[i0 * CN + en.e[m]] = qn;
+      q[m] = qn;
+    }
+    if (t + 1 < a.steps) send(qst, stq, bar_q, nullptr, nullptr, nullptr, ctas, d);
+  }
+  cl.sync();  // no CTA leaves while a copy may still reach it
+}
+
+struct ChainBwdArgs {
+  RowsOf w;         // rows of U_h^T, W_h^T into wb1 [d][32]; W_u^T, U_u^T into wb2;
+                    // W_r^T, U_r^T into wb3
+  const float* g;   // [steps, d, c]: the cotangents of Q_1 .. Q_steps
+  const float* qs;  // step t's input Q_t at [t] (t < steps)
+  const float* us;  // [steps, d, c]: U, R, H~ of each step
+  const float* rs;
+  const float* hs;
+  float* dah;  // [steps, d, c]
+  float* dau;
+  float* dar;
+  float* dq0;  // [d, c]
+  float* stage;  // [3, strips, d, CN]: each CTA's rows of dA_h, dA_u, dA_r for the others
+  int steps, d, c;
+};
+
+__global__ void __launch_bounds__(CHAIN_THREADS, 1) egcn_chain_bwd_kernel(ChainBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int d = a.d, c = a.c, ctas = gridDim.x, i0 = blockIdx.x * TM;
+  float* wb = reinterpret_cast<float*>(smem);  // wb1, wb2, wb3 [d][32] each
+  float* dhs = wb + 6 * TM * d;                 // dA_h's strip; the first products' slots
+  float* dus = dhs + bwd_region1(d);            // dA_u's strip, then dA_r's; the
+  float* drs = dus + d * CN;                    //   last products' slots over both
+  unsigned long long* bar_h = reinterpret_cast<unsigned long long*>(dus + bwd_region2(d));
+  unsigned long long* bar_u = bar_h + CHAIN_MAX_CTAS;
+  unsigned long long* bar_r = bar_u + CHAIN_MAX_CTAS;
+  const long long strip_floats = static_cast<long long>(d) * CN;
+  float* sth = a.stage + blockIdx.y * strip_floats;  // dA_h's strip, staged
+  float* stu = sth + gridDim.y * strip_floats;       // dA_u's
+  float* str = stu + gridDim.y * strip_floats;       // dA_r's
+  constexpr int PART = 2 * CTILE;  // a warp's [32][CN] partial sums
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < ctas; ++b) {
+      bar_init(bar_h + b);
+      bar_init(bar_u + b);
+      bar_init(bar_r + b);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  load_rows<true>(wb, a.w, i0, d);
+  const Entries en(d, c);
+  const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const long long dc = static_cast<long long>(d) * c;
+  const int last = a.steps - 1;
+  // an entry's dQ' at the step at hand, and its U, H~, Q, R fetched a step ahead
+  float dqn[PER_THREAD], nu[PER_THREAD], nh[PER_THREAD], nq[PER_THREAD], nr[PER_THREAD];
+#pragma unroll
+  for (int m = 0; m < PER_THREAD; ++m) {
+    dqn[m] = nu[m] = nh[m] = nq[m] = nr[m] = 0.f;
+    if (en.own[m]) {
+      const long long y = last * dc + en.x[m];
+      dqn[m] = a.g[y];
+      nu[m] = a.us[y];
+      nh[m] = a.hs[y];
+      nq[m] = a.qs[y];
+      nr[m] = a.rs[y];
+    }
+  }
+  cl.sync();  // every CTA of the cluster runs, its barriers set
+  int k0, k1, k2, k3;
+  split(d, CHAIN_WARPS, w, k0, k1);
+  split(d, 4, w % 4, k2, k3);
+  const int half = w / 4;  // the last products: W_u^T, U_u^T (0) or W_r^T, U_r^T (1)
+  for (int t = last; t >= 0; --t) {
+    const unsigned parity = (last - t) & 1;
+    float u[PER_THREAD], h[PER_THREAD], q[PER_THREAD], r[PER_THREAD], extra[PER_THREAD];
+#pragma unroll
+    for (int m = 0; m < PER_THREAD; ++m) {
+      u[m] = nu[m];
+      h[m] = nh[m];
+      q[m] = nq[m];
+      r[m] = nr[m];
+      extra[m] = 0.f;  // the cotangent of Q_t's own use (an output when t > 0)
+      if (en.own[m] && t > 0) {
+        const long long y = (t - 1) * dc + en.x[m];
+        extra[m] = a.g[y];
+        nu[m] = a.us[y];
+        nh[m] = a.hs[y];
+        nq[m] = a.qs[y];
+        nr[m] = a.rs[y];
+      }
+      if (!en.row[m]) continue;
+      float dh = 0.f;
+      if (en.own[m]) {
+        dh = dah_of(dqn[m], u[m], h[m]);
+        a.dah[t * dc + en.x[m]] = dh;
+      }
+      dhs[i0 * CN + en.e[m]] = sth[i0 * CN + en.e[m]] = dh;
+    }
+    send(dhs, sth, bar_h, nullptr, nullptr, nullptr, ctas, d);
+    {  // U_h^T dA_h (rows 0-15) and W_h^T dA_h (16-31), eight depth splits
+      float acc[8][5] = {};
+      by_block(k0, k1, bar_h, parity, [&](int lo, int hi) {
+        mac_rows<8>(wb, dhs, lo, hi, lane / 8, lane % 8, acc);
+      });
+      __syncthreads();
+      tile_rows<8>(dhs + w * PART, acc, lane / 8, lane % 8);
+      __syncthreads();
+    }
+    float dqp[PER_THREAD], whp[PER_THREAD];
+#pragma unroll
+    for (int m = 0; m < PER_THREAD; ++m) {
+      dqp[m] = whp[m] = 0.f;
+      if (!en.row[m]) continue;
+      float du = 0.f, dr = 0.f;
+      if (en.own[m]) {
+        const float grq = sum_slots(dhs, 0, CHAIN_WARPS, PART, en.e[m]);  // d(R o Q)
+        whp[m] = sum_slots(dhs, 0, CHAIN_WARPS, PART, CTILE + en.e[m]);
+        const float g = dqn[m];
+        du = g * (h[m] - q[m]) * u[m] * (1.f - u[m]);
+        dr = grq * q[m] * r[m] * (1.f - r[m]);
+        dqp[m] = g * (1.f - u[m]) + grq * r[m];
+        a.dau[t * dc + en.x[m]] = du;
+        a.dar[t * dc + en.x[m]] = dr;
+      }
+      dus[i0 * CN + en.e[m]] = stu[i0 * CN + en.e[m]] = du;
+      drs[i0 * CN + en.e[m]] = str[i0 * CN + en.e[m]] = dr;
+    }
+    send(dus, stu, bar_u, drs, str, bar_r, ctas, d);
+    {  // W_u^T dA_u, U_u^T dA_u (warps 0-3), W_r^T dA_r, U_r^T dA_r (4-7), four
+       // depth splits each
+      float acc[8][5] = {};
+      const float* A = wb + (1 + half) * 2 * TM * d;
+      const float* B = half == 0 ? dus : drs;
+      by_block(k2, k3, half == 0 ? bar_u : bar_r, parity, [&](int lo, int hi) {
+        mac_rows<8>(A, B, lo, hi, lane / 8, lane % 8, acc);
+      });
+      __syncthreads();
+      tile_rows<8>(dus + w * PART, acc, lane / 8, lane % 8);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int m = 0; m < PER_THREAD; ++m) {
+      if (!en.own[m]) continue;
+      const int at = en.e[m];
+      float v = dqp[m];
+      v += whp[m];
+      v += sum_slots(dus, 0, 4, PART, at);
+      v += sum_slots(dus, 0, 4, PART, CTILE + at);
+      v += sum_slots(dus, 4, 4, PART, at);
+      v += sum_slots(dus, 4, 4, PART, CTILE + at);
+      if (t > 0) v += extra[m];
+      dqn[m] = v;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < PER_THREAD; ++m)
+    if (en.own[m]) a.dq0[en.x[m]] = dqn[m];
+  cl.sync();  // no CTA leaves while a copy may still reach it
+}
+
 // Launches `kernel` with `warps` warps a block and their shared memory,
 // above 48 KB: the attribute is set at a kernel's first launch (before any
 // capture: the trainer's first epoch runs eagerly).
@@ -546,6 +1187,45 @@ int launch(K kernel, bool& ready, dim3 grid, int warps, const A& args, void* str
   }
   kernel<<<grid, warps * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches a pass of the chain: a cluster of `ctas` CTAs for each of
+// `strips` column strips. The shared-memory size (the largest d's) and
+// the non-portable cluster size are allowed at a kernel's first launch,
+// before any capture.
+template <class K, class A>
+int launch_chain(K kernel, bool& ready, int max_bytes, int ctas, int strips, int bytes,
+                 const A& args, void* stream) {
+  if (!ready) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, strips, 1);
+  cfg.blockDim = dim3(CHAIN_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool chain_fwd_ready = false, chain_bwd_ready = false;
+
+// the persistent chain's shapes: a cluster of at most CHAIN_MAX_CTAS
+bool chain_ok(int d, int c, int steps) {
+  return d > 0 && d <= CHAIN_MAX_D && c > 0 && c % 4 == 0 && steps > 0;
 }
 
 bool gates_ready = false, update_ready = false, bwd_gate_ready = false, bwd_dq_ready = false,
@@ -651,6 +1331,57 @@ int egcn_bias_sum_launch(const void* dah, const void* dau, const void* dar, int 
       f<float>(dah), f<float>(dau), f<float>(dar), steps, n, static_cast<float*>(dbh),
       static_cast<float*>(dbu), static_cast<float*>(dbr));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The chain's forward over `steps` steps, one launch: Q_0 .. Q_steps into
+// qs [steps + 1, d, c]; with us, rs, hs (all three, or none) each step's
+// U, R and H~ [steps, d, c]. d <= 256.
+int egcn_chain_fwd_launch(const void* wu, const void* uu, const void* wr, const void* ur,
+                          const void* wh, const void* uh, const void* bu, const void* br,
+                          const void* bh, const void* q0, void* qs, void* us, void* rs,
+                          void* hs, void* stage, int steps, int d, int c, void* stream) {
+  const bool keep = us != nullptr;
+  if (!chain_ok(d, c, steps) || !wu || !uu || !wr || !ur || !wh || !uh || !bu || !br || !bh ||
+      !q0 || !qs || !stage || (rs != nullptr) != keep || (hs != nullptr) != keep)
+    return invalid();
+  ChainFwdArgs a = {{{f<float>(wu), f<float>(uu), f<float>(wr), f<float>(ur), f<float>(wh),
+                      f<float>(uh)},
+                     {0, TM, 2 * TM, 3 * TM, 4 * TM, GATE_ROWS * d},
+                     {GATE_ROWS, GATE_ROWS, GATE_ROWS, GATE_ROWS, GATE_ROWS, TM}},
+                    f<float>(bu), f<float>(br), f<float>(bh), f<float>(q0),
+                    static_cast<float*>(qs), static_cast<float*>(us), static_cast<float*>(rs),
+                    static_cast<float*>(hs), static_cast<float*>(stage), steps, d, c};
+  return launch_chain(egcn_chain_fwd_kernel, chain_fwd_ready, chain_fwd_bytes(CHAIN_MAX_D),
+                      (d + TM - 1) / TM, (c + CN - 1) / CN, chain_fwd_bytes(d), a, stream);
+}
+
+// The chain's backward through time, one launch: from the cotangents g
+// [steps, d, c] of Q_1 .. Q_steps and the forward's qs, U, R, H~, every
+// step's dA_h, dA_u, dA_r [steps, d, c] and Q_0's cotangent dq0 [d, c].
+int egcn_chain_bwd_launch(const void* uh, const void* wh, const void* wu, const void* uu,
+                          const void* wr, const void* ur, const void* g, const void* qs,
+                          const void* us, const void* rs, const void* hs, void* dah, void* dau,
+                          void* dar, void* dq0, void* stage, int steps, int d, int c,
+                          void* stream) {
+  if (!chain_ok(d, c, steps) || !uh || !wh || !wu || !uu || !wr || !ur || !g || !qs || !us ||
+      !rs || !hs || !dah || !dau || !dar || !dq0 || !stage)
+    return invalid();
+  ChainBwdArgs a = {{{f<float>(uh), f<float>(wh), f<float>(wu), f<float>(uu), f<float>(wr),
+                      f<float>(ur)},
+                     {0, TM, 2 * TM * d, 2 * TM * d + TM, 4 * TM * d, 4 * TM * d + TM},
+                     {2 * TM, 2 * TM, 2 * TM, 2 * TM, 2 * TM, 2 * TM}},
+                    f<float>(g), f<float>(qs), f<float>(us), f<float>(rs), f<float>(hs),
+                    static_cast<float*>(dah), static_cast<float*>(dau),
+                    static_cast<float*>(dar), static_cast<float*>(dq0),
+                    static_cast<float*>(stage), steps, d, c};
+  return launch_chain(egcn_chain_bwd_kernel, chain_bwd_ready, chain_bwd_bytes(CHAIN_MAX_D),
+                      (d + TM - 1) / TM, (c + CN - 1) / CN, chain_bwd_bytes(d), a, stream);
+}
+
+// The floats of one exchanged matrix's staging buffer, [ceil(c / 40), d, 40]:
+// a forward pass takes two, a backward three.
+long long egcn_chain_stage_floats(int d, int c) {
+  return static_cast<long long>((c + CN - 1) / CN) * d * CN;
 }
 
 const char* egcn_error_string(int code) {

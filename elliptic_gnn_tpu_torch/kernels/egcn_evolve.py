@@ -18,15 +18,23 @@ plain version, the formulation that the model's CPU path takes and the
 kernels are held against, is `evolve_plain` (ATen ops, differentiated by
 autograd).
 
-Forward, two launches a step (egcn_gates, egcn_update); with a gradient
-to come, every step's input Q_{t-1}, U, R and H~ are kept. Backward through
-time, two launches a step from the last (egcn_bwd_gate: the gates'
-pre-activation cotangents and the direct part of dQ; egcn_bwd_dq: the rest
-of dQ, plus the cotangent Q_{t-1} takes from its own use), then the weights'
-gradients over all steps at once (egcn_wgrad) and the biases' (egcn_bias_sum).
-W_u and U_u see the same input Q, so their gradients are equal (and W_r's and
-U_r's): the kernel writes each pair from one sum. No float atomics: two
-launches on the same inputs give the same bits.
+On the card each pass of the chain is one persistent launch where the
+shape allows (`persistent(d, c)`: d <= CHAIN_MAX_D = 256, a thread block
+cluster of ceil(d / 16) CTAs for each strip of 40 columns, the weights' rows
+held in shared memory through all the steps; the source's note): the
+forward (egcn_chain_fwd; with a gradient to come it also keeps every
+step's U, R and H~), and the backward through time (egcn_chain_bwd: every
+step's pre-activation cotangents dA_h, dA_u, dA_r and Q_0's cotangent).
+Past the limit the chain runs one step at a time, two launches a step
+forward (egcn_gates, egcn_update) and two backward from the last
+(egcn_bwd_gate: the gates' pre-activation cotangents and the direct part of
+dQ; egcn_bwd_dq: the rest of dQ, plus the cotangent Q_{t-1} takes from its
+own use). The choice is by shape alone. Either way the weights' gradients
+follow over all steps at once (egcn_wgrad) and the biases' (egcn_bias_sum).
+W_u and U_u see the same input Q, so their gradients are equal (and W_r's
+and U_r's): the kernel writes each pair from one sum. No float atomics: two
+launches on the same inputs give the same bits, and the forward without a
+gradient to come gives the kept forward's.
 
 Each step function takes its plain twin (`*_plain`, the same arithmetic in
 ATen ops) for CPU tensors, so that the CPU tests drive the same forward and
@@ -35,8 +43,9 @@ The source is compiled with nvcc for sm_90a at first use
 (kernels/cuda_build.py) and loaded with ctypes. Operands: contiguous f32 on
 one device; on the card the output width c a multiple of 4.
 
-`launches` counts launches by kernel: egcn_gates, egcn_update, egcn_bwd_gate,
-egcn_bwd_dq, egcn_wgrad, egcn_bias_sum.
+`launches` counts launches by kernel: egcn_chain_fwd, egcn_chain_bwd,
+egcn_gates, egcn_update, egcn_bwd_gate, egcn_bwd_dq, egcn_wgrad,
+egcn_bias_sum.
 """
 from __future__ import annotations
 
@@ -48,8 +57,10 @@ import torch
 from . import cuda_build
 
 PARAMS = ("q0", "w_u", "u_u", "b_u", "w_r", "u_r", "b_r", "w_h", "u_h", "b_h")
-launches = {"egcn_gates": 0, "egcn_update": 0, "egcn_bwd_gate": 0, "egcn_bwd_dq": 0,
-            "egcn_wgrad": 0, "egcn_bias_sum": 0}
+# the persistent chain's largest d: a cluster of at most 16 CTAs of 16 rows
+CHAIN_MAX_D = 256
+launches = {"egcn_chain_fwd": 0, "egcn_chain_bwd": 0, "egcn_gates": 0, "egcn_update": 0,
+            "egcn_bwd_gate": 0, "egcn_bwd_dq": 0, "egcn_wgrad": 0, "egcn_bias_sum": 0}
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -70,9 +81,14 @@ def _load() -> ctypes.CDLL:
         lib.egcn_bwd_dq_launch.argtypes = [p] * 11 + [i, i, p]
         lib.egcn_wgrad_launch.argtypes = [p] * 5 + [i, i, i] + [p] * 7
         lib.egcn_bias_sum_launch.argtypes = [p] * 3 + [i, i, i] + [p] * 4
+        lib.egcn_chain_fwd_launch.argtypes = [p] * 15 + [i, i, i, p]
+        lib.egcn_chain_bwd_launch.argtypes = [p] * 16 + [i, i, i, p]
         for fn in (lib.egcn_gates_launch, lib.egcn_update_launch, lib.egcn_bwd_gate_launch,
-                   lib.egcn_bwd_dq_launch, lib.egcn_wgrad_launch, lib.egcn_bias_sum_launch):
+                   lib.egcn_bwd_dq_launch, lib.egcn_wgrad_launch, lib.egcn_bias_sum_launch,
+                   lib.egcn_chain_fwd_launch, lib.egcn_chain_bwd_launch):
             fn.restype = i
+        lib.egcn_chain_stage_floats.argtypes = [i, i]
+        lib.egcn_chain_stage_floats.restype = ctypes.c_longlong
         lib.egcn_error_string.argtypes = [i]
         lib.egcn_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -215,9 +231,39 @@ def bias_sum(dah, dau, dar) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _run(p: Dict[str, torch.Tensor], steps: int, keep: bool):
-    """The chain's forward: (qs [steps + 1, d, c] = Q_0 .. Q_steps, and with
-    `keep` the stacks U, R, H~ [steps, d, c], else None)."""
+def persistent(d: int, c: int) -> bool:
+    """Whether the card runs the chain of a [d, c] Q as one persistent
+    launch a pass (egcn_chain_fwd, egcn_chain_bwd), or else a step at a
+    time: d at most CHAIN_MAX_D (c a multiple of 4, as every kernel here
+    takes)."""
+    return 1 <= d <= CHAIN_MAX_D and c >= 1 and c % 4 == 0
+
+
+def _stage(like: torch.Tensor, matrices: int) -> torch.Tensor:
+    """Scratch through which a pass's CTAs hand each other their rows of
+    `matrices` exchanged [d, c] matrices (the kernel's layout)."""
+    d, c = like.shape[-2:]
+    return like.new_empty(matrices * _load().egcn_chain_stage_floats(d, c))
+
+
+def forward_chain(p: Dict[str, torch.Tensor], steps: int, keep: bool):
+    """The chain's forward in one launch (egcn_chain_fwd): as `_run`. CUDA
+    tensors of a shape `persistent` takes."""
+    q0 = p["q0"]
+    d, c = q0.shape
+    qs = q0.new_empty((steps + 1, d, c))
+    kept = tuple(q0.new_empty((steps, d, c)) for _ in range(3)) if keep else (None,) * 3
+    _launch("egcn_chain_fwd", _load().egcn_chain_fwd_launch(
+        *(p[k].data_ptr() for k in ("w_u", "u_u", "w_r", "u_r", "w_h", "u_h", "b_u", "b_r",
+                                    "b_h", "q0")),
+        qs.data_ptr(), *(_ptr(t) for t in kept), _stage(q0, 2).data_ptr(), steps, d, c,
+        _stream(q0)))
+    return qs, (kept if keep else None)
+
+
+def forward_steps(p: Dict[str, torch.Tensor], steps: int, keep: bool):
+    """The chain's forward a step at a time (the step functions): as
+    `_run`."""
     q0 = p["q0"]
     d, c = q0.shape
     qs = q0.new_empty((steps + 1, d, c))
@@ -231,6 +277,52 @@ def _run(p: Dict[str, torch.Tensor], steps: int, keep: bool):
         gates(p, qs[t], u, r, ph)
         update(p["u_h"], qs[t], r, u, ph, h, qs[t + 1])
     return qs, ((us, rs, hs) if keep else None)
+
+
+def _run(p: Dict[str, torch.Tensor], steps: int, keep: bool):
+    """The chain's forward: (qs [steps + 1, d, c] = Q_0 .. Q_steps, and with
+    `keep` the stacks U, R, H~ [steps, d, c], else None)."""
+    q0 = p["q0"]
+    if q0.is_cuda and persistent(*q0.shape):
+        return forward_chain(p, steps, keep)
+    return forward_steps(p, steps, keep)
+
+
+def backward_chain(p, g, qs, us, rs, hs):
+    """The backward through time in one launch (egcn_chain_bwd): as
+    `_backward`. CUDA tensors of a shape `persistent` takes."""
+    steps, d, c = us.shape
+    dah, dau, dar = (g.new_empty((steps, d, c)) for _ in range(3))
+    dq = g.new_empty((d, c))
+    _launch("egcn_chain_bwd", _load().egcn_chain_bwd_launch(
+        *(p[k].data_ptr() for k in ("u_h", "w_h", "w_u", "u_u", "w_r", "u_r")),
+        *(t.data_ptr() for t in (g, qs, us, rs, hs, dah, dau, dar, dq)),
+        _stage(g, 3).data_ptr(), steps, d, c, _stream(g)))
+    return dq, dah, dau, dar
+
+
+def backward_steps(p, g, qs, us, rs, hs):
+    """The backward through time a step at a time (the step functions): as
+    `_backward`."""
+    steps, d, c = us.shape
+    dah, dau, dar = (g.new_empty((steps, d, c)) for _ in range(3))
+    dqp = g.new_empty((d, c))
+    dq = g.new_empty((d, c))
+    dqn = g[steps - 1]
+    for t in range(steps - 1, -1, -1):
+        bwd_gate(p["u_h"], dqn, us[t], hs[t], qs[t], rs[t], dah[t], dau[t], dar[t], dqp)
+        bwd_dq(p, dah[t], dau[t], dar[t], dqp, g[t - 1] if t > 0 else None, dq)
+        dqn = dq
+    return dq, dah, dau, dar
+
+
+def _backward(p, g, qs, us, rs, hs):
+    """From the cotangents g [steps, d, c] of Q_1 .. Q_steps and the kept
+    forward: (Q_0's cotangent [d, c], every step's dA_h, dA_u, dA_r [steps,
+    d, c])."""
+    if g.is_cuda and persistent(*g.shape[1:]):
+        return backward_chain(p, g, qs, us, rs, hs)
+    return backward_steps(p, g, qs, us, rs, hs)
 
 
 class _Evolve(torch.autograd.Function):
@@ -248,16 +340,8 @@ class _Evolve(torch.autograd.Function):
     def backward(ctx, grad):
         qs, us, rs, hs, *tensors = ctx.saved_tensors
         p = dict(zip(PARAMS, tensors))
-        steps, d, c = us.shape
-        g = grad.contiguous()
-        dah, dau, dar = (g.new_empty((steps, d, c)) for _ in range(3))
-        dqp = g.new_empty((d, c))
-        dq = g.new_empty((d, c))
-        dqn = g[steps - 1]
-        for t in range(steps - 1, -1, -1):
-            bwd_gate(p["u_h"], dqn, us[t], hs[t], qs[t], rs[t], dah[t], dau[t], dar[t], dqp)
-            bwd_dq(p, dah[t], dau[t], dar[t], dqp, g[t - 1] if t > 0 else None, dq)
-            dqn = dq
+        steps = us.shape[0]
+        dq, dah, dau, dar = _backward(p, grad.contiguous(), qs, us, rs, hs)
         grads = {"q0": dq, **wgrad(dah, dau, dar, qs[:steps], rs), **bias_sum(dah, dau, dar)}
         return (None, *(grads[k] if ctx.needs_input_grad[1 + i] else None
                         for i, k in enumerate(PARAMS)))

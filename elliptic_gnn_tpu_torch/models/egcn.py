@@ -28,7 +28,8 @@ calls on the slices, `grouped_rows_mm`). The rows' timesteps `t_idx`
 (1-based, non-decreasing) give the ranges, read once to the host before a
 capture and kept with the tensor's address.
 
-On CUDA tensors the chain runs through the hand-written step kernels; on
+On CUDA tensors the chain runs through the hand-written kernels (one
+persistent launch a pass of the chain at the configuration's widths); on
 CPU tensors the model takes `forward_plain` (ATen ops and autograd), the
 kernels' yardstick. The full-batch trainer alone runs it: the ELL
 encoding, `mini_batch` and meshes refuse it (`check_route`).

@@ -10,10 +10,11 @@ kernels of every rank and shard against their plain versions and the whole
 graph) and their trainers as one NCCL rank against the single-device K
 loop; the SAGE-ResBN epilogue's kernels against its plain version (each
 variant, widths 64 and 128, training and eval, with and without a row
-mask), bit for bit twice, and their input checks; EvolveGCN-O's step
-kernels against the plain chain (49 steps at the published widths,
-forward and backward), the model on the card against the CPU, and its
-captured K loop. Every test here needs
+mask), bit for bit twice, and their input checks; EvolveGCN-O's chain
+kernels against the plain chain (49 steps, forward and backward, at the
+published widths and ragged ones in one persistent launch a pass, and past
+that launch's limit a step at a time), the model on the card against the
+CPU, and its captured K loop. Every test here needs
 an NVIDIA GPU and skips without one; this file imports nothing of JAX so
 that it runs on a machine without it:
 
@@ -1167,16 +1168,38 @@ def _egcn_params(cuda, d, c, seed=0):
     return out
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [166, 256])
-def test_egcn_step_kernels_match_plain_chain(cuda, d):
-    """The step kernels (kernels/egcn_evolve.py) over the published chain,
-    49 steps at d -> 256, forward and backward through time, against the
-    chain in ATen ops (evolve_plain, autograd); twice bit for bit; the
-    launches of one forward and one backward."""
+# (d, c): the published widths; ragged ones (a cluster's last CTA with rows
+# masked, a strip with columns masked; a cluster of one CTA); past the
+# persistent chain's limit (egcn_evolve.CHAIN_MAX_D), the step kernels, with
+# ragged rows and eight column tiles
+EGCN_CHAIN_SHAPES = [(166, 256), (256, 256), (40, 36), (12, 36), (300, 256)]
+
+
+def _egcn_chain_launches(d, c):
+    """The launches of one forward and one backward of a chain at (d, c)."""
     from elliptic_gnn_tpu_torch.kernels import egcn_evolve
 
-    c = 256
+    want = dict.fromkeys(egcn_evolve.launches, 0)
+    if egcn_evolve.persistent(d, c):
+        want.update(egcn_chain_fwd=1, egcn_chain_bwd=1)
+    else:
+        want.update(egcn_gates=EGCN_STEPS, egcn_update=EGCN_STEPS, egcn_bwd_gate=EGCN_STEPS,
+                    egcn_bwd_dq=EGCN_STEPS)
+    want.update(egcn_wgrad=1, egcn_bias_sum=1)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c", EGCN_CHAIN_SHAPES)
+def test_egcn_step_kernels_match_plain_chain(cuda, d, c):
+    """The chain's kernels (kernels/egcn_evolve.py: one persistent launch a
+    pass up to CHAIN_MAX_D, the step kernels past it) over 49 steps, forward
+    and backward through time, against the chain in ATen ops (evolve_plain,
+    autograd); twice bit for bit; the forward without a gradient to come
+    equal to the kept one; the launches of one forward and one backward."""
+    from elliptic_gnn_tpu_torch.kernels import egcn_evolve
+
+    assert egcn_evolve.persistent(d, c) == (d <= egcn_evolve.CHAIN_MAX_D)
     p = _egcn_params(cuda, d, c)
     ct = _randn((EGCN_STEPS, d, c), 3, cuda)
 
@@ -1186,9 +1209,7 @@ def test_egcn_step_kernels_match_plain_chain(cuda, d):
 
     egcn_evolve.reset_launches()
     got, g_got = run()
-    assert egcn_evolve.launches == {
-        "egcn_gates": EGCN_STEPS, "egcn_update": EGCN_STEPS, "egcn_bwd_gate": EGCN_STEPS,
-        "egcn_bwd_dq": EGCN_STEPS, "egcn_wgrad": 1, "egcn_bias_sum": 1}
+    assert egcn_evolve.launches == _egcn_chain_launches(d, c)
     again, g_again = run()
     assert torch.equal(got, again) and all(torch.equal(a, b) for a, b in zip(g_got, g_again))
     want = egcn_evolve.evolve_plain(p, EGCN_STEPS)
@@ -1224,7 +1245,8 @@ def test_egcn_model_on_cuda_matches_cpu(cuda):
     egcn_evolve.reset_launches()
     out = model(x.to(cuda), g.to(cuda), t.to(cuda))
     got = [out.detach()] + list(torch.autograd.grad(out, list(model.parameters()), ct.to(cuda)))
-    assert egcn_evolve.launches["egcn_gates"] == 2 * 16
+    assert egcn_evolve.launches == {**dict.fromkeys(egcn_evolve.launches, 0), "egcn_chain_fwd": 2,
+                                    "egcn_chain_bwd": 2, "egcn_wgrad": 2, "egcn_bias_sum": 2}
     for a, b in zip(got, want):
         assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-4
 
@@ -1233,8 +1255,8 @@ def test_egcn_model_on_cuda_matches_cpu(cuda):
 def test_egcn_k_loop_captures_the_chain(cuda, tmp_path, kloop_graph):
     """EvolveGCN-O through the K loop (K = 4, the epoch captured) against
     the serial loop, per-epoch loss and val PR-AUC within 1e-4; the captured
-    epoch's launches: each layer's 16 steps in the training and the eval
-    forward, 16 backward steps and one gradient sum each."""
+    epoch's launches: each layer's 16 steps in one launch in the training and
+    one in the eval forward, one launch backward and one gradient sum each."""
     kw = {"hidden_dim": 32, "cls_feats": 24, "dropout": 0.0, "amp": False,
           "symmetrize_edges": False, "time_embed_dim": 0, "use_time_scalar": False,
           "train_window_k": None, "max_epochs": 12, "patience": 50}
@@ -1243,8 +1265,8 @@ def test_egcn_k_loop_captures_the_chain(cuda, tmp_path, kloop_graph):
     np.testing.assert_allclose(loss4, loss1, rtol=0, atol=1e-4)
     np.testing.assert_allclose(pr4, pr1, rtol=0, atol=1e-4)
     launched = {k: v for k, v in m4["graph_launches"].items() if k.startswith("egcn_")}
-    assert launched == {"egcn_gates": 64, "egcn_update": 64, "egcn_bwd_gate": 32,
-                        "egcn_bwd_dq": 32, "egcn_wgrad": 2, "egcn_bias_sum": 2}
+    assert launched == {"egcn_chain_fwd": 4, "egcn_chain_bwd": 2, "egcn_wgrad": 2,
+                        "egcn_bias_sum": 2}
     assert m4["graph_launches"].get("ring", 0) + m4["graph_launches"].get("banded", 0) > 0
 
 

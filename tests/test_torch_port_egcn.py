@@ -2,7 +2,8 @@
 reference tests/egcn_reference.py on seeded weights (6 snapshots, ~300
 nodes, widths 16 and 12): logits, loss and every parameter's gradient; the
 chain's hand-written backward through time (kernels/egcn_evolve.py, the
-step functions' plain twins, as the card runs the kernels) and the grouped
+step functions' plain twins, as the card runs the kernels), the card's
+choice between the persistent chain and the step kernels, and the grouped
 row product against autograd of their plain forms; two epochs of the K
 loop through train_gnn against the serial loop; and the clear errors of
 the paths that refuse the model (ELL, mini_batch, a mesh).
@@ -91,9 +92,9 @@ def test_model_matches_reference():
         torch.testing.assert_close(p.grad, g, **MODEL_TOL, msg=name)
 
 
-def test_hand_written_backward_through_time():
+@pytest.mark.parametrize("d,c,steps", [(9, 7, 5), (12, 36, 3)])
+def test_hand_written_backward_through_time(d, c, steps):
     gen = torch.Generator().manual_seed(1)
-    d, c, steps = 9, 7, 5
 
     def draw(shape, s):
         return (torch.randn(shape, generator=gen) * s).requires_grad_()
@@ -110,6 +111,27 @@ def test_hand_written_backward_through_time():
         torch.testing.assert_close(a, b, **BPTT_TOL, msg=k)
     with torch.no_grad():  # the forward alone keeps nothing
         torch.testing.assert_close(egcn_evolve.evolve(p, steps), want.detach(), rtol=0, atol=0)
+
+
+# the shapes (d, c) the card tests run the chain at (tests/test_torch_port_cuda.py
+# EGCN_CHAIN_SHAPES and the model test's 12 -> 32 -> 32), and shapes past the
+# persistent chain's limit
+CARD_CHAIN_SHAPES = [(166, 256), (256, 256), (40, 36), (12, 36), (12, 32), (32, 32)]
+PAST_THE_LIMIT = [(257, 256), (300, 256), (300, 32), (512, 64)]
+
+
+def test_chain_choice_is_by_shape():
+    """The card's choice between one persistent launch a pass and a launch a
+    step (egcn_evolve.persistent) by (d, c): every shape the card tests run
+    up to CHAIN_MAX_D takes the persistent chain, the step kernels only past
+    it. (On the CPU the chain runs the step functions' plain twins at any
+    shape: test_hand_written_backward_through_time.)"""
+    limit = egcn_evolve.CHAIN_MAX_D
+    assert all(egcn_evolve.persistent(d, c) for d, c in CARD_CHAIN_SHAPES)
+    assert egcn_evolve.persistent(limit, 256) and egcn_evolve.persistent(1, 4)
+    assert not any(egcn_evolve.persistent(d, c) for d, c in PAST_THE_LIMIT)
+    assert not egcn_evolve.persistent(limit + 1, 4)
+    assert not egcn_evolve.persistent(12, 34)  # c not a multiple of 4: no kernel takes it
 
 
 def test_grouped_rows_mm_with_an_empty_snapshot():
