@@ -1411,6 +1411,7 @@ def wide_gat_phase(device, flush_buf, g) -> None:
     version on the card."""
     import torch
 
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.kernels import gat_cuda
     from elliptic_gnn_tpu_torch.models import build_model
 
@@ -1427,7 +1428,7 @@ def wide_gat_phase(device, flush_buf, g) -> None:
         pay = sd * torch.randn((n_pad, width), generator=gen, device=device)
         gbar = sd * torch.randn((n_pad, width), generator=gen, device=device)
         for normalized in (True, False):
-            gat_cuda.reset_launches()
+            kernels.launch_counts(reset=True)
             out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
             one = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
             d_dst, g2 = gat_cuda.gat_bwd_dst_cuda(g, gbar, pay, out_k, h, ch, 0.2,
@@ -1491,7 +1492,7 @@ def wide_gat_phase(device, flush_buf, g) -> None:
                                  ("plain", model.forward_plain, False)):
         with two_sweep_backward() if two_sweep else contextlib.nullcontext():
             model.train().zero_grad(set_to_none=True)
-            gat_cuda.reset_launches()
+            kernels.launch_counts(reset=True)
             torch.nn.functional.cross_entropy(run(x, g), y).backward()
             model.eval()
             with torch.no_grad():
@@ -1646,6 +1647,7 @@ def gat_step_times(device, g, flush_buf) -> None:
     import torch
     import yaml
 
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.kernels import gat_cuda
     from elliptic_gnn_tpu_torch.models import build_model
 
@@ -1663,7 +1665,7 @@ def gat_step_times(device, g, flush_buf) -> None:
         return [p.grad for p in model.parameters()]
 
     def counted_step(want):
-        gat_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         grads = step(model)
         if gat_cuda.launches != {"gat_fwd": 1, "gat_fwd_gated": 1, **want}:
             fail(f"the GAT model's training step on the card launched "
@@ -1726,7 +1728,7 @@ def gat_autograd_check(device):
     plain formulation (bsda_gat_aggregate) on a 6,000-node graph."""
     import torch
 
-    from elliptic_gnn_tpu_torch.kernels import bsda_gat, packed_gat
+    from elliptic_gnn_tpu_torch.kernels import bsda_gat
 
     _, g = small_gat_graph()
     g = g.to(device)
@@ -1738,7 +1740,7 @@ def gat_autograd_check(device):
     c = torch.randn((n, hc), generator=gen, device=device)
 
     p_k = pay.clone().requires_grad_(True)
-    val_k = packed_gat._attend_packed(g, p_k, h, ch, 0.2)[:n, :hc]
+    val_k = g.packed_gat_route()[1](p_k, h, ch, 0.2)[:n, :hc]
     (val_k * c).sum().backward()
 
     p_a = pay.clone().requires_grad_(True)
@@ -1921,8 +1923,7 @@ def slice_phase(tmp, processed, config_name, run_name=None, epochs=EPOCHS,
     import numpy as np
     import yaml
 
-    from elliptic_gnn_tpu_torch.kernels import (bsda_spmm_cuda, egcn_evolve, gat_cuda,
-                                                resbn_epilogue)
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.train import train_gnn
 
     with open(os.path.join(HERE, "configs", config_name)) as fh:
@@ -1931,14 +1932,11 @@ def slice_phase(tmp, processed, config_name, run_name=None, epochs=EPOCHS,
                max_epochs=epochs, **overrides)
     if run_name is not None:
         cfg["run_name"] = run_name
-    counters = (bsda_spmm_cuda, gat_cuda, resbn_epilogue, egcn_evolve)
-    for mod in counters:
-        mod.reset_launches()
+    kernels.launch_counts(reset=True)
     t0 = time.time()
     metrics = (entry or train_gnn.main)(cfg)
     wall = time.time() - t0
-    launches = true_launches({k: v for mod in counters for k, v in mod.launches.items()},
-                             metrics)
+    launches = true_launches(kernels.launch_counts(), metrics)
 
     outdir = os.path.join(cfg["output_root"], "gnn", cfg["run_name"])
     n_run = int(metrics["epochs_run"])
@@ -2076,6 +2074,7 @@ def analysis_phase(run) -> None:
 
     import numpy as np
 
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.analysis import hub_ablation, robustness
     from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
 
@@ -2086,7 +2085,7 @@ def analysis_phase(run) -> None:
     for name, fn, argv in (
             ("hub_ablation", hub_ablation.main, ["--frac", "0.05"]),
             ("robustness", robustness.main, ["--drop_frac", "0.1", "--noise_std", "0.1"])):
-        bsda_spmm_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         t0 = time.time()
         results[name] = fn(["--run_dir", outdir] + argv)
         launched = dict(bsda_spmm_cuda.launches)
@@ -2258,12 +2257,12 @@ def predict_check(outdir, want_launches) -> None:
     count 0)."""
     import numpy as np
 
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, egcn_evolve, gat_cuda
     from elliptic_gnn_tpu_torch.train import predict
 
     counters = (bsda_spmm_cuda, gat_cuda, egcn_evolve)
-    for mod in counters:
-        mod.reset_launches()
+    kernels.launch_counts(reset=True)
     t0 = time.time()
     node_idx, probs, flags, thr, data = predict.predict(outdir)
     wall = time.time() - t0
@@ -2442,6 +2441,7 @@ def sweep_phase(tmp, processed) -> dict:
     as true_launches counts them)."""
     import yaml
 
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
     from elliptic_gnn_tpu_torch.sweeps import sweep_gnn
 
@@ -2454,7 +2454,7 @@ def sweep_phase(tmp, processed) -> dict:
     boards, results = {}, {}
     for workers in (1, 2):
         root = os.path.join(tmp, f"sweep_w{workers}")
-        bsda_spmm_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         t0 = time.time()
         rows = sweep_gnn.run_sweep(base, grid, rank_key="pr_auc_illicit",
                                    output_root=root, workers=workers)
@@ -2497,12 +2497,12 @@ def run_all_phase(run, outputs) -> dict:
 
     import numpy as np
 
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.analysis import run_all
     from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, gat_cuda
 
     outdir, name = run["outdir"], run["cfg"]["run_name"]
-    bsda_spmm_cuda.reset_launches()
-    gat_cuda.reset_launches()
+    kernels.launch_counts(reset=True)
     t0 = time.time()
     failed = run_all.main(["--run_dir", outdir, "--outputs", outputs])
     wall = time.time() - t0
@@ -2552,6 +2552,7 @@ def explain_check(run) -> None:
     steps on the card."""
     import numpy as np
 
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.analysis import explain
     from elliptic_gnn_tpu_torch.analysis.common import load_run_arrays, load_run_data
     from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, gat_cuda
@@ -2563,8 +2564,7 @@ def explain_check(run) -> None:
     node = int(test_nodes[np.argmax(in_deg)])
     out = {}
     for dev in ("cuda", "cpu"):
-        bsda_spmm_cuda.reset_launches()
-        gat_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         t0 = time.time()
         out[dev] = explain.explain_node(run["outdir"], node_idx=node, steps=EXPLAIN_STEPS,
                                         device=dev)
@@ -2807,6 +2807,7 @@ def epilogue_rank(out_dir, device_type, n_rows) -> None:
     import torch
     import torch.distributed as dist
 
+    from elliptic_gnn_tpu_torch import kernels
     from elliptic_gnn_tpu_torch.kernels import resbn_epilogue as rk
     from elliptic_gnn_tpu_torch.models import build_model
     from elliptic_gnn_tpu_torch.parallel import multihost
@@ -2851,7 +2852,7 @@ def epilogue_rank(out_dir, device_type, n_rows) -> None:
         return {"out": o.detach(), "dz": zc.grad, "dres": rc.grad, "dscale": b.scale.grad,
                 "dbias": b.bias.grad, "mean": b.mean.clone(), "var": b.var.clone()}
 
-    rk.reset_launches()
+    kernels.launch_counts(reset=True)
     fused = run(model, model.epilogue, zr, rr, gr, mask, group)
     launched = sum(rk.launches.values())
     ref = run(plain, plain.epilogue_plain, zr, rr, gr, mask, group)

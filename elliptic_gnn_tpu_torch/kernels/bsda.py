@@ -27,6 +27,7 @@ import torch
 from ..utils.common import upload
 
 from .ell import EllGraph, build_ell_graph, ell_weighted_sum, gcn_norm_weights
+from .encoding import GraphEncoding
 
 CHUNK = 128
 
@@ -35,7 +36,7 @@ _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 @dataclasses.dataclass
-class BsdaGraph:
+class BsdaGraph(GraphEncoding):
     """a: [B, D, C, C] dense blocks — a[b, d, i, j] is the weight of edge
     (src_chunk[b,d]*C + j) -> (b*C + i); zero blocks padded.
     src_chunk: [B, D] int32 source-chunk ids (self-pointing for padding).
@@ -85,6 +86,34 @@ class BsdaGraph:
             a_packed=mv(self.a_packed),
             slot_occ=mv(self.slot_occ),
         )
+
+    def spmm(self, x, compute_dtype=None):
+        """The CUDA kernel for CUDA tensors (it launches or raises), the
+        plain version for CPU tensors."""
+        if x.is_cuda:
+            from .bsda_spmm_cuda import bsda_spmm_cuda
+
+            return bsda_spmm_cuda(self, x, compute_dtype=compute_dtype)
+        return bsda_spmm(self, x, compute_dtype=compute_dtype)
+
+    def gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope=0.2):
+        """The chunk-pair formulation (kernels/bsda_gat.py): the CPU path
+        and the packed kernels' yardstick."""
+        from .bsda_gat import bsda_gat_aggregate
+
+        return bsda_gat_aggregate(self, x_proj, alpha_src, alpha_dst, negative_slope)
+
+    def packed_gat_route(self):
+        """The whole graph's rows through the GAT kernels: attend_rows of
+        payload [N_pad, W] -> [N_pad, W]."""
+        from .packed_gat import DenseTables, attend_rows
+
+        return (self.num_chunks * self.chunk,
+                lambda p, h, ch, s: attend_rows(DenseTables(self), p, h, ch, s))
+
+    def gat_runs_packed(self, x) -> bool:
+        """Packed on CUDA tensors; CPU tensors take the plain formulation."""
+        return x.is_cuda
 
 
 # ---------------- host-side table builder (numpy) ----------------

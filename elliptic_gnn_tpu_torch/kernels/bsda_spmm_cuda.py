@@ -43,11 +43,6 @@ launches = {"ring": 0, "banded": 0}
 _lib: Optional[ctypes.CDLL] = None
 
 
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:

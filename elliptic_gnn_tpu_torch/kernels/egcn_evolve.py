@@ -64,11 +64,6 @@ launches = {"egcn_chain_fwd": 0, "egcn_chain_bwd": 0, "egcn_gates": 0, "egcn_upd
 _lib: Optional[ctypes.CDLL] = None
 
 
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:

@@ -21,10 +21,11 @@ import numpy as np
 import torch
 
 from ..utils.common import upload
+from .encoding import GraphEncoding
 
 
 @dataclasses.dataclass
-class EllGraph:
+class EllGraph(GraphEncoding):
     """nbrs:      tuple of [R_b, W_b] int64 — source ids per destination row
     weights:   tuple of [R_b, W_b] float32 — edge weights; 0 marks padding
     rows:      tuple of [R_b] int64 — destination node id of each row
@@ -54,6 +55,14 @@ class EllGraph:
             inv_perm=mv(self.inv_perm),
             row_scale=tuple(mv(t) for t in self.row_scale),
         )
+
+    def spmm(self, x, compute_dtype=None):
+        """The ELL gather on either device, at full precision whatever
+        `compute_dtype` says, as the JAX package runs its ELL path."""
+        return ell_spmm(self, x)
+
+    def gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope=0.2):
+        return ell_gat_aggregate(self, x_proj, alpha_src, alpha_dst, negative_slope)
 
 
 def build_csr(src: np.ndarray, dst: np.ndarray, num_nodes: int):

@@ -90,11 +90,6 @@ launches = {"gat_fwd": 0, "gat_fwd_gated": 0, "gat_bwd": 0,
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
 def payload_width(h: int, ch: int) -> int:
     return h * ch + 2 * h
 

@@ -31,8 +31,8 @@ with atomics, the default, or two sweeps without, bit-reproducible, which
 need g.transpose. `use_two_sweep_backward` chooses; the trainer asks the
 same function whether to build the transpose tables.
 
-The same pipeline runs on a rank's share of a mesh run (packed_gat_route):
-the halo path's shard over its halo-extended rows
+The same pipeline runs on a rank's share of a mesh run (the encoding's
+packed_gat_route): the halo path's shard over its halo-extended rows
 (parallel/shardmap_step.py::sharded_gat_attend_packed) and the GSPMD row
 sharding's rank over every row (parallel/gspmd_step.py::row_gat_attend_packed).
 There the payload holds more rows than the kernels' grid: the grid's
@@ -199,31 +199,6 @@ def attend_rows(d: DenseTables, payload: torch.Tensor, h: int, ch: int,
                                normalized=True, dst_row0=d.dst_row0)
 
 
-def _attend_packed(g: BsdaGraph, payload: torch.Tensor, h: int, ch: int,
-                   negative_slope: float) -> torch.Tensor:
-    """attend_rows of the whole graph: payload [N_pad, W] -> [N_pad, W]."""
-    return attend_rows(DenseTables(g), payload, h, ch, negative_slope)
-
-
-def packed_gat_route(g):
-    """(rows, attend) of an encoding whose GAT runs packed: the rows of the
-    payload a layer computes here and attend(payload, h, ch, slope) ->
-    [ val | m | s ] of those rows; None for an encoding that attends
-    otherwise (EllGraph, RowShardedEll). A BsdaGraph: the whole graph; a
-    ShardedBsda: this rank's shard of the halo path; a RowShardedBsda: this
-    rank's rows of the GSPMD row sharding."""
-    if isinstance(g, BsdaGraph):
-        return g.num_chunks * g.chunk, lambda p, h, ch, s: _attend_packed(g, p, h, ch, s)
-    from ..parallel import gspmd_step, shardmap_step
-
-    if isinstance(g, gspmd_step.RowShardedBsda):
-        return g.n_loc, lambda p, h, ch, s: gspmd_step.row_gat_attend_packed(g, p, h, ch, s)
-    if isinstance(g, shardmap_step.ShardedBsda):
-        return (g.a.shape[1] * g.chunk,
-                lambda p, h, ch, s: shardmap_step.sharded_gat_attend_packed(g, p, h, ch, s))
-    return None
-
-
 def _projection(p: dict) -> torch.Tensor:
     """[F, H*Ch + 2H] = [ W | W a_src | W a_dst ] of one layer."""
     w = p["w"].float()
@@ -243,11 +218,11 @@ def packed_gat_train_forward(layer_params: Sequence[dict], x: torch.Tensor,
     "b" [out]}; hidden layers concat heads, the final layer is single-head.
     x [N, F] node features. `dropout` > 0 drops hidden activations with
     masks drawn from `generator`. Returns logits [N, num_classes]. `g` is a
-    BsdaGraph, or a rank's share of a mesh run (packed_gat_route): then x
-    holds the rank's rows."""
+    BsdaGraph, or a rank's share of a mesh run (its packed_gat_route): then
+    x holds the rank's rows."""
     if layer_params[-1]["w"].shape[1] != 1:
         raise ValueError("the final GAT layer must be single-head")
-    route = packed_gat_route(g)
+    route = g.packed_gat_route()
     if route is None:
         raise TypeError(f"the packed GAT pipeline does not run on {type(g).__name__}")
     n_pad, attend = route

@@ -54,11 +54,6 @@ launches = {"resbn_stats": 0, "resbn_finalize": 0, "resbn_fwd": 0, "resbn_eval":
 _lib: Optional[ctypes.CDLL] = None
 
 
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:

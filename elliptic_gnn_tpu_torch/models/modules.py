@@ -27,11 +27,9 @@ import torch
 from torch import nn
 
 from ..graph.transform import add_self_loops
-from ..kernels import BsdaGraph, gat_aggregate, spmm
+from ..kernels import spmm
 from ..kernels.ell import build_ell_graph, gcn_norm_weights
-from ..kernels.packed_gat import (
-    packed_gat_forward, packed_gat_route, packed_gat_train_forward,
-)
+from ..kernels.packed_gat import packed_gat_forward, packed_gat_train_forward
 from ..kernels.resbn_epilogue import resbn_epilogue
 from ..parallel.mesh import psum
 from ..utils.common import dropout as _dropout
@@ -335,7 +333,7 @@ class GatLayer(nn.Module):
         xp = torch.einsum("nf,fhc->nhc", x, self.w)
         a_src = torch.einsum("nhc,hc->nh", xp, self.a_src)
         a_dst = torch.einsum("nhc,hc->nh", xp, self.a_dst)
-        out = gat_aggregate(g, xp, a_src, a_dst)
+        out = g.gat_attend(xp, a_src, a_dst)
         out = out.reshape(out.shape[0], -1) if self.concat else out.mean(dim=1)
         return out + self.b
 
@@ -345,19 +343,14 @@ class GAT(nn.Module):
     features, ELU and dropout between layers, a single-head final layer
     producing the logits.
 
-    On a BsdaGraph with CUDA tensors the whole stack runs packed through
-    the flash kernels (kernels/packed_gat.py): eval through
-    packed_gat_forward, training through packed_gat_train_forward; so does
-    a rank's BSDA share of a mesh run (ShardedBsda of the halo path,
-    RowShardedBsda of the GSPMD row sharding) through the kernels'
-    rectangular launches, on CPU tensors through their plain versions. A
-    BsdaGraph with CPU tensors runs layer by layer through the plain
-    formulation (forward_plain), differentiated by autograd; an EllGraph
-    (the explainer's subgraph) and a RowShardedEll layer by layer through
-    the ELL masked softmax on either device, as the JAX model does. There
-    is no switch between the kernels and the plain version:
-    `gat_fused_vjp: false`, the JAX package's autodiff comparator, is
-    refused."""
+    Where the encoding says so (gat_runs_packed: a BsdaGraph on CUDA, a
+    rank's BSDA share of a mesh run on either device) the whole stack runs
+    packed through the flash kernels (kernels/packed_gat.py): eval through
+    packed_gat_forward, training through packed_gat_train_forward. Else it
+    runs layer by layer through the encoding's gat_attend (forward_plain),
+    differentiated by autograd, as the JAX model does. There is no switch
+    between the kernels and the plain version: `gat_fused_vjp: false`, the
+    JAX package's autodiff comparator, is refused."""
 
     uses_time_embed = False
 
@@ -384,8 +377,7 @@ class GAT(nn.Module):
     def forward(self, x: torch.Tensor, g, t_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 row_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
-        packed = x.is_cuda if isinstance(g, BsdaGraph) else packed_gat_route(g) is not None
-        if not packed:
+        if not g.gat_runs_packed(x):
             return self.forward_plain(x, g, generator)
         params = [dict(w=l.w, a_src=l.a_src, a_dst=l.a_dst, b=l.b)
                   for l in self.layers]
@@ -395,7 +387,7 @@ class GAT(nn.Module):
 
     def forward_plain(self, x: torch.Tensor, g,
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The stack layer by layer through kernels.gat_aggregate: on a
+        """The stack layer by layer through the encoding's gat_attend: on a
         BsdaGraph the plain version that CPU tensors take and the kernels'
         path is held against, on an EllGraph the ELL attention."""
         h = x

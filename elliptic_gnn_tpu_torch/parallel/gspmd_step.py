@@ -52,6 +52,7 @@ import torch.distributed as dist
 from ..kernels.bsda import BsdaGraph, bsda_dense_plain, bsda_forward
 from ..kernels.bsda_gat import attend
 from ..kernels.ell import EllGraph, ell_gat_aggregate, ell_weighted_sum
+from ..kernels.encoding import GraphEncoding
 
 
 def _np(t) -> np.ndarray:
@@ -126,7 +127,7 @@ def bsda_row_slice(g: BsdaGraph, n_dev: int, rank: int) -> BsdaGraph:
 
 
 @dataclasses.dataclass
-class RowShardedBsda:
+class RowShardedBsda(GraphEncoding):
     """One rank's BSDA encoding under the GSPMD row sharding: `fwd` the
     slice of destination chunks it owns (bsda_row_slice), `bwd` the same
     slice of the transpose tables (the aggregation's backward; for GAT the
@@ -151,9 +152,19 @@ class RowShardedBsda:
             self, fwd=self.fwd.to(device),
             bwd=None if self.bwd is None else self.bwd.to(device))
 
+    def spmm(self, x, compute_dtype=None):
+        return row_bsda_spmm(self, x, compute_dtype=compute_dtype)
+
+    def gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope=0.2):
+        return row_gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope)
+
+    def packed_gat_route(self):
+        """This rank's rows (row_gat_attend_packed), on either device."""
+        return self.n_loc, lambda p, h, ch, s: row_gat_attend_packed(self, p, h, ch, s)
+
 
 @dataclasses.dataclass
-class RowShardedEll:
+class RowShardedEll(GraphEncoding):
     """One rank's ELL encoding under the GSPMD row sharding: `ell` the
     bucket rows of its n_loc destination rows (ell_select_rows), sources
     ids of the whole padded graph's rows."""
@@ -170,6 +181,13 @@ class RowShardedEll:
 
     def to(self, device) -> "RowShardedEll":
         return dataclasses.replace(self, ell=self.ell.to(device))
+
+    def spmm(self, x, compute_dtype=None):
+        """The ELL gather of this rank's rows, at full precision (row_ell_spmm)."""
+        return row_ell_spmm(self, x)
+
+    def gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope=0.2):
+        return row_gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope)
 
 
 def row_sharded_bsda(g: BsdaGraph, n_dev: int, rank: int,

@@ -47,6 +47,7 @@ import torch.distributed as dist
 
 from ..kernels.bsda import BsdaGraph, bsda_dense_plain, pack_a_planes
 from ..kernels.ell import EllGraph
+from ..kernels.encoding import GraphEncoding
 
 # the BSDA kernel's group of destination chunks (kernels/bsda_spmm_cuda.py
 # _GROUP; the TPU kernel's pallas_bsda.GROUP): the transpose grid is padded
@@ -62,7 +63,7 @@ _TUPLE_FIELDS = ("res_nbr", "res_w", "res_dst", "rest_nbr", "rest_w", "res_cix")
 
 
 @dataclasses.dataclass
-class ShardedBsda:
+class ShardedBsda(GraphEncoding):
     """BSDA shards stacked over a leading rank axis, the JAX package's
     ShardedBsda field for field (torch tensors, `use_pallas` named
     `use_kernel`; no `axis_name`: the process group travels instead).
@@ -163,6 +164,17 @@ class ShardedBsda:
     def to(self, device) -> "ShardedBsda":
         """A copy with every table on `device`."""
         return self._map(lambda t: t.to(device))
+
+    def spmm(self, x, compute_dtype=None):
+        return sharded_bsda_spmm(self, x, compute_dtype=compute_dtype)
+
+    def gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope=0.2):
+        return sharded_gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope)
+
+    def packed_gat_route(self):
+        """This rank's shard (sharded_gat_attend_packed), on either device."""
+        return (self.a.shape[1] * self.chunk,
+                lambda p, h, ch, s: sharded_gat_attend_packed(self, p, h, ch, s))
 
 
 def _bucket_group(n_dev: int, dev_of: np.ndarray, keys: np.ndarray,

@@ -91,7 +91,7 @@ import yaml
 
 from ..graph import load_processed, make_temporal_masks
 from ..graph.transform import append_scalar_time, remove_hub_edges, symmetrize_edges
-from ..kernels import bsda_spmm_cuda, egcn_evolve, gat_cuda, resbn_epilogue
+from ..kernels import launch_counts
 from ..kernels.bsda import BsdaGraph, bfs_order, build_bsda_for_kind, pad_bsda_chunks
 from ..kernels.ell import EllGraph, renumber_for_ell
 from ..kernels.packed_gat import use_two_sweep_backward
@@ -165,6 +165,18 @@ def _pick_aggregation(cfg: dict, kind: str, n_mesh: Optional[int] = None) -> str
             "auto/bsda/bsda_pallas/ell/shard_map"
         )
     return str(mode)
+
+
+def _route(cfg: dict, n_mesh: Optional[int] = None, rank_run: bool = False) -> str:
+    """_pick_aggregation on `n_mesh` ranks (None reads mesh_devices), or of
+    a rank of a mesh (`rank_run`, a mesh of one too). Every entry point asks
+    it before it builds anything (main, train_rank, build_graph_ops): the
+    one place that refuses EvolveGCN-O off its route (egcn.check_route)."""
+    agg = _pick_aggregation(cfg, _kind(cfg), n_mesh)
+    if cfg["arch"] == egcn.ARCH:
+        egcn.check_route(cfg, "shard_map" if rank_run else agg,
+                         mesh_size(cfg) if n_mesh is None else n_mesh)
+    return agg
 
 
 def make_optimizer(model: torch.nn.Module, cfg: dict,
@@ -251,13 +263,10 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
     A renumbered graph's artifacts translate back via data.orig_index.
     Spans: `setup.order` (the ordering and the relabelled graph) and
     `setup.tables` (the encoding and its upload; ELL's in two parts, around
-    its relabelling). EvolveGCN-O takes the BSDA tables alone
-    (models/egcn.py::check_route) and checks its snapshots on the renumbered
-    graph (check_snapshots)."""
+    its relabelling). EvolveGCN-O takes the BSDA tables alone (_route) and
+    checks its snapshots on the renumbered graph (check_snapshots)."""
     kind = _kind(cfg)
-    agg = _pick_aggregation(cfg, kind)
-    if cfg["arch"] == egcn.ARCH:
-        egcn.check_route(cfg, agg, mesh_size(cfg))
+    agg = _route(cfg)
     if agg == "ell":
         with trace.span("setup.tables"):
             gops = prepare_graph_ops(data.edge_index, data.num_nodes, kind)
@@ -317,16 +326,14 @@ def main(cfg: dict, init_params=None) -> dict:
     multihost.maybe_initialize(cfg, device.type)
     n_mesh = 1 if cfg.get("mini_batch", False) else mesh_size(cfg, device.type)
     n_proc = multihost.process_count()
-    if cfg["arch"] == egcn.ARCH:
-        egcn.check_route(cfg, _pick_aggregation(cfg, _kind(cfg), n_mesh), max(n_mesh, n_proc))
+    agg = _route(cfg, n_mesh, rank_run=n_proc > 1)
     if n_mesh > 1 and n_proc == 1:
         return _launch_ranks(cfg, n_mesh, device, init_params)
     if n_proc > 1 and n_mesh != n_proc:
         raise ValueError(
             f"multi-process runs must shard over all {n_proc} ranks: set "
             f"mesh_devices: all (got {cfg.get('mesh_devices', 1)})")
-    if n_proc > 1 or (not cfg.get("mini_batch", False) and
-                      _pick_aggregation(cfg, _kind(cfg), n_mesh) == "shard_map"):
+    if n_proc > 1 or (not cfg.get("mini_batch", False) and agg == "shard_map"):
         return train_rank(cfg, init_params, device)
     return _run(cfg, init_params, device, None)
 
@@ -336,9 +343,8 @@ def train_rank(cfg: dict, init_params=None, device: Optional[torch.device] = Non
     of one where none is up): the function a rank process runs. The route
     follows `aggregation` on the mesh's size (_shard): the halo path, or
     the GSPMD row sharding for a pinned single-device encoding, also on a
-    mesh of one. EvolveGCN-O runs on no mesh (models/egcn.py::check_route)."""
-    if cfg["arch"] == egcn.ARCH:
-        egcn.check_route(cfg, "shard_map", 1)
+    mesh of one. EvolveGCN-O runs on no mesh (_route)."""
+    _route(cfg, rank_run=True)
     if device is None:
         device = resolve_device(cfg.get("device", "auto"))
     with multihost.world_of_one(device.type):
@@ -773,11 +779,6 @@ class _DeviceLoop:
         self.slot.add_(1)
 
 
-def _count_launches() -> dict:
-    return {**bsda_spmm_cuda.launches, **gat_cuda.launches, **resbn_epilogue.launches,
-            **egcn_evolve.launches}
-
-
 def _first_epoch_and_capture(loop: _DeviceLoop, gen: torch.Generator):
     """The K loop's first epoch eagerly, on a side stream as the capture
     will run (a real epoch that also builds the kernels), then the capture,
@@ -800,7 +801,7 @@ def _capture(loop: _DeviceLoop, gen: torch.Generator):
     kernel launches recorded in it); a failed capture raises."""
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(gen)
-    before = _count_launches()
+    before = launch_counts()
     try:
         with torch.cuda.graph(graph):
             loop.body()
@@ -808,7 +809,7 @@ def _capture(loop: _DeviceLoop, gen: torch.Generator):
         raise RuntimeError(
             f"capturing the training epoch as a CUDA graph failed: {exc}; "
             "epochs_per_sync: 1 runs the serial loop") from exc
-    after = _count_launches()
+    after = launch_counts()
     return graph, {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 

@@ -39,6 +39,7 @@ from elliptic_gnn_tpu_torch.graph import build_graph
 from elliptic_gnn_tpu_torch.train import train_gnn
 from tests.port_native_pin import same_native
 from tests.test_torch_port_resume_hubs import _close_json
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = {"seed": 3, "device": "cpu", "arch": "sage", "hidden_dim": 16, "layers": 2,

@@ -33,8 +33,10 @@ from elliptic_gnn_tpu_torch.models.convert import params_from_jax
 from elliptic_gnn_tpu_torch.models.losses import make_loss_fn
 from elliptic_gnn_tpu_torch.models.modules import GCN, SAGE
 from elliptic_gnn_tpu_torch.train import predict, train_gnn
+from tests.jax_reference import jit_as_eager
 from tests.port_native_pin import same_native
 from tests.test_torch_port_tables import port_graph
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 N, F_IN = 900, 20
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -85,8 +87,8 @@ def _setup(arch, amp, layers=3):
 @pytest.mark.parametrize("amp", [False, True])
 def test_eval_logits_match(arch, amp):
     s = _setup(arch, amp)
-    lj, _ = s["mj"].apply(s["params"], s["state"], jnp.asarray(s["x"]), s["gj"],
-                          training=False)
+    lj = jit_as_eager(lambda p: s["mj"].apply(p, s["state"], jnp.asarray(s["x"]), s["gj"],
+                                              training=False)[0])(s["params"])
     s["mp"].eval()
     with torch.no_grad():
         lp = s["mp"](torch.from_numpy(s["x"]), s["gp"])
@@ -108,7 +110,7 @@ def test_param_grads_match(arch, amp):
                                   rng=jax.random.key(0))
         return loss_j(p, logits, y, None, m)
 
-    lval_j, grads = jax.value_and_grad(lf)(s["params"])
+    lval_j, grads = jit_as_eager(jax.value_and_grad(lf))(s["params"])
     mp = s["mp"].train()
     logits = mp(torch.from_numpy(s["x"]), s["gp"])
     lval_p = loss_p(mp, logits, torch.from_numpy(s["y"]), None,

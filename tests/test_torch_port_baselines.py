@@ -20,6 +20,8 @@ from elliptic_gnn_tpu_torch.analysis import explain, treeshap
 from elliptic_gnn_tpu_torch.graph import build_graph
 from elliptic_gnn_tpu_torch.train import calibrate, train_baselines
 
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
+
 ARRAYS = [f"{n}_{s}.npy" for n in ("scores", "y", "node_idx", "timestep")
           for s in ("val", "test")]
 CONFIGS = {

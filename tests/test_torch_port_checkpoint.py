@@ -23,6 +23,7 @@ from elliptic_gnn_tpu_torch.models import build_model
 from elliptic_gnn_tpu_torch.models.convert import params_from_jax, params_to_jax
 from elliptic_gnn_tpu_torch.train import checkpoint, predict, train_gnn
 from tests.port_native_pin import same_native
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 RESBN_CFG = {
     "run_name": "resbn_ckpt", "seed": 0, "device": "cpu", "arch": "sage_resbn",

@@ -37,6 +37,7 @@ import torch
 
 from elliptic_gnn_tpu_torch.graph import synthetic
 from elliptic_gnn_tpu_torch.graph.transform import symmetrize_edges
+from elliptic_gnn_tpu_torch import kernels
 from elliptic_gnn_tpu_torch.kernels import bsda, gat_cuda
 from elliptic_gnn_tpu_torch.models import build_model
 
@@ -220,7 +221,7 @@ def test_epilogue_matches_plain(cuda, variant, width, masked, training):
 
     model, z, res, row_mask, ct = _epilogue_case(cuda, variant, width, training, masked)
     plain = copy.deepcopy(model)
-    resbn_epilogue.reset_launches()
+    kernels.launch_counts(reset=True)
     got = _epilogue_run(model, 0, z, res, row_mask, ct, plain=False)
     launched = dict(resbn_epilogue.launches)
     want = _epilogue_run(plain, 0, z, res, row_mask, ct, plain=True)
@@ -393,7 +394,7 @@ def test_gat_model_on_cuda_matches_cpu(cuda):
         model = build_model("gat", 30, cfg,
                             generator=torch.Generator().manual_seed(0)).to(device)
         run = model.forward_plain if plain else model
-        gat_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         model.train()
         logits = run(x.to(device), g.to(device))
         torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
@@ -477,7 +478,7 @@ def test_gat_two_sweep_repeats_bit_for_bit(cuda, h, ch):
     """Two runs of the two-sweep backward give the same bits, in every
     column, and it launches each sweep once and the one-sweep kernel never."""
     g, pay, gbar, out_k = _two_sweep_inputs(cuda, h, ch, True)
-    gat_cuda.reset_launches()
+    kernels.launch_counts(reset=True)
     first = gat_cuda.gat_bwd_two_sweep(g, gbar, pay, out_k, h, ch, 0.2, True)
     assert gat_cuda.launches == {"gat_fwd": 0, "gat_fwd_gated": 0, "gat_bwd": 0,
                                  "gat_bwd_dst": 1, "gat_bwd_src": 1}
@@ -504,7 +505,7 @@ def test_gat_model_two_sweep_on_cuda(cuda, monkeypatch):
 
     def step(tables):
         model.zero_grad(set_to_none=True)
-        gat_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         torch.nn.functional.cross_entropy(model(x, tables), y).backward()
         return [p.grad.clone() for p in model.parameters()], dict(gat_cuda.launches)
 
@@ -564,7 +565,7 @@ def test_gat_wide_kernels_match_plain(cuda, h, ch, n_launches, normalized):
     assert gat_cuda.payload_width(h, ch) > gat_cuda.MAX_WIDTH
     shape = (g.num_chunks * 128, gat_cuda.payload_width(h, ch))
     pay, gbar = _randn(shape, 6, cuda), _randn(shape, 7, cuda)
-    gat_cuda.reset_launches()
+    kernels.launch_counts(reset=True)
     out_k = gat_cuda.gat_fwd_cuda(g, pay, h, ch, 0.2, normalized)
     one = gat_cuda.gat_bwd_cuda(g, gbar, pay, out_k, h, ch, 0.2, normalized)
     two = gat_cuda.gat_bwd_two_sweep(g, gbar, pay, out_k, h, ch, 0.2, normalized)
@@ -609,7 +610,7 @@ def test_wide_gat_model_on_cuda_matches_cpu(cuda, monkeypatch, hidden, heads):
         monkeypatch.setenv("EGNN_GAT_ONE_SWEEP", one_sweep)
         model = build_model("gat", 30, cfg,
                             generator=torch.Generator().manual_seed(0)).to(device).train()
-        gat_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         logits = model(x.to(device), g_t.to(device))
         torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
         if device != "cpu":
@@ -670,7 +671,7 @@ def test_conv_stack_on_cuda_matches_cpu(cuda, arch, amp):
     for device in ("cpu", cuda):
         model = build_model(arch, 167, cfg,
                             generator=torch.Generator().manual_seed(0)).to(device).train()
-        bsda_spmm_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         logits = model(x.to(device), g.to(device))
         torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
         # three layers forward, and backward on the transpose tables where
@@ -884,8 +885,7 @@ def test_model_on_ell_graph_cuda_matches_cpu(cuda, arch):
     t = torch.from_numpy(data.timestep.astype(np.int32))
     model = build_model(arch, 16, ELL_ARCH_CFG,
                         generator=torch.Generator().manual_seed(0)).eval()
-    bsda_spmm_cuda.reset_launches()
-    gat_cuda.reset_launches()
+    kernels.launch_counts(reset=True)
     with torch.no_grad():
         want = model(x, g, t).numpy()
         got = model.to(cuda)(x.to(cuda), g.to(cuda), t.to(cuda)).cpu().numpy()
@@ -912,8 +912,7 @@ def test_bsda_graph_on_cuda_still_runs_the_kernels(cuda, arch):
                         generator=torch.Generator().manual_seed(0)).eval()
     with torch.no_grad():
         want = model(x, g, t).numpy()
-        bsda_spmm_cuda.reset_launches()
-        gat_cuda.reset_launches()
+        kernels.launch_counts(reset=True)
         got = model.to(cuda)(x.to(cuda), g.to(cuda), t.to(cuda)).cpu().numpy()
     np.testing.assert_allclose(got, want, **AMP)
     if arch == "gat":
@@ -1207,7 +1206,7 @@ def test_egcn_step_kernels_match_plain_chain(cuda, d, c):
         qs = egcn_evolve.evolve(p, EGCN_STEPS)
         return qs.detach(), torch.autograd.grad(qs, list(p.values()), ct)
 
-    egcn_evolve.reset_launches()
+    kernels.launch_counts(reset=True)
     got, g_got = run()
     assert egcn_evolve.launches == _egcn_chain_launches(d, c)
     again, g_again = run()
@@ -1242,7 +1241,7 @@ def test_egcn_model_on_cuda_matches_cpu(cuda):
     out = model(x, g, t)
     want = [out.detach()] + list(torch.autograd.grad(out, list(model.parameters()), ct))
     model = model.to(cuda)
-    egcn_evolve.reset_launches()
+    kernels.launch_counts(reset=True)
     out = model(x.to(cuda), g.to(cuda), t.to(cuda))
     got = [out.detach()] + list(torch.autograd.grad(out, list(model.parameters()), ct.to(cuda)))
     assert egcn_evolve.launches == {**dict.fromkeys(egcn_evolve.launches, 0), "egcn_chain_fwd": 2,

@@ -37,6 +37,7 @@ from elliptic_gnn_tpu_torch.kernels import ell
 from elliptic_gnn_tpu_torch.models import prepare_graph_ops
 from elliptic_gnn_tpu_torch.train import predict, train_gnn
 from tests.port_native_pin import same_native
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 ARCHS = {
     "sage_resbn": dict(arch="sage_resbn", hidden_dim=16, layers=3,

@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from elliptic_gnn_tpu_torch import kernels
 from elliptic_gnn_tpu_torch.graph import synthetic
 from elliptic_gnn_tpu_torch.kernels import resbn_epilogue
 from elliptic_gnn_tpu_torch.models import build_model, prepare_graph_ops
 from elliptic_gnn_tpu_torch.utils.common import dropout
+
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 
 def _inline_forward(model, x, g, t, generator=None, row_mask=None):
@@ -48,7 +51,7 @@ def test_cpu_epilogue_is_the_inline_chain(variant):
            "time_embed_type": "sin", **VARIANTS[variant]}
     model = build_model("sage_resbn", 6, cfg, generator=torch.Generator().manual_seed(1))
     inline = copy.deepcopy(model)
-    resbn_epilogue.reset_launches()
+    kernels.launch_counts(reset=True)
     runs = []
     for m, fwd in ((model, model.forward),
                    (inline, lambda *a, **k: _inline_forward(inline, *a, **k))):

@@ -34,6 +34,7 @@ from elliptic_gnn_tpu_torch.models.convert import params_from_jax
 from elliptic_gnn_tpu_torch.train import train_gnn
 from tests.port_native_pin import same_native
 from tests.test_torch_port_tables import port_graph
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 STEPS = 20
 MASK_ATOL = 1e-4

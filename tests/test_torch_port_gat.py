@@ -2,7 +2,8 @@
 formulation, the plain versions of its two CUDA kernels, and the packed
 pipeline, against the JAX package on the same tables and numpy-seeded
 inputs. The JAX Pallas kernels run in interpret mode, as the JAX package's
-own tests run them on the CPU. The CUDA kernels are held against the plain
+own tests run them on the CPU; the JAX references without them compile
+whole (tests/jax_reference.py). The CUDA kernels are held against the plain
 versions in tests/test_torch_port_cuda.py.
 
 The graph: n = 128 * 24 nodes so that the TPU kernels' flash_eligible
@@ -32,7 +33,9 @@ from elliptic_gnn_tpu_torch.kernels import bsda as port_bsda
 from elliptic_gnn_tpu_torch.kernels import bsda_gat, ell, gat_bwd, gat_cuda, packed_gat
 from elliptic_gnn_tpu_torch.models import build_model
 from elliptic_gnn_tpu_torch.models.convert import params_from_jax
+from tests.jax_reference import jit_as_eager
 from tests.test_torch_port_tables import port_graph
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 N = 128 * 24
 SLOPE = 0.2
@@ -88,8 +91,8 @@ def test_ell_gat_aggregate_matches(graphs):
     xp = rng.standard_normal((N, 4, 8)).astype(np.float32)
     a_s = rng.standard_normal((N, 4)).astype(np.float32)
     a_d = rng.standard_normal((N, 4)).astype(np.float32)
-    want = jax_ell.ell_gat_aggregate(gj, jnp.asarray(xp), jnp.asarray(a_s),
-                                     jnp.asarray(a_d), SLOPE)
+    want = jit_as_eager(lambda *t: jax_ell.ell_gat_aggregate(gj, *t, SLOPE))(
+        jnp.asarray(xp), jnp.asarray(a_s), jnp.asarray(a_d))
     got = ell.ell_gat_aggregate(gp, torch.from_numpy(xp), torch.from_numpy(a_s),
                                 torch.from_numpy(a_d), SLOPE)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **VALUE)
@@ -110,8 +113,8 @@ def test_bsda_gat_aggregate_value_and_grads_match(graphs, h, ch):
         y = jax_bsda_gat.bsda_gat_aggregate(gj, xp, a_s, a_d, SLOPE)
         return jnp.sum(y * wout) + jnp.sum(jnp.sin(y) * 0.1), y
 
-    (_, y_j), g_j = jax.value_and_grad(loss_j, argnums=(0, 1, 2), has_aux=True)(
-        jnp.asarray(xp), jnp.asarray(a_s), jnp.asarray(a_d))
+    vg = jax.value_and_grad(loss_j, argnums=(0, 1, 2), has_aux=True)
+    (_, y_j), g_j = jit_as_eager(vg)(jnp.asarray(xp), jnp.asarray(a_s), jnp.asarray(a_d))
 
     t = [torch.from_numpy(v).requires_grad_(True) for v in (xp, a_s, a_d)]
     y_p = bsda_gat.bsda_gat_aggregate(gp, *t, SLOPE)
@@ -214,17 +217,30 @@ def test_plain_backward_matches_fused_sweep(graphs, h, ch, normalized):
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, : pay.shape[1]], **BWD)
 
 
-def _gat_setup(graphs, hidden=32, heads=4, f_in=24, seed=1):
+GAT_CFG = {"hidden_dim": 32, "layers": 2, "heads": 4, "dropout": 0.0}
+F_IN = 24
+
+
+@pytest.fixture(scope="module")
+def jax_gat():
+    """The JAX GAT model of GAT_CFG, its init (seed 1) and the inputs x, y:
+    built once for the tests of the packed pipeline."""
+    mj = jax_build_model("gat", F_IN, GAT_CFG)
+    params, state = mj.init(jax.random.PRNGKey(1))
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((N, F_IN)).astype(np.float32)
+    y = rng.integers(0, 2, N).astype(np.int64)
+    return mj, params, state, x, y
+
+
+def _gat_setup(graphs, jax_gat):
+    """(gj, gp, mj, params, state, mp, x, y): a fresh port model holding the
+    JAX model's parameters."""
     _, gj, gp = graphs
-    cfg = {"hidden_dim": hidden, "layers": 2, "heads": heads, "dropout": 0.0}
-    mj = jax_build_model("gat", f_in, cfg)
-    params, state = mj.init(jax.random.PRNGKey(seed))
-    mp = build_model("gat", f_in, cfg)
+    mj, params, state, x, y = jax_gat
+    mp = build_model("gat", F_IN, GAT_CFG)
     to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
     params_from_jax(to_np(params), to_np(state), mp)
-    rng = np.random.default_rng(seed)
-    x = rng.standard_normal((N, f_in)).astype(np.float32)
-    y = rng.integers(0, 2, N).astype(np.int64)
     return gj, gp, mj, params, state, mp, x, y
 
 
@@ -232,13 +248,15 @@ def _layer_params(mp):
     return [dict(w=l.w, a_src=l.a_src, a_dst=l.a_dst, b=l.b) for l in mp.layers]
 
 
-def test_packed_forward_matches(graphs):
+def test_packed_forward_matches(graphs, jax_gat):
     """(d) packed_gat_forward (the CUDA eval path, here through the plain
     versions) against the JAX packed forward and the JAX per-layer model."""
-    gj, gp, mj, params, state, mp, x, _ = _gat_setup(graphs)
-    want = jax_packed.packed_gat_forward(params["layers"], jnp.asarray(x), gj)
+    gj, gp, mj, params, state, mp, x, _ = _gat_setup(graphs, jax_gat)
+    want = jit_as_eager(lambda p: jax_packed.packed_gat_forward(p, jnp.asarray(x), gj))(
+        params["layers"])
     assert want is not None
-    ref, _ = mj.apply(params, state, jnp.asarray(x), gj, training=False)
+    ref = jit_as_eager(lambda p: mj.apply(p, state, jnp.asarray(x), gj, training=False)[0])(
+        params)
     got = packed_gat.packed_gat_forward(_layer_params(mp), torch.from_numpy(x), gp)
     assert got.shape == (N, 2) and not got.requires_grad
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
@@ -250,12 +268,12 @@ def test_packed_forward_matches(graphs):
     np.testing.assert_allclose(per_layer.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("path", ["packed", "per_layer"])
-def test_train_forward_grads_match(graphs, path):
-    """(d) loss and parameter gradients: packed_gat_train_forward (attend
-    as an autograd.Function over the plain backward) and the per-layer
-    autograd path, against jax.grad through the JAX per-layer model."""
-    gj, gp, mj, params, state, mp, x, y = _gat_setup(graphs)
+@pytest.fixture(scope="module")
+def jax_loss_grads(graphs, jax_gat):
+    """The loss and jax.grad through the JAX per-layer model: the reference
+    of both paths of test_train_forward_grads_match, computed once."""
+    _, gj, _ = graphs
+    mj, params, state, x, y = jax_gat
 
     def loss_j(p):
         logits, _ = mj.apply(p, state, jnp.asarray(x), gj, training=True,
@@ -263,7 +281,16 @@ def test_train_forward_grads_match(graphs, path):
         logp = jax.nn.log_softmax(logits, axis=1)
         return -jnp.take_along_axis(logp, jnp.asarray(y)[:, None], axis=1).mean()
 
-    l_j, g_j = jax.value_and_grad(loss_j)(params)
+    return jit_as_eager(jax.value_and_grad(loss_j))(params)
+
+
+@pytest.mark.parametrize("path", ["packed", "per_layer"])
+def test_train_forward_grads_match(graphs, jax_gat, jax_loss_grads, path):
+    """(d) loss and parameter gradients: packed_gat_train_forward (attend
+    as an autograd.Function over the plain backward) and the per-layer
+    autograd path, against jax.grad through the JAX per-layer model."""
+    gj, gp, mj, params, state, mp, x, y = _gat_setup(graphs, jax_gat)
+    l_j, g_j = jax_loss_grads
     mp.train()
     if path == "packed":
         logits = packed_gat.packed_gat_train_forward(

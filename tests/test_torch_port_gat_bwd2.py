@@ -32,7 +32,9 @@ from elliptic_gnn_tpu_torch.kernels import gat_bwd, gat_cuda, packed_gat
 from elliptic_gnn_tpu_torch.models import build_model
 from elliptic_gnn_tpu_torch.models.convert import params_from_jax
 from elliptic_gnn_tpu_torch.train import train_gnn
+from tests.jax_reference import jit_as_eager
 from tests.test_torch_port_tables import assert_tables_equal, port_graph
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 N = 128 * 20
 SLOPE = 0.2
@@ -234,7 +236,7 @@ def test_packed_step_two_sweep_grads_match(graphs, monkeypatch):
         logp = jax.nn.log_softmax(lg, axis=1)
         return -jnp.take_along_axis(logp, jnp.asarray(y)[:, None], axis=1).mean()
 
-    l_j, g_j = jax.value_and_grad(loss_j)(params)
+    l_j, g_j = jit_as_eager(jax.value_and_grad(loss_j))(params)
     np.testing.assert_allclose(float(loss.detach()), float(l_j), rtol=1e-5)
     want = [np.asarray(gl[name]) for gl in g_j["layers"]
             for name in ("w", "a_src", "a_dst", "b")]
@@ -252,7 +254,7 @@ def _backward_taken(monkeypatch, g):
             lambda *a, _n=name, _r=real, **k: taken.append(_n) or _r(*a, **k))
     pay = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (N, gat_cuda.payload_width(1, 2))).astype(np.float32)).requires_grad_(True)
-    packed_gat._attend_packed(g, pay, 1, 2, SLOPE)[:, :2].sum().backward()
+    g.packed_gat_route()[1](pay, 1, 2, SLOPE)[:, :2].sum().backward()
     assert len(taken) == 1
     return taken[0]
 

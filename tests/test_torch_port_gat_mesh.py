@@ -87,7 +87,7 @@ def test_rank_slices_of_the_plain_kernels_match_whole_graph(band, n_dev, h, ch):
     one = gat_cuda.gat_bwd_plain(g, gbar, pay, out, h, ch, SLOPE, True)
     dst, g2 = gat_cuda.gat_bwd_dst_fused_plain(g, gbar, pay, out, h, ch, SLOPE, True)
     src = gat_cuda.gat_bwd_src_plain(g.transpose, pay, g2, h, ch, SLOPE)
-    merged = packed_gat._attend_packed(g, pay, h, ch, SLOPE)
+    merged = g.packed_gat_route()[1](pay, h, ch, SLOPE)
     n_loc = n_rows // n_dev
     summed = torch.zeros_like(one)
     for r in range(n_dev):
@@ -141,7 +141,7 @@ def test_shards_of_the_packed_route_match_whole_graph(band, monkeypatch, n_dev, 
     width = gat_cuda.payload_width(h, ch)
     pay, w = _rand(n_rows, width, 3), _rand(n_rows, h * ch, 4)
     whole_in = pay.clone().requires_grad_(True)
-    whole = packed_gat._attend_packed(g, whole_in, h, ch, SLOPE)
+    whole = g.packed_gat_route()[1](whole_in, h, ch, SLOPE)
     (whole[:, : h * ch] * w).sum().backward()
     sg = shardmap_step.partition_bsda(g, n_dev, use_kernel=True)
     grad = torch.zeros_like(pay)

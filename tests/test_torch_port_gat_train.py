@@ -29,6 +29,7 @@ from elliptic_gnn_tpu_torch.models import build_model
 from elliptic_gnn_tpu_torch.models.convert import params_to_jax
 from elliptic_gnn_tpu_torch.train import checkpoint, predict, train_gnn
 from tests.port_native_pin import same_native
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 GAT_CFG = {
     "run_name": "gat_parity", "seed": 0, "device": "cpu", "arch": "gat",

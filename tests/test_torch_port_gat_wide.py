@@ -27,6 +27,7 @@ from elliptic_gnn_tpu_torch.kernels import gat_bwd, gat_cuda, packed_gat
 from elliptic_gnn_tpu_torch.models import build_model
 from elliptic_gnn_tpu_torch.models.convert import params_from_jax
 from tests.test_torch_port_tables import port_graph
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 N = 128 * 6
 SLOPE = 0.2

@@ -35,6 +35,7 @@ from elliptic_gnn_tpu_torch.models import prepare_graph_ops
 from elliptic_gnn_tpu_torch.parallel import gspmd_step, sharded
 from elliptic_gnn_tpu_torch.parallel.mesh import Mesh
 from tests import torch_port_ranks as ranks
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 N_DEV = 8
 CLOSE = dict(rtol=1e-6, atol=1e-6)

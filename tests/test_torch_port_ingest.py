@@ -27,6 +27,8 @@ from elliptic_gnn_tpu_torch import native
 from elliptic_gnn_tpu_torch.graph import build_graph, synthetic
 from elliptic_gnn_tpu_torch.graph.ingest import load_elliptic_as_graph
 
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FEAT = 4
 VARIANTS = ["plain", "crlf", "quoted", "spaces", "no_edge_header",

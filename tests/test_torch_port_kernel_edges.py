@@ -34,6 +34,8 @@ from elliptic_gnn_tpu_torch.graph.synthetic import hub_edges
 from elliptic_gnn_tpu_torch.kernels import bsda as port_bsda
 from elliptic_gnn_tpu_torch.kernels import gat_cuda
 
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=1 / 64, atol=1e-3)
 GAT = dict(rtol=1e-4, atol=1e-5)

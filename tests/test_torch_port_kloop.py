@@ -27,6 +27,7 @@ from elliptic_gnn_tpu.utils import metrics as jax_metrics
 from elliptic_gnn_tpu_torch.train import train_gnn
 from elliptic_gnn_tpu_torch.utils import metrics as M
 from tests.port_native_pin import same_native
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -70,6 +71,10 @@ def _log(cfg):
 
 
 def test_device_pr_auc_matches_host_and_jax():
+    """Against the host metric and the JAX package's device metric, jitted:
+    one compile a length in place of one an op (the same values as eager,
+    bit for bit, on these inputs)."""
+    jax_device = jax.jit(jax_metrics.pr_auc_illicit_device)
     rng = np.random.default_rng(1)
     for _ in range(20):
         n = int(rng.integers(5, 300))
@@ -78,7 +83,7 @@ def test_device_pr_auc_matches_host_and_jax():
         got = M.pr_auc_illicit_device(torch.from_numpy(y), torch.from_numpy(s))
         assert got.dtype == torch.float32 and got.shape == ()
         assert abs(float(got) - M.pr_auc_illicit(y, s)) < 1e-6
-        assert abs(float(got) - float(jax_metrics.pr_auc_illicit_device(y, s))) < 1e-6
+        assert abs(float(got) - float(jax_device(y, s))) < 1e-6
     none = M.pr_auc_illicit_device(torch.zeros(8, dtype=torch.int64),
                                    torch.linspace(0, 1, 8))
     assert float(none) == 0.0

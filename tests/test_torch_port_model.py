@@ -24,6 +24,7 @@ from elliptic_gnn_tpu_torch.models.convert import params_from_jax
 from elliptic_gnn_tpu_torch.models.losses import make_loss_fn
 from elliptic_gnn_tpu_torch.models.modules import sinusoid_time_embed
 from tests.test_torch_port_tables import port_graph
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 N, F_IN, T_MAX = 600, 20, 16
 F32 = dict(rtol=1e-4, atol=1e-5)

@@ -55,12 +55,12 @@ gradient within 1e-5 of the single-device step's largest gradient entry
 best-val PR-AUC 2e-3 (tests/test_parallel.py); the K loop against the
 serial loop 1e-6 (tests/test_parallel.py::test_epochs_per_sync_scan_composes_with_shardmap);
 predict 1e-6."""
+import functools
 import json
 import os
 import pickle
 import subprocess
 import sys
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -81,8 +81,10 @@ from elliptic_gnn_tpu.train import train_gnn as jax_train
 from elliptic_gnn_tpu_torch.parallel import multihost
 from elliptic_gnn_tpu_torch.train import predict, train_gnn
 from tests import torch_port_ranks as ranks
+from tests.jax_reference import jit_as_eager
 from tests.port_native_pin import same_native
 from tests.torch_exp_spread import EXP_RTOL
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 AGG = dict(rtol=1e-4, atol=1e-5)
 PR_ATOL = 2e-3
@@ -217,7 +219,7 @@ def _jax_sharded(fn, g, *arrays, n=4):
     sg = jax_sm.partition_bsda(jax_bsda.pad_bsda_chunks(g, n), n, use_pallas=False)
     rows = [P(NODE_AXIS, *([None] * (a.ndim - 1))) for a in arrays[:-1]]
     out_spec = P(NODE_AXIS, *([None] * (arrays[0].ndim - 1)))
-    run = shard_map(partial(fn), mesh=mesh,
+    run = shard_map(functools.partial(fn), mesh=mesh,
                     in_specs=(jax_sm.sharded_specs(sg), *rows), out_specs=out_spec,
                     check_vma=True)
     xs = [jax.device_put(jnp.asarray(a), NamedSharding(mesh, s))
@@ -242,13 +244,22 @@ def test_sharded_spmm_matches_jax_shard_map(world4, kind):
     np.testing.assert_allclose(got["grad"], want_grad, **AGG)
 
 
-def test_sharded_gat_matches_jax_shard_map(world4):
+@functools.lru_cache(maxsize=None)
+def _jax_sharded_gat(n_ranks):
+    """The band graph's GAT inputs at n_ranks and the JAX package's
+    sharded_gat_attend of them under shard_map (_jax_sharded), computed
+    once: both the plain and the packed halo route's cases read it.
+    Returns (x_proj, out, (d_xp, d_src, d_dst))."""
     ei, n = ranks.band_graph()
     g = jax_bsda.build_bsda_for_kind(ei, n, "gat", depth=3, a_dtype="int8",
                                      transpose=False)
-    n_rows = -(-g.num_chunks // 4) * 4 * g.chunk
+    n_rows = -(-g.num_chunks // n_ranks) * n_ranks * g.chunk
     xp, a_s, a_d, w = ranks.gat_inputs(n_rows)
-    want, (d_xp, d_src, d_dst) = _jax_sharded(jax_sm.sharded_gat_attend, g, xp, a_s, a_d, w)
+    return (xp, *_jax_sharded(jax_sm.sharded_gat_attend, g, xp, a_s, a_d, w, n=n_ranks))
+
+
+def test_sharded_gat_matches_jax_shard_map(world4):
+    xp, want, (d_xp, d_src, d_dst) = _jax_sharded_gat(4)
     got = _gather(world4[0], "gat_r{r}.npz")
     np.testing.assert_allclose(got["out"], want, **AGG)
     # the first call, whose exps may err by EXP_RTOL relative: an output is
@@ -276,12 +287,7 @@ def test_packed_halo_gat_matches_jax_shard_map(world4, world2_step, n_ranks):
     package's sharded_gat_attend under shard_map at as many devices; the
     first call, as test_sharded_gat_matches_jax_shard_map holds it."""
     root = world4[0] if n_ranks == 4 else world2_step
-    ei, n = ranks.band_graph()
-    g = jax_bsda.build_bsda_for_kind(ei, n, "gat", depth=3, a_dtype="int8",
-                                     transpose=False)
-    n_rows = -(-g.num_chunks // n_ranks) * n_ranks * g.chunk
-    xp, a_s, a_d, w = ranks.gat_inputs(n_rows)
-    want, grads = _jax_sharded(jax_sm.sharded_gat_attend, g, xp, a_s, a_d, w, n=n_ranks)
+    xp, want, grads = _jax_sharded_gat(n_ranks)
     got = _gather(root, "gat_packed_r{r}.npz", n_ranks)
     np.testing.assert_allclose(got["out_first"], want, rtol=AGG["rtol"],
                                atol=4 * EXP_RTOL * np.abs(xp).max())
@@ -300,9 +306,13 @@ def test_packed_gspmd_gat_matches_jax(world4, world2_step, n_ranks):
     got = _gather(root, "gspmd_gat_r{r}.npz", n_ranks)
     xp, a_s, a_d, w = ranks.gat_inputs(got["out_one"].shape[0])
     g = jax_bsda.build_bsda_for_kind(ei, n, "gat", depth=3, a_dtype="int8")
-    out, vjp = jax.vjp(lambda *t: jax_bsda_gat.bsda_gat_aggregate(g, *t),
-                       *(jnp.asarray(v[:n]) for v in (xp, a_s, a_d)))
-    grads = [np.asarray(d) for d in vjp(jnp.broadcast_to(jnp.asarray(w), out.shape))]
+
+    def fwd_bwd(*t):
+        out, vjp = jax.vjp(lambda *u: jax_bsda_gat.bsda_gat_aggregate(g, *u), *t)
+        return out, vjp(jnp.broadcast_to(jnp.asarray(w), out.shape))
+
+    out, grads = jit_as_eager(fwd_bwd)(*(jnp.asarray(v[:n]) for v in (xp, a_s, a_d)))
+    grads = [np.asarray(d) for d in grads]
     for tag in ("one", "two"):
         _assert_gat_rows({k: v[:n] for k, v in got.items()}, np.asarray(out), grads, tag)
         assert not any(got[f"{k}_{tag}"][n:].any() for k in ("out", "d_xp", "d_src", "d_dst"))
@@ -319,12 +329,14 @@ def test_torch_exp_spread_within_its_tolerance():
     assert max(max(r["calls"]) for r in reports) <= EXP_RTOL, reports
 
 
-def _single_device_step(cfg, init_path):
-    """The port's single-device training step of the same weights: loss and
-    gradients before the clip and Adam."""
+@functools.lru_cache(maxsize=None)
+def _single_device_step(processed, init_path):
+    """The port's single-device training step of the step config's weights:
+    loss and gradients before the clip and Adam; computed once, for the
+    worlds of 2 and of 4."""
     with open(init_path, "rb") as fh:
         init_params = pickle.load(fh)
-    cfg = dict(cfg, aggregation="bsda")
+    cfg = dict(_step_cfg(processed, "unused"), aggregation="bsda")
     data = train_gnn.prepare_data(cfg)
     data, model, gops, _, loss_fn = train_gnn.build_train_state(
         cfg, data, cfg["seed"], torch.device("cpu"), init_params)
@@ -351,16 +363,37 @@ def world2_step(processed, init_path, gspmd_inits, tmp_path_factory):
 
 @pytest.mark.parametrize("n_ranks", [2, 4])
 def test_sharded_step_matches_single_device(processed, init_path, world4, world2_step,
-                                            tmp_path, n_ranks):
+                                            n_ranks):
     root = world4[0] if n_ranks == 4 else world2_step
     got = np.load(os.path.join(root, f"step_n{n_ranks}.npz"))
-    loss, grads = _single_device_step(_step_cfg(processed, tmp_path), init_path)
+    loss, grads = _single_device_step(processed, init_path)
     assert abs(float(got["loss"]) - loss) <= 1e-5 * abs(loss)
     assert set(grads) == set(got.files) - {"loss"}
     scale = max(float(np.abs(g).max()) for g in grads.values())
     for name, ref in grads.items():
         np.testing.assert_allclose(got[name], ref, rtol=0, atol=1e-5 * scale,
                                    err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def single_run(processed, tmp_path_factory):
+    """single_run(**overrides): the metrics of the single-device port run of
+    _cfg(**overrides), trained once a module. Runs are keyed by the
+    aggregation the trainer resolves on one device (_pick_aggregation:
+    `auto` is `bsda` there), so that every mesh run compared with the same
+    single-device run reads one."""
+    runs = {}
+
+    def run(**overrides):
+        cfg = _cfg(processed, "unused", run_name="one", **overrides)
+        agg = train_gnn._pick_aggregation(cfg, train_gnn._kind(cfg), 1)
+        key = tuple(sorted(dict(overrides, aggregation=agg).items()))
+        if key not in runs:
+            out = tmp_path_factory.mktemp("one")
+            runs[key] = train_gnn.main(dict(cfg, output_root=str(out)))
+        return runs[key]
+
+    return run
 
 
 def _rank_metrics(root, run_name, n=4):
@@ -372,7 +405,7 @@ def _rank_metrics(root, run_name, n=4):
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_mesh_trainer_all_archs(processed, world4, tmp_path, arch):
+def test_mesh_trainer_all_archs(world4, single_run, arch):
     """Every arch trains at mesh_devices: 4: all ranks report the same
     epochs and metrics, only rank 0's output root holds a run dir, and the
     run agrees with the single-device port run."""
@@ -389,7 +422,7 @@ def test_mesh_trainer_all_archs(processed, world4, tmp_path, arch):
     with open(os.path.join(run_dir, "metrics.json")) as fh:
         m4 = json.load(fh)
     assert m4["mesh_devices"] == 4 and m4["epochs_run"] == per_rank[0]["epochs_run"]
-    one = train_gnn.main(_cfg(processed, tmp_path, run_name="one", **ARCHS[arch]))
+    one = single_run(**ARCHS[arch])
     for key in ("pr_auc_illicit", "best_val_pr_auc"):
         assert abs(m4[key] - one[key]) < PR_ATOL, key
 
@@ -416,13 +449,13 @@ def test_mesh_trainer_matches_jax_shard_map(processed, world4, tmp_path):
                                atol=1e-6)
 
 
-def test_main_spawns_ranks_for_gat(processed, tmp_path):
+def test_main_spawns_ranks_for_gat(processed, tmp_path, single_run):
     """train_gnn.main at mesh_devices: 2 starts two ranks itself and
     returns rank 0's metrics; GAT attends per shard through the packed
     route (the GAT kernels' plain versions on the CPU)."""
     m2 = train_gnn.main(_cfg(processed, tmp_path, run_name="gat2", mesh_devices=2,
                              **ARCHS["gat"]))
-    one = train_gnn.main(_cfg(processed, tmp_path, run_name="gat1", **ARCHS["gat"]))
+    one = single_run(**ARCHS["gat"])
     assert m2["mesh_devices"] == 2 and m2["epochs_run"] == one["epochs_run"]
     for key in ("pr_auc_illicit", "best_val_pr_auc"):
         assert abs(m2[key] - one[key]) < PR_ATOL, key
@@ -442,16 +475,24 @@ def test_gspmd_spmm_matches_jax(world4, kind):
     else:
         g = jax_bsda.build_bsda_for_kind(ei, n, kind, depth=3, a_dtype="int8")
         fn = lambda z: jax_bsda.bsda_spmm(g, z)  # noqa: E731
-    out, vjp = jax.vjp(fn, jnp.asarray(x[:n]))
     ct = np.broadcast_to(w, (n, w.size))
+
+    def fwd_bwd(z):
+        out, vjp = jax.vjp(fn, z)
+        return out, vjp(jnp.asarray(ct))[0]
+
+    out, grad = jit_as_eager(fwd_bwd)(jnp.asarray(x[:n]))
     np.testing.assert_allclose(got["out"][:n], np.asarray(out), **AGG)
-    np.testing.assert_allclose(got["grad"][:n], np.asarray(vjp(jnp.asarray(ct))[0]), **AGG)
+    np.testing.assert_allclose(got["grad"][:n], np.asarray(grad), **AGG)
     assert not got["out"][n:].any() and not got["grad"][n:].any()
 
 
-def _single_device_adam_step(cfg, init_path):
-    """The port's single-device step of the same weights and config: the
-    loss, then the state dict after the clip and one Adam step."""
+@functools.lru_cache(maxsize=None)
+def _single_device_adam_step(processed, init_path, tag):
+    """The port's single-device step of the GSPMD step `tag`'s weights and
+    config: the loss, then the state dict after the clip and one Adam step;
+    computed once, for the worlds of 2 and of 4."""
+    cfg = _gspmd_step_cfg(processed, "unused", tag)
     with open(init_path, "rb") as fh:
         init_params = pickle.load(fh)
     data = train_gnn.prepare_data(cfg)
@@ -472,11 +513,11 @@ def _single_device_adam_step(cfg, init_path):
 @pytest.mark.parametrize("n_ranks", [2, 4])
 @pytest.mark.parametrize("tag", sorted(GSPMD_STEPS))
 def test_gspmd_step_matches_single_device(processed, gspmd_inits, world4, world2_step,
-                                          tmp_path, tag, n_ranks):
+                                          tag, n_ranks):
     root = world4[0] if n_ranks == 4 else world2_step
     got = np.load(os.path.join(root, f"gspmd_step_{tag}_n{n_ranks}.npz"))
-    cfg = _gspmd_step_cfg(processed, tmp_path, tag)
-    loss, state = _single_device_adam_step(cfg, gspmd_inits[tag])
+    cfg = _gspmd_step_cfg(processed, "unused", tag)
+    loss, state = _single_device_adam_step(processed, gspmd_inits[tag], tag)
     assert abs(float(got["loss"]) - loss) <= 1e-5 * abs(loss)
     assert set(state) == set(got.files) - {"loss"}
     tol = dict(rtol=2e-4, atol=2e-5) if tag == "ell" else dict(rtol=2e-3, atol=3e-4)
@@ -500,7 +541,7 @@ def _pre_bn_biases(cfg):
 
 
 @pytest.mark.parametrize("agg", ["bsda", "ell"])
-def test_gspmd_trainer_matches_single_device(processed, world4, tmp_path, agg):
+def test_gspmd_trainer_matches_single_device(world4, single_run, agg):
     """train_gnn.main at mesh_devices: 4 with a pinned encoding takes the
     GSPMD row sharding: every rank reports the same metrics, and the run
     agrees with the single-device run of the same encoding."""
@@ -510,12 +551,12 @@ def test_gspmd_trainer_matches_single_device(processed, world4, tmp_path, agg):
     with open(os.path.join(out, "rank0", "gnn", f"g4_{agg}", "metrics.json")) as fh:
         m4 = json.load(fh)
     assert m4["mesh_devices"] == 4
-    one = train_gnn.main(_cfg(processed, tmp_path, run_name="one", aggregation=agg))
+    one = single_run(aggregation=agg)
     for key in ("pr_auc_illicit", "best_val_pr_auc"):
         assert abs(m4[key] - one[key]) < PR_ATOL, key
 
 
-def test_auto_mesh_falls_back_to_gspmd_when_not_banded(processed, world4, tmp_path):
+def test_auto_mesh_falls_back_to_gspmd_when_not_banded(world4, single_run):
     """Counterpart of tests/test_parallel.py::test_auto_mesh_falls_back_to_gspmd_when_not_banded:
     with partition_bsda rejecting the graph, `aggregation: auto` on 4 ranks
     says it falls back to GSPMD and matches the single-device run; an
@@ -524,7 +565,7 @@ def test_auto_mesh_falls_back_to_gspmd_when_not_banded(processed, world4, tmp_pa
     for r in range(4):
         with open(os.path.join(world4[0], f"fallback_r{r}.json")) as fh:
             reports.append(json.load(fh))
-    one = train_gnn.main(_cfg(processed, tmp_path, run_name="fb1"))
+    one = single_run()
     for rep in reports:
         assert rep["fell_back"], rep
         assert "non-banded rejection" in (rep["error"] or ""), rep

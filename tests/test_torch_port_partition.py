@@ -36,6 +36,7 @@ from elliptic_gnn_tpu_torch.parallel import shardmap_step
 from elliptic_gnn_tpu_torch.train import predict, train_gnn
 from elliptic_gnn_tpu_torch.utils.logger import NullLogger, RunLogger
 from tests.torch_port_ranks import band_graph
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 AGG = dict(rtol=1e-4, atol=1e-5)
 

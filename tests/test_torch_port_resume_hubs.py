@@ -36,6 +36,7 @@ from elliptic_gnn_tpu_torch.analysis import hub_ablation, robustness
 from elliptic_gnn_tpu_torch.models.convert import params_to_jax
 from elliptic_gnn_tpu_torch.train import checkpoint, train_gnn
 from tests.port_native_pin import same_native
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -25,6 +25,7 @@ from tests.port_native_pin import same_native
 from tests.test_torch_port_ell_train import (  # noqa: F401  (fixture)
     ARCHS, assert_runs_match, processed, run_both,
 )
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -23,6 +23,8 @@ from elliptic_gnn_tpu_torch.graph import build_graph
 from elliptic_gnn_tpu_torch.train import train_gnn
 from elliptic_gnn_tpu_torch.utils import trace
 
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
+
 
 class _Clock:
     """A clock for a Recorder that moves only when told to."""

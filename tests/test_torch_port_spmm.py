@@ -20,6 +20,7 @@ from elliptic_gnn_tpu.kernels.pallas_bsda import pallas_bsda_spmm
 from elliptic_gnn_tpu_torch.kernels import bsda as port_bsda
 from elliptic_gnn_tpu_torch.kernels import spmm
 from tests.test_torch_port_tables import port_graph
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)

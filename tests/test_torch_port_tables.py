@@ -18,6 +18,8 @@ from elliptic_gnn_tpu_torch.graph import synthetic as port_synth
 from elliptic_gnn_tpu_torch.graph.transform import symmetrize_edges
 from elliptic_gnn_tpu_torch.kernels import bsda as port_bsda
 
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
+
 
 def port_graph(n, t_blocks, avg_deg, seed, n_far=0):
     """Random intra-block edges (+ `n_far` arbitrary ones to force spill),

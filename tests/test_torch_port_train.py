@@ -25,6 +25,7 @@ from elliptic_gnn_tpu.train import train_gnn as jax_train
 from elliptic_gnn_tpu_torch.graph import build_graph
 from elliptic_gnn_tpu_torch.train import train_gnn
 from tests.port_native_pin import same_native
+from tests.torch_port_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACTS = [
@@ -187,3 +188,37 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_kernels_import_no_higher_layer():
+    """The kernel layer knows no layer above it: no module of
+    elliptic_gnn_tpu_torch/kernels imports parallel/, models/ or train/
+    (an encoding answers for its own aggregation; kernels/encoding.py)."""
+    import ast
+
+    above = ("parallel", "models", "train")
+    pkg = "elliptic_gnn_tpu_torch"
+    kdir = os.path.join(REPO, pkg, "kernels")
+    found = []
+    for name in sorted(os.listdir(kdir)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(kdir, name)) as fh:
+            tree = ast.parse(fh.read(), name)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+                if node.level == 2 and not node.module:  # from .. import parallel
+                    mods = [a.name for a in node.names]
+                elif node.level == 0:
+                    mods = [m[len(pkg) + 1:] for m in mods if m.startswith(pkg + ".")]
+                elif node.level != 2:
+                    continue
+            elif isinstance(node, ast.Import):
+                mods = [a.name[len(pkg) + 1:] for a in node.names
+                        if a.name.startswith(pkg + ".")]
+            else:
+                continue
+            found += [f"{name}:{node.lineno} {m}" for m in mods
+                      if m.split(".")[0] in above]
+    assert not found, found
