@@ -6,7 +6,7 @@ NVIDIA GPU. Run from the repository root:
 
 Phases (any failure exits non-zero before the result line):
   1. device: the card's name and power limit;
-  2. build: compiles the seven kernel sources of kernels/csrc with nvcc, in
+  2. build: compiles the eight kernel sources of kernels/csrc with nvcc, in
      parallel, and prints what ptxas says of each kernel;
   3. BSDA kernel vs plain: on the Elliptic-scale synthetic graph (203,769
      nodes, 234,355 edges before symmetrization, 166 features, 49 timesteps,
@@ -47,6 +47,13 @@ Phases (any failure exits non-zero before the result line):
      backward, one launch each) timed against their bounds and against
      the step kernels' graphed passes, the step kernels' steps and the
      whole chains against their bounds and the plain chain;
+     then the ELL kernel (ell_spmm.cu) on rec_k8's `aggregation: ell`
+     encoding of the same graph (mean, renumber_for_ell, the flat tables
+     and their transpose) at F=168 and F=64 f32, forward and transpose,
+     against the plain version (ell_weighted_sum and its autograd
+     backward), twice bit for bit; kernel, plain version and
+     torch.sparse.mm (CSR f32 of the same weights) timed against the
+     bound;
   4. GAT kernels vs plain: on the same graph, directed and self-looped,
      depth 4: the forward at (h, ch) = (4, 8) with the slot cover and
      (1, 2) without, normalize on and off, compared on val = acc / s and
@@ -117,9 +124,10 @@ Phases (any failure exits non-zero before the result line):
      walls of K and serial runs and the device time of one replayed epoch
      are printed;
   8. the trainer's other single-device paths, on the same CSV build:
-     rec_k8 with `aggregation: ell` (the ELL gather, renumber_for_ell) 16
-     epochs in the K loop and in the serial loop, per epoch within 1e-4, no
-     kernel launched, and predict reproducing its test scores; rec_k8 with
+     rec_k8 with `aggregation: ell` (the ELL kernel on the flat tables,
+     renumber_for_ell) 16 epochs in the K loop and in the serial loop, per
+     epoch within 1e-4, ell_spmm launched 8 times an epoch and no BSDA or
+     GAT kernel, and predict reproducing its test scores (3 launches); rec_k8 with
      `mini_batch: true` at its fanout and batch size for 3 epochs, and one
      sampled batch's forward, loss and gradients on the card against the
      CPU; rec_k8 with `profile_dir` (auto K stays 8): the Chrome trace of
@@ -148,7 +156,8 @@ Phases (any failure exits non-zero before the result line):
      serial with `bsda` (the GAT kernels' rectangular launches over the
      gathered rows), rec_k8 with `ell` 16 epochs; rec_k8, gcn and GAT
      launch their kernels as often as their single-device runs, the ELL run
-     none; first-epoch losses within 1e-4 relative, test and best val
+     no BSDA or GAT kernel (its ranks gather; the whole graph's scoring
+     pass launches ell_spmm); first-epoch losses within 1e-4 relative, test and best val
      PR-AUC within 2e-3 of the single-device runs, K against serial within
      1e-4. With two cards or more, the SAGE-ResBN epilogue's kernels over
      min(4, cards) NCCL ranks, each with padding rows of row_mask 0,
@@ -182,8 +191,9 @@ Phases (any failure exits non-zero before the result line):
      phase's launches (`mesh_kernel_launches`, a rank's, a shard's and the
      whole graph's ms under `mesh_ms`) and those of the mesh-1 runs of
      both routes, the egcn_evolve row with the egcn_o.yaml run's launches
-     and those of its captured epoch (`captured_epoch_launches`)), the card
-     line, and the result line
+     and those of its captured epoch (`captured_epoch_launches`), the
+     ell_spmm row with the ELL runs' launches and those of its captured
+     epoch), the card line, and the result line
      {"ok": true, "device": {...}}.
 
 With `--multicard`, on a host of two cards or more, it runs only the
@@ -219,6 +229,8 @@ SPIN_CYCLES = 200_000               # device spin before a timed call, ~0.1 ms
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,        # CUDA-core f32
             "bfloat16": 989e12}      # dense bf16 tensor cores
+# the ELL kernel's error against the f64 sums, over its row's sum of |terms|
+ELL_SUM_RTOL = 1e-5
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=1 / 64, atol=1e-3)}
 # GAT runs in f32: forward on the gauge-free val and m + log s (expf on the
@@ -458,6 +470,104 @@ def spmm_entry(label, t, x, r, flush_buf):
         f"kernel / bound {r['ms'] / entry['bound_ms']:.2f}, kernel / library "
         + ("n/a" if library_ms is None else f"{r['ms'] / library_ms:.2f}"))
     return entry
+
+
+def ell_kernel_phase(device, flush_buf) -> dict:
+    """The ELL kernel (kernels/ell_spmm_cuda.py) on rec_k8's `aggregation:
+    ell` encoding of the Elliptic-scale graph (symmetrized, mean,
+    renumber_for_ell, the flat tables and their transpose), at F = 168 and
+    64 f32: the forward and the transpose against the same sums in f64, each
+    element within ELL_SUM_RTOL of its row's sum of |terms| (the hubs' rows
+    sum ~300 terms: an f32 sum's error grows with them, ~sqrt(n) 2^-24 of
+    that sum, (n - 1) 2^-24 at worst), and beside it the largest difference
+    from the plain version (ell_weighted_sum and its autograd backward,
+    whose index_add_ sums in an order that changes run to run); each launch
+    twice bit for bit; CUDA-event medians of the kernel, the plain version
+    (the transpose's: forward and backward together) and torch.sparse.mm
+    on a CSR f32 of the same weights, against the bound: x read and out
+    written once, the row pointers, 8 bytes a nonzero (column and weight)
+    and the scales present. Returns the kernel line's entries by (table,
+    F)."""
+    import torch
+
+    from elliptic_gnn_tpu_torch.graph import synthetic
+    from elliptic_gnn_tpu_torch.graph.transform import symmetrize_edges
+    from elliptic_gnn_tpu_torch.kernels import ell
+    from elliptic_gnn_tpu_torch.kernels.ell_spmm_cuda import ell_spmm_launch
+    from elliptic_gnn_tpu_torch.models import prepare_graph_ops
+
+    data = symmetrize_edges(synthetic.generate(
+        num_nodes=N_NODES, num_features=166, num_timesteps=49,
+        avg_degree=N_EDGES / N_NODES, seed=0))
+    t0 = time.time()
+    g, _ = ell.renumber_for_ell(prepare_graph_ops(data.edge_index, data.num_nodes, "sage"))
+    g = ell.with_flat_tables(g, transpose=True)
+    log(f"ELL flat tables and transpose built in {time.time() - t0:.2f} s: "
+        f"nnz={int(g.flat.col.numel())} widths={g.widths} zero-degree={g.n_zero_deg}")
+    g = g.to(device)
+    plain = dataclasses.replace(g, flat=None, flat_t=None)
+    gen = torch.Generator(device=device).manual_seed(2)
+    entries, failures = {}, []
+    for f in (168, 64):
+        x = torch.randn((g.num_nodes, f), generator=gen, device=device)
+        ct = torch.randn((g.num_nodes, f), generator=gen, device=device)
+        xr = x.clone().requires_grad_()
+        want = ell.ell_weighted_sum(plain, xr)
+        (want_t,) = torch.autograd.grad(want, xr, ct)
+
+        def plain_fwd():
+            return ell.ell_weighted_sum(plain, x)
+
+        def plain_fwd_bwd():
+            return torch.autograd.grad(ell.ell_weighted_sum(plain, xr), xr, ct)
+
+        for name, t, inp, ref, plain_fn in (("forward", g.flat, x, want.detach(), plain_fwd),
+                                            ("transpose", g.flat_t, ct, want_t,
+                                             plain_fwd_bwd)):
+            got = ell_spmm_launch(t, inp)
+            same = torch.equal(got, ell_spmm_launch(t, inp))
+            torch.cuda.synchronize()
+            max_abs = float((got - ref).abs().max())
+            rows = torch.repeat_interleave(
+                torch.arange(t.n_rows, device=device), t.row_ptr[1:] - t.row_ptr[:-1])
+            w64 = t.weight.double() * (1.0 if t.scale is None else t.scale.double()[rows])
+            terms = w64[:, None] * inp.double()[t.col.long()]
+            exact = torch.zeros_like(got, dtype=torch.float64).index_add_(0, rows, terms)
+            mag = torch.zeros_like(exact).index_add_(0, rows, terms.abs())
+            del terms
+            err = float(((got.double() - exact).abs() / mag.clamp_min(1e-30)).max())
+            ok = same and err <= ELL_SUM_RTOL
+            ms = cuda_ms(lambda: ell_spmm_launch(t, inp), flush_buf)
+            plain_ms = cuda_ms(plain_fn, flush_buf)
+            n_rows, nnz = t.n_rows, int(t.col.numel())
+            vals = t.weight if t.scale is None else t.weight * t.scale[rows]
+            csr = torch.sparse_csr_tensor(t.row_ptr.long(), t.col.long(), vals,
+                                          size=(n_rows, t.n_src))
+            library_ms = cuda_ms(lambda: torch.sparse.mm(csr, inp), flush_buf)
+            del csr, rows, vals, exact, mag
+            bytes_moved = (2 * n_rows * f * 4 + 4 * (n_rows + 1) + 8 * nnz
+                           + (4 * n_rows if t.scale is not None else 0))
+            bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2.0 * nnz * f / PEAK_OPS["float32"] * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            entries[(name, f)] = dict(
+                max_abs_err=max_abs, sum_rel_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms, bytes=bytes_moved, nnz=nnz, f=f)
+            case = f"ell_spmm {name} F={f} f32"
+            log(f"{case}: error {err:.3e} of the row's sum of |terms| (tol {ELL_SUM_RTOL:.0e}) "
+                f"{'ok' if ok else 'MISMATCH'}, max_abs against the plain version "
+                f"{max_abs:.3e}, two launches "
+                f"{'bit-equal' if same else 'DIFFER'} | bytes={bytes_moved} nnz={nnz} "
+                f"bound={bound_ms:.4f} ms kernel={ms:.4f} ms "
+                f"plain{'' if name == 'forward' else ' fwd+bwd'}={plain_ms:.4f} ms "
+                f"library={library_ms:.4f} ms | kernel / bound {ms / bound_ms:.2f}, "
+                f"kernel / library {ms / library_ms:.2f}")
+            if not ok:
+                failures.append(case)
+    if failures:
+        fail(f"the ELL kernel disagrees with the exact sums: {failures}")
+    return entries
 
 
 def epilogue_phase(device, flush_buf) -> dict:
@@ -2258,10 +2368,11 @@ def predict_check(outdir, want_launches) -> None:
     import numpy as np
 
     from elliptic_gnn_tpu_torch import kernels
-    from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda, egcn_evolve, gat_cuda
+    from elliptic_gnn_tpu_torch.kernels import (bsda_spmm_cuda, egcn_evolve, ell_spmm_cuda,
+                                                gat_cuda)
     from elliptic_gnn_tpu_torch.train import predict
 
-    counters = (bsda_spmm_cuda, gat_cuda, egcn_evolve)
+    counters = (bsda_spmm_cuda, gat_cuda, egcn_evolve, ell_spmm_cuda)
     kernels.launch_counts(reset=True)
     t0 = time.time()
     node_idx, probs, flags, thr, data = predict.predict(outdir)
@@ -2282,28 +2393,35 @@ def predict_check(outdir, want_launches) -> None:
 
 def no_kernel_launched(run) -> None:
     """No kernel of the BSDA or GAT path (the SAGE-ResBN epilogue runs on
-    any aggregation)."""
-    if any(v for k, v in run["launches"].items() if not k.startswith("resbn")):
+    any aggregation, the ELL kernel on the full-batch ELL encoding)."""
+    if any(v for k, v in run["launches"].items()
+           if not k.startswith(("resbn", "ell_spmm"))):
         fail(f"{run['cfg']['run_name']} launched a kernel of the BSDA or GAT path: "
              f"{run['launches']}")
 
 
 def ell_phase(tmp, processed) -> dict:
-    """rec_k8 with `aggregation: ell` (the ELL gather, renumber_for_ell) for
-    KLOOP_EPOCHS epochs in the K loop, the epoch with its gathers and their
-    index backward captured as a CUDA graph, and, interleaved, the serial
-    loop: per epoch within KLOOP_TOL (the backward's atomics: not bit for
-    bit), no hand-written kernel launched; predict on the K run's dir
-    rebuilds the encoding and reproduces its test scores. Returns the K
-    run."""
+    """rec_k8 with `aggregation: ell` (the ELL kernel on the flat tables,
+    renumber_for_ell) for KLOOP_EPOCHS epochs in the K loop, the epoch with
+    its eight ell_spmm launches captured as a CUDA graph, and, interleaved,
+    the serial loop: per epoch within KLOOP_TOL, ell_spmm 8 times an epoch
+    (3 training forward, 2 backward, 3 eval) and no BSDA or GAT kernel;
+    predict on the K run's dir rebuilds the encoding and reproduces its
+    test scores in 3 launches. Returns the K run."""
     runs = [slice_phase(tmp, processed, "rec_k8.yaml", f"rec_k8_ell{suffix}",
                         epochs=KLOOP_EPOCHS, aggregation="ell", **extra)
             for suffix, extra in (("", {}), ("_serial", {"epochs_per_sync": 1}))]
     for run in runs:
         no_kernel_launched(run)
+        n, epochs = run["launches"].get("ell_spmm", 0), device_epochs(run["metrics"])
+        if n < 8 * epochs:
+            fail(f"{run['cfg']['run_name']}: {n} ell_spmm launches in {epochs} epochs")
+    captured = runs[0]["metrics"]["graph_launches"].get("ell_spmm")
+    if captured != 8:
+        fail(f"the captured ELL epoch launched ell_spmm {captured} times, not 8")
     compare_runs("rec_k8 aggregation: ell, K=8 against serial", *runs)
     report_walls("rec_k8 aggregation: ell", runs)
-    predict_check(runs[0]["outdir"], {})
+    predict_check(runs[0]["outdir"], {"ell_spmm": 3})
     return runs[0]
 
 
@@ -2994,6 +3112,7 @@ def drive(device) -> list:
     entries, rec_tables = kernel_phase(device, flush_buf)
     epilogue_entry = epilogue_phase(device, flush_buf)
     egcn_entry = egcn_phase(device, flush_buf)
+    ell_entries = ell_kernel_phase(device, flush_buf)
     shard_launches = shard_kernel_phase(device, flush_buf, rec_tables)
     gspmd_launches, gspmd_times = gspmd_kernel_phase(device, flush_buf, rec_tables)
     del rec_tables
@@ -3063,7 +3182,7 @@ def drive(device) -> list:
         multicard_phase(tmp, processed, rec, gat)
         profile_phase(rec["cfg"], ["bsda_spmm_kernel"])
         profile_phase(rec_serial["cfg"], ["bsda_spmm_kernel"])
-        profile_phase(rec_ell["cfg"], [])
+        profile_phase(rec_ell["cfg"], ["ell_spmm_kernel"])
         profile_phase(rec_mb["cfg"], [])
         profile_phase(gat["cfg"], ["gat_fwd_kernel", "gat_bwd_kernel"])
         with two_sweep_backward():
@@ -3170,6 +3289,19 @@ def drive(device) -> list:
                     "captured_epoch_launches": {
                         k: v for k, v in egcn["metrics"]["graph_launches"].items()
                         if k.startswith("egcn")}})
+    # replaces no TPU kernel: the JAX package ran ELL as XLA gathers; the
+    # forward at F = 168, the other shapes under suffixed keys; launches of
+    # the K-loop ELL run and of its captured epoch
+    kernels.append({"name": "ell_spmm[rec_k8 aggregation: ell, F=168 f32]", "route": "cuda",
+                    "source": CSRC + "ell_spmm.cu", "replaces": None,
+                    "launches": rec_ell["launches"].get("ell_spmm", 0),
+                    "captured_epoch_launches": rec_ell["metrics"]["graph_launches"].get(
+                        "ell_spmm", 0),
+                    **ell_entries[("forward", 168)],
+                    **{f"{k}_{table}_f{f}": v for (table, f), e in ell_entries.items()
+                       if (table, f) != ("forward", 168) for k, v in e.items()
+                       if k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                "max_abs_err", "sum_rel_err")}})
     if any((sum(k["launches"].values()) if isinstance(k["launches"], dict)
             else k["launches"]) <= 0 for k in kernels):
         fail(f"a kernel of the main paths was never launched: {kernels}")

@@ -18,9 +18,9 @@ def launch_counts(reset: bool = False) -> dict:
     """Every kernel binding's `launches` counter, merged by kernel name (a
     launch counts when its Python runs: at a CUDA graph's capture, not at
     its replays); `reset` zeroes them after the read."""
-    from . import bsda_spmm_cuda, egcn_evolve, gat_cuda, resbn_epilogue
+    from . import bsda_spmm_cuda, egcn_evolve, ell_spmm_cuda, gat_cuda, resbn_epilogue
 
-    bindings = (bsda_spmm_cuda, gat_cuda, resbn_epilogue, egcn_evolve)
+    bindings = (bsda_spmm_cuda, gat_cuda, resbn_epilogue, egcn_evolve, ell_spmm_cuda)
     counts = {k: v for b in bindings for k, v in b.launches.items()}
     for b in bindings if reset else ():
         b.launches.update(dict.fromkeys(b.launches, 0))

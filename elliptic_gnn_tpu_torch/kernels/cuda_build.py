@@ -35,6 +35,7 @@ SOURCES: Dict[str, Sequence[str]] = {
     "gat_bwd_src": ("bsda_edges.cuh",),
     "resbn_epilogue": (),
     "egcn_evolve": (),
+    "ell_spmm": (),
 }
 
 

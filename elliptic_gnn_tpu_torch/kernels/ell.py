@@ -11,6 +11,14 @@ package also runs as plain gathers outside any Pallas kernel.
 
 The host-side build is numpy, identical to the JAX package's; the result
 holds torch tensors (index tensors as int64, torch's index type).
+
+The trainer's full-batch encodings (train_gnn.build_graph_ops) also carry
+the flat form of the same rows and slots (EllTables: with_flat_tables),
+and where a gradient runs its transpose: on CUDA tensors their aggregation
+is one launch of the hand-written kernel (kernels/ell_spmm_cuda.py), its
+gradient the same kernel on the transpose. Encodings without them (the
+spill, the sampler's batches, the explainer's subgraphs) keep the
+gathers.
 """
 from __future__ import annotations
 
@@ -25,6 +33,38 @@ from .encoding import GraphEncoding
 
 
 @dataclasses.dataclass
+class EllTables:
+    """The flat (CSR) form of an aggregation, as kernels/ell_spmm_cuda.py
+    reads it:
+
+        out[d] = scale[d] * sum_{row_ptr[d] <= e < row_ptr[d + 1]} weight[e] * x[col[e]]
+
+    row_ptr: [n_rows + 1] int32; col: [nnz] int32 rows of x (n_src of
+    them); weight: [nnz] float32; scale: [n_rows] float32, or None (ones);
+    long_rows: int32, the rows of more than LONG_DEGREE entries (the kernel
+    gives each a block of its own).
+    """
+
+    row_ptr: torch.Tensor
+    col: torch.Tensor
+    weight: torch.Tensor
+    scale: Optional[torch.Tensor]
+    long_rows: torch.Tensor
+    n_src: int
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.row_ptr.shape[0]) - 1
+
+    def to(self, device) -> "EllTables":
+        return dataclasses.replace(
+            self, row_ptr=upload(self.row_ptr, device), col=upload(self.col, device),
+            weight=upload(self.weight, device),
+            scale=None if self.scale is None else upload(self.scale, device),
+            long_rows=upload(self.long_rows, device))
+
+
+@dataclasses.dataclass
 class EllGraph(GraphEncoding):
     """nbrs:      tuple of [R_b, W_b] int64 — source ids per destination row
     weights:   tuple of [R_b, W_b] float32 — edge weights; 0 marks padding
@@ -32,6 +72,9 @@ class EllGraph(GraphEncoding):
     inv_perm:  [N] int64 — node id -> position in the concatenated row order
     row_scale: tuple of [R_b] float32 — per-row post-scale (1/deg for mean)
     num_nodes, widths, n_zero_deg: static sizes
+    flat:      the same aggregation as EllTables over node ids (with_flat_tables)
+    flat_t:    its transpose, for the gradient; both None where not built.
+    A replace() of the bucket tables must drop them.
     """
 
     nbrs: Tuple[torch.Tensor, ...]
@@ -42,6 +85,8 @@ class EllGraph(GraphEncoding):
     num_nodes: int
     widths: Tuple[int, ...]
     n_zero_deg: int
+    flat: Optional[EllTables] = None
+    flat_t: Optional[EllTables] = None
 
     def to(self, device) -> "EllGraph":
         def mv(t):
@@ -54,11 +99,18 @@ class EllGraph(GraphEncoding):
             rows=tuple(mv(t) for t in self.rows),
             inv_perm=mv(self.inv_perm),
             row_scale=tuple(mv(t) for t in self.row_scale),
+            flat=None if self.flat is None else self.flat.to(device),
+            flat_t=None if self.flat_t is None else self.flat_t.to(device),
         )
 
     def spmm(self, x, compute_dtype=None):
-        """The ELL gather on either device, at full precision whatever
-        `compute_dtype` says, as the JAX package runs its ELL path."""
+        """At full precision whatever `compute_dtype` says, as the JAX
+        package runs its ELL path: with the flat tables on CUDA tensors the
+        kernel (it launches or raises), else the ELL gather."""
+        if self.flat is not None and x.is_cuda:
+            from .ell_spmm_cuda import ell_spmm_cuda
+
+            return ell_spmm_cuda(self, x)
         return ell_spmm(self, x)
 
     def gat_attend(self, x_proj, alpha_src, alpha_dst, negative_slope=0.2):
@@ -163,6 +215,64 @@ def build_ell_graph(
     )
 
 
+# a row of more entries than this takes a block of the kernel's own
+LONG_DEGREE = 32
+
+
+def _tables(row_ptr, col, weight, scale, n_src: int) -> EllTables:
+    long_rows = np.nonzero(np.diff(row_ptr) > LONG_DEGREE)[0]
+    return EllTables(row_ptr=torch.from_numpy(row_ptr.astype(np.int32)),
+                     col=torch.from_numpy(col.astype(np.int32)),
+                     weight=torch.from_numpy(weight.astype(np.float32)),
+                     scale=None if scale is None else torch.from_numpy(scale),
+                     long_rows=torch.from_numpy(long_rows.astype(np.int32)), n_src=n_src)
+
+
+def flat_tables(g: EllGraph) -> EllTables:
+    """g's aggregation as EllTables over node ids (on the CPU): each
+    bucket row's slots in slot order, padding slots (weight 0) left out,
+    the row scale per node (ones for zero-degree rows, which sum nothing)."""
+    n = g.num_nodes
+    dst, src, wgt = [], [], []
+    scale = np.ones(n, dtype=np.float32)
+    for nbr, w, rows, rs in zip(g.nbrs, g.weights, g.rows, g.row_scale):
+        w = w.cpu().numpy()
+        rows = rows.cpu().numpy()
+        valid = w != 0
+        dst.append(np.repeat(rows, valid.sum(axis=1)))  # row-major: slot order
+        src.append(nbr.cpu().numpy()[valid])
+        wgt.append(w[valid])
+        scale[rows] = rs.cpu().numpy()
+    dst = np.concatenate(dst) if dst else np.zeros(0, np.int64)
+    src = np.concatenate(src) if src else np.zeros(0, np.int64)
+    wgt = np.concatenate(wgt) if wgt else np.zeros(0, np.float32)
+    row_ptr, col, order = build_csr(src, dst, n)  # stable: slot order kept
+    return _tables(row_ptr, col, wgt[order], scale, n)
+
+
+def transpose_tables(t: EllTables) -> EllTables:
+    """A^T of t (on the CPU): an entry d <- s of weight w becomes s <- d of
+    weight w * scale[d], no scale; a source's entries in t's order."""
+    rp = t.row_ptr.cpu().numpy().astype(np.int64)
+    n_rows = rp.shape[0] - 1
+    dst = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(rp))
+    src = t.col.cpu().numpy().astype(np.int64)
+    w = t.weight.cpu().numpy()
+    if t.scale is not None:
+        w = w * t.scale.cpu().numpy()[dst]
+    row_ptr, col, order = build_csr(dst, src, t.n_src)
+    return _tables(row_ptr, col, w[order], None, n_rows)
+
+
+def with_flat_tables(g: EllGraph, transpose: bool) -> EllGraph:
+    """g with its flat tables, and with `transpose` their transpose (the
+    gradient's): the encoding's aggregation then runs the kernel on CUDA
+    tensors. Build after any relabelling (renumber_for_ell)."""
+    flat = flat_tables(g)
+    return dataclasses.replace(g, flat=flat,
+                               flat_t=transpose_tables(flat) if transpose else None)
+
+
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[idx] for an index tensor of any shape, through index_select: its
     backward is one index_add_ (atomics), where x[idx]'s sorts the indices
@@ -245,7 +355,7 @@ def renumber_for_ell(g: EllGraph):
         g,
         nbrs=tuple(rank_t[n.cpu()].to(n.device) for n in g.nbrs),
         rows=tuple(rank_t[r.cpu()].to(r.device) for r in g.rows),
-        inv_perm=None,
+        inv_perm=None, flat=None, flat_t=None,
     )
     return g2, rank.astype(np.int32)
 

@@ -30,8 +30,9 @@ Two loops make the same per-epoch decisions (early stop on val PR-AUC with
 
 The encoding follows `aggregation` as in the JAX trainer
 (_pick_aggregation): the BSDA tables and the hand-written kernels by
-default, or the ELL gather (`aggregation: ell`, relabelled by
-renumber_for_ell unless `renumber: false`); `mini_batch: true` trains on
+default, or the ELL encoding (`aggregation: ell`, relabelled by
+renumber_for_ell unless `renumber: false`; on the card its aggregation and
+gradient through csrc/ell_spmm.cu); `mini_batch: true` trains on
 sampled subgraphs (train/sampler.py) and scores the full graph through the
 ELL encoding. `profile_dir` traces, with torch.profiler into a Chrome
 trace JSON, three blocks of the K loop after the capture (blocks 4-6), or
@@ -93,7 +94,7 @@ from ..graph import load_processed, make_temporal_masks
 from ..graph.transform import append_scalar_time, remove_hub_edges, symmetrize_edges
 from ..kernels import launch_counts
 from ..kernels.bsda import BsdaGraph, bfs_order, build_bsda_for_kind, pad_bsda_chunks
-from ..kernels.ell import EllGraph, renumber_for_ell
+from ..kernels.ell import EllGraph, renumber_for_ell, with_flat_tables
 from ..kernels.packed_gat import use_two_sweep_backward
 from ..models import MODEL_GRAPH_KIND, build_model, egcn, prepare_graph_ops
 from ..models.convert import params_from_jax
@@ -144,8 +145,9 @@ def _pick_aggregation(cfg: dict, kind: str, n_mesh: Optional[int] = None) -> str
                              through their plain versions (the two names
                              are one path in the port; 'auto' is 'bsda',
                              and GAT's 'bsda_pallas' is 'bsda', as in JAX)
-      'ell'                  the ELL gather (kernels/ell.py); always for
-                             `mini_batch`
+      'ell'                  the ELL encoding (kernels/ell.py; on the card
+                             the full graph's aggregation through
+                             csrc/ell_spmm.cu); always for `mini_batch`
     On a mesh of more than one rank a pinned 'bsda', 'bsda_pallas' or
     'ell' takes the GSPMD row sharding (_shard). Unknown values raise."""
     mode = cfg.get("aggregation", "auto")
@@ -256,7 +258,10 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
     the two-sweep backward chosen
     (kernels/packed_gat.py::use_two_sweep_backward).
     ELL: models.prepare_graph_ops, relabelled by renumber_for_ell unless
-    `renumber: false` or `mini_batch` (the sampler keeps on-disk ids).
+    `renumber: false` or `mini_batch` (the sampler keeps on-disk ids), with
+    its flat tables and, for `training`, their transpose (the full-batch
+    aggregation and its gradient through csrc/ell_spmm.cu on the card;
+    `mini_batch` trains on the sampler's encodings and builds neither).
     `aggregation: shard_map` (or `auto` on a mesh) builds the same tables
     without transpose tables (the trainer partitions them; the scoring pass,
     predict and rebuild_on use them whole, on one device).
@@ -275,6 +280,8 @@ def build_graph_ops(cfg: dict, data, device: torch.device,
                 gops, rank = renumber_for_ell(gops)
                 data = data.renumber(rank)
         with trace.span("setup.tables"):
+            if not cfg.get("mini_batch", False):
+                gops = with_flat_tables(gops, transpose=training)
             return data, gops.to(device)
     with trace.span("setup.order"):
         rank = bfs_order(data.edge_index, data.num_nodes, data.timestep)

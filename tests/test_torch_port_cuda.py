@@ -14,7 +14,9 @@ mask), bit for bit twice, and their input checks; EvolveGCN-O's chain
 kernels against the plain chain (49 steps, forward and backward, at the
 published widths and ragged ones in one persistent launch a pass, and past
 that launch's limit a step at a time), the model on the card against the
-CPU, and its captured K loop. Every test here needs
+CPU, and its captured K loop; the ELL kernel (csrc/ell_spmm.cu) and its
+transpose against ell_weighted_sum, bit for bit twice, its input checks,
+and the ELL K loop that captures it. Every test here needs
 an NVIDIA GPU and skips without one; this file imports nothing of JAX so
 that it runs on a machine without it:
 
@@ -873,9 +875,10 @@ ELL_ARCH_CFG = {"hidden_dim": 32, "layers": 3, "heads": 4, "dropout": 0.0, "amp"
 @pytest.mark.parametrize("arch", ["sage_resbn", "gcn", "sage", "gat"])
 def test_model_on_ell_graph_cuda_matches_cpu(cuda, arch):
     """Each arch on an EllGraph (models.prepare_graph_ops, the explainer's
-    encoding): the ELL gather on the card against the CPU, in f32 whatever
-    `amp` says (rtol 1e-4, atol 1e-5 through three layers), and no
-    hand-written kernel launched: an EllGraph is not a BSDA table."""
+    encoding, without the flat tables): the ELL gather on the card against
+    the CPU, in f32 whatever `amp` says (rtol 1e-4, atol 1e-5 through three
+    layers), and no hand-written kernel launched: an EllGraph is not a BSDA
+    table, and without its flat tables it keeps the gathers."""
     from elliptic_gnn_tpu_torch.kernels import bsda_spmm_cuda
     from elliptic_gnn_tpu_torch.models import MODEL_GRAPH_KIND, prepare_graph_ops
 
@@ -892,6 +895,7 @@ def test_model_on_ell_graph_cuda_matches_cpu(cuda, arch):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     assert not any(bsda_spmm_cuda.launches.values()), bsda_spmm_cuda.launches
     assert not any(gat_cuda.launches.values()), gat_cuda.launches
+    assert not kernels.launch_counts().get("ell_spmm"), kernels.launch_counts()
 
 
 @pytest.mark.cuda
@@ -919,6 +923,90 @@ def test_bsda_graph_on_cuda_still_runs_the_kernels(cuda, arch):
         assert gat_cuda.launches["gat_fwd"] > 0 and gat_cuda.launches["gat_fwd_gated"] > 0
     else:
         assert sum(bsda_spmm_cuda.launches.values()) > 0, bsda_spmm_cuda.launches
+
+
+# ---------------- the ELL kernel (csrc/ell_spmm.cu) ----------------
+
+def _ell_graph(kind, n=3000, seed=8):
+    """An ELL encoding with the flat tables and their transpose, relabelled
+    by renumber_for_ell: a synthetic graph plus a hub of 300 in-edges (a
+    bucket of one row) and one of 70 out-edges, and two isolated nodes
+    (zero-degree rows under sage; gcn's self-loops leave none)."""
+    from elliptic_gnn_tpu_torch.kernels import ell
+    from elliptic_gnn_tpu_torch.models import prepare_graph_ops
+
+    data = symmetrize_edges(synthetic.generate(
+        num_nodes=n, num_features=4, num_timesteps=8, seed=seed))
+    ei = data.edge_index[:, (data.edge_index < n - 2).all(axis=0)]
+    hub = np.concatenate([np.stack([np.arange(1, 301), np.zeros(300, np.int64)]),
+                          np.stack([np.full(70, 5), np.arange(200, 270)])], axis=1)
+    g = prepare_graph_ops(np.concatenate([ei, hub], axis=1), n, kind)
+    return ell.with_flat_tables(ell.renumber_for_ell(g)[0], transpose=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sage", "gcn"])
+@pytest.mark.parametrize("f", [168, 64, 166, 2])
+def test_ell_kernel_matches_plain(cuda, kind, f):
+    """EllGraph.spmm on its flat tables (one launch forward, one on the
+    transpose backward) against ell_weighted_sum with autograd on the same
+    card, values and gradient: sage's mean, gcn's weights with self-loops,
+    a one-row bucket, rows of a block of their own (more than
+    ell.LONG_DEGREE entries, forward and transpose) and, under sage,
+    zero-degree rows (written as zeros)."""
+    from elliptic_gnn_tpu_torch.kernels import ell, ell_spmm_cuda
+
+    g = _ell_graph(kind).to(cuda)
+    assert g.nbrs[-1].shape[0] == 1 and (g.n_zero_deg >= 2) == (kind == "sage")
+    assert g.flat.long_rows.numel() and g.flat_t.long_rows.numel()
+    plain = dataclasses.replace(g, flat=None, flat_t=None)
+    x = _randn((g.num_nodes, f), f, cuda).requires_grad_()
+    ct = _randn((g.num_nodes, f), f + 1, cuda)
+    kernels.launch_counts(reset=True)
+    out = g.spmm(x)
+    (gx,) = torch.autograd.grad(out, x, ct)
+    assert ell_spmm_cuda.launches["ell_spmm"] == 2
+    want = ell.ell_weighted_sum(plain, x)
+    (gx_want,) = torch.autograd.grad(want, x, ct)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want.detach().cpu().numpy(), **F32)
+    np.testing.assert_allclose(gx.cpu().numpy(), gx_want.cpu().numpy(), **F32)
+    zero = (g.flat.row_ptr[1:] == g.flat.row_ptr[:-1]).nonzero().flatten()
+    assert zero.numel() == g.n_zero_deg and not out[zero].any()
+
+
+@pytest.mark.cuda
+def test_ell_kernel_repeats_bit_for_bit(cuda):
+    """Two runs of the forward and the transpose give the same bits."""
+    g = _ell_graph("gcn").to(cuda)
+    x = _randn((g.num_nodes, 64), 3, cuda).requires_grad_()
+    ct = _randn((g.num_nodes, 64), 4, cuda)
+    runs = []
+    for _ in range(2):
+        out = g.spmm(x)
+        runs.append((out.detach(), torch.autograd.grad(out, x, ct)[0]))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_ell_kernel_rejects_what_it_does_not_take(cuda):
+    """CPU x, bf16 x, x of other rows, tables of another index type, and a
+    gradient without the transpose tables raise; no fallback."""
+    from elliptic_gnn_tpu_torch.kernels import ell_spmm_cuda
+    from elliptic_gnn_tpu_torch.kernels.ell_spmm_cuda import ell_spmm_launch
+
+    g = _ell_graph("sage").to(cuda)
+    x = _randn((g.num_nodes, 8), 0, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ell_spmm_launch(g.flat, x.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        ell_spmm_launch(g.flat, x.bfloat16())
+    with pytest.raises(ValueError, match="must be"):
+        ell_spmm_launch(g.flat, x[1:])
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        ell_spmm_launch(dataclasses.replace(g.flat, col=g.flat.col.long()), x)
+    with pytest.raises(ValueError, match="transpose"):
+        ell_spmm_cuda.ell_spmm_cuda(dataclasses.replace(g, flat_t=None),
+                                    x.requires_grad_())
 
 
 @pytest.fixture(scope="module")
@@ -950,6 +1038,28 @@ def test_k_loop_captured_matches_serial(cuda, tmp_path, kloop_graph, arch):
     assert m4["graph_replays"] == 4 * blocks - 1
     kernels = ("gat_fwd_gated", "gat_fwd", "gat_bwd") if arch == "gat" else ("ring", "banded")
     assert all(m4["graph_launches"].get(name, 0) > 0 for name in kernels)
+
+
+@pytest.mark.cuda
+def test_k_loop_ell_captures_the_kernel(cuda, tmp_path, kloop_graph):
+    """rec_k8 on `aggregation: ell` through the K loop (K = 4, the epoch
+    captured) against the serial loop, dropout on: per-epoch loss and val
+    PR-AUC within 1e-4; the captured epoch launches the ELL kernel 8 times
+    (3 training forward, 2 backward: the features take no gradient, 3 eval)
+    and the BSDA kernel never; the BSDA run launches it never."""
+    m1, loss1, pr1, _ = _kloop_run(tmp_path, kloop_graph, "sage_resbn", 1, "ell_serial",
+                                   aggregation="ell")
+    m4, loss4, pr4, _ = _kloop_run(tmp_path, kloop_graph, "sage_resbn", 4, "ell_k4",
+                                   aggregation="ell")
+    assert m4["epochs_run"] == m1["epochs_run"] == len(loss4)
+    np.testing.assert_allclose(loss4, loss1, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(pr4, pr1, rtol=0, atol=1e-4)
+    launched = m4["graph_launches"]
+    assert launched.get("ell_spmm") == 8, launched
+    assert launched.get("ring", 0) + launched.get("banded", 0) == 0, launched
+    mb, _, _, _ = _kloop_run(tmp_path, kloop_graph, "sage_resbn", 4, "bsda_k4",
+                             max_epochs=4, patience=50)
+    assert mb["graph_launches"].get("ell_spmm", 0) == 0, mb["graph_launches"]
 
 
 @pytest.mark.cuda

@@ -57,8 +57,11 @@ def assert_tables_equal(gj, gp, path="g"):
     assert type(gj).__name__ == type(gp).__name__, path
     for field in dataclasses.fields(gp):
         name = field.name
-        vj, vp = getattr(gj, name), getattr(gp, name)
         where = f"{path}.{name}"
+        if not hasattr(gj, name):  # the port's own (EllGraph.flat, .flat_t): not built here
+            assert getattr(gp, name) is None, where
+            continue
+        vj, vp = getattr(gj, name), getattr(gp, name)
         if vp is None or vj is None:
             assert vp is None and vj is None, where
         elif dataclasses.is_dataclass(vp):
